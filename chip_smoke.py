@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Run the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phase 1 builds the four hand-written kernels (csrc/, nvcc, sm_90a).
+Phase 2 holds each kernel against its plain PyTorch version at the main
+path's shapes, in float32 and float64, and times both.
+Phase 3 runs the flagship slice at full width in float32: C_l at the best
+fit, a plik_lite fiducial written from them, then CMBPosterior (plik_lite
++ tau prior, synthetic BBN table) under StagedMetropolisSampler: init on 8
+chains and one 16-step segment with one slow step.
+
+It fails (non-zero exit, no result line) when there is no CUDA device,
+when the port is not importable, when a kernel does not build, launch or
+agree, or when a phase's output is wrong. The last line of standard output
+is {"ok": true, "device": {...}}; the line before it lists the kernels.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BESTFIT = dict(ombh2=0.02237737, omch2=0.1201035, theta=1.0409020,
+               tau=0.05430138, logA=3.0447260, ns=0.9658923)
+NCHAINS = 8
+SEG_STEPS = 16
+K1_CMP_STEPS = 2048
+F32, F64 = torch.float32, torch.float64
+
+KERNELS = {   # name -> (source, the TPU kernel it replaces)
+    "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
+                "cosmomc_tpu/models/recfast.py:279"),
+    "boltzmann": ("cosmomc_tpu_torch/csrc/perturbations.cu",
+                  "cosmomc_tpu/models/perturbations.py:928"),
+    "los": ("cosmomc_tpu_torch/csrc/cls.cu", "cosmomc_tpu/models/cls.py:285"),
+    "lensing": ("cosmomc_tpu_torch/csrc/lensing.cu",
+                "cosmomc_tpu/models/lensing.py:136"),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def rel_err(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def abs_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def timed(fn, reps=1):
+    """Mean milliseconds of `reps` calls, by CUDA events (after the caller's
+    warm-up), and the last result."""
+    start, stop = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, out
+
+
+def require(ok, what):
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def check_f32(name, k32, p32, r64, floor):
+    """float32 kernel vs the float64 plain result on the same inputs: no
+    less accurate than the float32 plain version (or within `floor`)."""
+    ek, ep = rel_err(k32, r64), rel_err(p32, r64)
+    log(f"  {name:10s} f32 kernel err {ek:.3e}  f32 plain err {ep:.3e} "
+        f"(vs f64 plain)  |kernel-plain| {abs_err(k32, p32):.3e}")
+    require(ek <= max(2.0 * ep, floor), f"{name} float32 accuracy")
+    return abs_err(k32, p32)
+
+
+def check_f64(name, k64, p64):
+    e = rel_err(k64, p64)
+    log(f"  {name:10s} f64 kernel vs plain rel err {e:.3e} (tol 1e-9)")
+    require(e <= 1e-9, f"{name} float64 agreement")
+
+
+def start_points(post, rng, dtype):
+    names = [p.name for p in post.space.varying]
+    P0 = np.tile([p.center for p in post.space.varying], (NCHAINS, 1))
+    for k, v in BESTFIT.items():
+        P0[:, names.index(k)] = v
+    sig = np.array([p.propose_width for p in post.space.varying])
+    P0 += 0.3 * sig * rng.standard_normal(P0.shape)
+    lo = np.array([p.min for p in post.space.varying])
+    hi = np.array([p.max for p in post.space.varying])
+    return torch.as_tensor(np.clip(P0, lo, hi), dtype=dtype, device="cuda")
+
+
+def phase2(dev, results):
+    """Each kernel against its plain version at main-path shapes."""
+    from cosmomc_tpu_torch.models import cls as mcls
+    from cosmomc_tpu_torch.models import lensing as mlens
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models import recfast as mrec
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+    from cosmomc_tpu_torch.models.cmb import source_k_grid
+    from cosmomc_tpu_torch.models.primordial import PrimordialParams
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+
+    par = ThetaParameterization()
+    space = par.default_space()
+    rng = np.random.default_rng(1)
+    full = np.tile([p.center for p in space.params], (NCHAINS, 1))
+    for name in ("ombh2", "omch2", "theta", "tau"):
+        full[:, space.index(name)] = BESTFIT[name] * (
+            1 + 0.002 * rng.standard_normal(NCHAINS))
+    full = torch.as_tensor(full, dtype=F64, device=dev)
+    bg = par.to_background(full)
+    tab = synthetic_bbn_table().to(dev, F64)
+    yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, tab)
+
+    # ---- K4: recfast, 8 chains x 8000 z steps
+    log("K4 recfast: 8 chains x 8000 steps")
+    fHe = yhe / (mrec.const.mass_ratio_He_H * (1.0 - yhe))
+    Nnow = mrec.const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
+    zt64 = mrec._z_tables(bg, mrec.z_grid(mrec.N_Z, dev, F64), fHe,
+                          Nnow).contiguous()
+    zt32, f32 = zt64.float(), fHe.float()
+    k64 = mrec._scan_cuda(zt64, fHe)
+    p64 = mrec._scan_plain(zt64, fHe)
+    for a, b, n in zip(k64, p64, ("xe", "tm")):
+        check_f64("recfast." + n, a, b)
+    mrec._scan_cuda(zt32, f32)
+    ms, k32 = timed(lambda: mrec._scan_cuda(zt32, f32), reps=10)
+    plain_ms, p32 = timed(lambda: mrec._scan_plain(zt32, f32))
+    r64 = mrec._scan_plain(zt32.double(), f32.double())
+    err = max(check_f32("recfast." + n, a, b, c, 1e-4)
+              for a, b, c, n in zip(k32, p32, r64, ("xe", "tm")))
+    results["recfast"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  recfast kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+
+    # ---- K1: Boltzmann, 8 chains x 248 k; compared at n_step=2048 (the
+    # plain version launches ~1e3 ops a step; at 1024 steps the top k lanes
+    # of the kmax=0.5 grid are past RK4's stability limit in float32)
+    th = mrec.compute_thermo(bg, yhe)
+    zre = zre_from_tau(bg, full[:, space.index("tau")], yhe)
+    kgrid = source_k_grid(kmax=0.5)
+    k = torch.as_tensor(kgrid, dtype=F64, device=dev)
+    log(f"K1 boltzmann: 8 chains x {len(kgrid)} k; compare at {K1_CMP_STEPS} steps")
+    tf1, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=K1_CMP_STEPS)
+    q1 = mpert._stage_tables(bg, tf1)
+    rnu = mpert._r_nu(bg).contiguous()
+    check_f64("boltzmann", mpert._evolve_cuda(q1, k, rnu, mpert.RSA_KTAU),
+              mpert._evolve_plain(q1, k, rnu, mpert.RSA_KTAU))
+    q32, k32_, rnu32 = q1.float(), k.float(), rnu.float()
+    mpert._evolve_cuda(q32, k32_, rnu32, mpert.RSA_KTAU)
+    ms, o_k = timed(lambda: mpert._evolve_cuda(q32, k32_, rnu32,
+                                               mpert.RSA_KTAU), reps=3)
+    plain_ms, o_p = timed(lambda: mpert._evolve_plain(q32, k32_, rnu32,
+                                                      mpert.RSA_KTAU))
+    o_r = mpert._evolve_plain(q32.double(), k32_.double(), rnu32.double(),
+                              mpert.RSA_KTAU)
+    err = max(check_f32("boltzmann." + n, o_k[i], o_p[i], o_r[i], 1e-3)
+              for i, n in enumerate(mpert.PLANES))
+    log(f"  boltzmann@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
+    tf, tau0 = mpert.build_thermo_funcs(bg, yhe, th, zre)
+    q = mpert._stage_tables(bg, tf)
+    ms_full = {}
+    for dt in (F32, F64):
+        qd, kd, rd = q.to(dt), k.to(dt), rnu.to(dt)
+        mpert._evolve_cuda(qd, kd, rd, mpert.RSA_KTAU)
+        ms_full[dt], _ = timed(lambda: mpert._evolve_cuda(qd, kd, rd,
+                                                          mpert.RSA_KTAU), 2)
+    log(f"  boltzmann@8192 kernel f32 {ms_full[F32]:.1f} ms, "
+        f"f64 {ms_full[F64]:.1f} ms")
+    results["boltzmann"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                ms_8192_steps=ms_full[F32])
+
+    # ---- K2a: LOS at 109 l x 4521 k x 2048 tau, from the 8192-step sources
+    log("K2a los: 8 chains, lmax 2658, kmax 0.5, tau stride 4")
+    po64 = mpert.evolve_perturbations(bg, tf, tau0, k)
+    ipk = torch.argmax(tf.vis, -1, keepdim=True)
+    chi = tau0 - tf.tau.gather(-1, ipk)[:, 0]
+    args = dict(coarse_k=kgrid, lmax=2658, kmax_hint=0.5, tau_stride=4)
+    fields = ("tau", "k", "s0", "s1", "s2", "slens", "tau0")
+    cast = lambda po, dt: po._replace(**{f: getattr(po, f).to(dt)
+                                         for f in fields})
+    real = mcls._los_cuda
+    clt_k64 = mcls.compute_cl_transfers(po64, chi, **args)
+    mcls._los_cuda = mcls._los_plain
+    try:
+        clt_p64 = mcls.compute_cl_transfers(po64, chi, **args)
+    finally:
+        mcls._los_cuda = real
+    for f in ("dT", "dE", "dP"):
+        check_f64("los." + f, getattr(clt_k64, f), getattr(clt_p64, f))
+    po32, chi32 = cast(po64, F32), chi.float()
+    ms, clt_k = timed(lambda: mcls.compute_cl_transfers(po32, chi32, **args), 3)
+    mcls._los_cuda = mcls._los_plain
+    try:
+        plain_ms, clt_p = timed(lambda: mcls.compute_cl_transfers(po32, chi32,
+                                                                  **args))
+        clt_r = mcls.compute_cl_transfers(cast(po32, F64), chi32.double(),
+                                          **args)
+    finally:
+        mcls._los_cuda = real
+    err = max(check_f32("los." + f, getattr(clt_k, f), getattr(clt_p, f),
+                        getattr(clt_r, f), 1e-4) for f in ("dT", "dE", "dP"))
+    results["los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  los kernel {ms:.1f} ms, plain {plain_ms:.1f} ms "
+        f"(both incl. the wrapper's source striding/weights)")
+
+    # ---- K3: lensing, l = 2..2658, 5315 theta, 8 chains
+    log("K3 lensing: 8 chains, lmax 2658 -> 2508, 5315 theta")
+    pp = PrimordialParams.make(logA=torch.full((NCHAINS,), 3.0447, dtype=F64,
+                                               device=dev),
+                               ns=torch.full((NCHAINS,), 0.9659, dtype=F64,
+                                             device=dev))
+    raw = mcls.cls_from_cl_transfers(clt_k64, pp, lmax=2658)
+    muk2 = 2.7255e6 ** 2
+    st64 = [raw.tt * muk2, raw.te * muk2, raw.ee * muk2, raw.pp]
+    out_k64 = mlens.lens_cls(raw.ls, *st64, lmax_lensed=2508)
+    real = mlens._passes_cuda
+    mlens._passes_cuda = mlens._passes_plain
+    try:
+        out_p64 = mlens.lens_cls(raw.ls, *st64, lmax_lensed=2508)
+    finally:
+        mlens._passes_cuda = real
+    for f in ("tt", "te", "ee", "bb"):
+        check_f64("lensing." + f, getattr(out_k64, f), getattr(out_p64, f))
+    st32 = [x.float() for x in st64]
+    mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508)
+    ms, out_k = timed(lambda: mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508), 5)
+    again = mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508)
+    mlens._passes_cuda = mlens._passes_plain
+    try:
+        plain_ms, out_p = timed(lambda: mlens.lens_cls(raw.ls, *st32,
+                                                       lmax_lensed=2508))
+        out_r = mlens.lens_cls(raw.ls, *[x.double() for x in st32],
+                               lmax_lensed=2508)
+    finally:
+        mlens._passes_cuda = real
+    for f in ("tt", "te", "ee", "bb"):
+        require(torch.equal(getattr(out_k, f), getattr(again, f)),
+                f"lensing.{f} repeatable bit for bit")
+    err = max(check_f32("lensing." + f, getattr(out_k, f), getattr(out_p, f),
+                        getattr(out_r, f), 1e-4) for f in ("tt", "te", "ee", "bb"))
+    results["lensing"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  lensing kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
+
+
+def write_theory_cl(path, cls):
+    """CosmoMC theory_cl columns: L TT TE EE BB PP from a (4, 4, lmax+1)
+    stack (l(l+1)C_l/2pi muK^2)."""
+    c = cls.double().cpu().numpy()
+    ls = np.arange(2, c.shape[-1])
+    np.savetxt(path, np.column_stack([ls, c[0, 0, 2:], c[1, 0, 2:], c[1, 1, 2:],
+                                      c[2, 2, 2:], c[3, 3, 2:]]))
+
+
+def phase3(dev, tmp):
+    """The flagship slice at full width, float32, 8 chains."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.forecast import write_plik_lite_fiducial
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    par = ThetaParameterization()
+    table = synthetic_bbn_table()
+
+    def posterior(likes, dtype):
+        space = par.default_space()
+        space.get("tau").prior_mean = 0.0544
+        space.get("tau").prior_std = 0.0073
+        return CMBPosterior(par, space, likes, bbn_table=table,
+                            nonlinear_lens=False, device=dev, dtype=dtype)
+
+    def at_bestfit(post, dtype):
+        names = [p.name for p in post.space.varying]
+        P = np.array([p.center for p in post.space.varying])
+        for k, v in BESTFIT.items():
+            P[names.index(k)] = v
+        return torch.as_tensor(P[None], dtype=dtype, device=dev)
+
+    # 1. C_l at the best fit through the port (float32 and float64)
+    cls = {}
+    for dt in (F32, F64):
+        p0 = posterior(LikelihoodList(), dt)
+        P = at_bestfit(p0, dt)
+        full = p0.embed_full(P)
+        t0 = time.time()
+        slow = p0.stage_slow(full)
+        cls[dt] = p0.stage_semi(full, slow)["cls"][0]
+        torch.cuda.synchronize()
+        log(f"C_l at best fit ({str(dt)[6:]}) {time.time() - t0:.2f} s")
+    # float32 vs float64 through the whole stack, relative to each
+    # spectrum's maximum over l <= 2000; BB is printed, not held to it
+    e = {n: rel_err(cls[F32][i, j, 2:2001], cls[F64][i, j, 2:2001])
+         for n, i, j in (("TT", 0, 0), ("TE", 1, 0), ("EE", 1, 1), ("BB", 2, 2),
+                         ("PP", 3, 3))}
+    log("lensed C_l (l <= 2000) float32 vs float64 at the best fit, max rel "
+        "err: " + ", ".join(f"{n} {v:.2e}" for n, v in e.items()))
+    require(bool(torch.isfinite(cls[F32]).all()), "finite C_l")
+    for n in ("TT", "TE", "EE", "PP"):
+        require(e[n] < 1e-2, f"float32 {n} within 1% of float64")
+    require(2000.0 < float(cls[F64][0, 0, 220]) < 8000.0, "first peak height")
+
+    # 2. plik_lite fiducial from those C_l
+    theory_cl = os.path.join(tmp, "bestfit.theory_cl")
+    write_theory_cl(theory_cl, cls[F32])
+    ds = write_plik_lite_fiducial(os.path.join(tmp, "plik_fid"), theory_cl)
+
+    # 3. the posterior, float32 (the main path's dtype)
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(ds, name="plik_lite", device=dev, dtype=F32))
+    post = posterior(likes, F32)
+    mll_bf, der_bf = post.logpost()(at_bestfit(post, F32))
+    log(f"-logL at the best fit: {float(mll_bf[0]):.6f}")
+    require(bool(torch.isfinite(mll_bf).all()), "finite -logL at best fit")
+    require(float(mll_bf[0]) < 1.0, "fiducial -logL near 0 at its own point")
+    dn = [n for n, _ in post.derived_names]
+    log("derived at best fit: " + ", ".join(
+        f"{n}={float(der_bf[0, dn.index(n)]):.5g}"
+        for n in ("H0", "omegam", "zstar", "rdrag", "age", "yheused")))
+
+    # 4. the sampler: init on 8 chains, one 16-step segment, one slow step
+    prop = post.make_proposal(oversample_fast=4)
+    w = np.array([p.propose_width for p in post.space.varying])
+    prop.set_covariance(np.diag(w ** 2))
+    sampler = StagedMetropolisSampler(prop, post, seed=0)
+    expensive = [b for b, c in enumerate(sampler.block_class) if c == 0]
+    rng = np.random.default_rng(0)
+    P0 = start_points(post, rng, F32)
+    sched = prop.make_schedule(SEG_STEPS, rng, slow_every=SEG_STEPS,
+                               expensive_blocks=expensive)
+    stage_s = {"slow": 0.0, "semi": 0.0, "fast": 0.0}
+    calls = {"slow": 0, "semi": 0, "fast": 0}
+    for name in stage_s:
+        real = getattr(post, f"stage_{name}")
+
+        def wrapped(*a, _real=real, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = _real(*a)
+            torch.cuda.synchronize()
+            stage_s[_name] += time.time() - t0
+            calls[_name] += 1
+            return out
+        setattr(post, f"stage_{name}", wrapped)
+
+    kernels.reset_launches()
+    t0 = time.time()
+    state = sampler.init_state(P0)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    t0 = time.time()
+    state, out = sampler.run_segment(state, sched)
+    torch.cuda.synchronize()
+    t_seg = time.time() - t0
+    launches = dict(kernels.launches)
+    log(f"init {t_init:.2f} s, segment {t_seg:.2f} s "
+        f"({SEG_STEPS * NCHAINS / t_seg:.2f} chain steps/s)")
+    log("stage wall time: " + ", ".join(
+        f"{n} {stage_s[n]:.3f} s / {calls[n]} calls" for n in stage_s))
+    log("launches in the main-path run: " + json.dumps(launches))
+    mll = state.mloglike
+    log("-logL per chain: " + " ".join(f"{float(v):.3f}" for v in mll))
+    acc = float(out.accept.float().mean())
+    log(f"acceptance {acc:.3f}, step classes "
+        f"{sampler.block_class[np.asarray(sched.block)].tolist()}")
+    require(all(v > 0 for v in launches.values()), "every kernel launched")
+    require(bool(torch.isfinite(mll).all()), "finite -logL")
+    require(bool((mll < 1e29).all()), "no chain stuck at LOG_ZERO")
+    require(out.P.shape == (SEG_STEPS, NCHAINS, post.space.num_varying),
+            "segment output shape")
+    require(bool(torch.isfinite(out.derived).all()), "finite derived")
+    require(not bool(out.error.any()), "no error points")
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's kernels need one",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        from cosmomc_tpu_torch import kernels
+    except ImportError as e:
+        print(f"chip_smoke: the port is not importable here ({e})",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    t0 = time.time()
+    for name in kernels.SOURCES:
+        kernels.load(name)
+    log(f"phase 1: built {len(kernels.SOURCES)} kernels in "
+        f"{time.time() - t0:.1f} s " + json.dumps(
+            {k: round(v, 1) for k, v in kernels.build_seconds.items()}))
+    for name, text in kernels.build_log.items():
+        kind = "?"
+        for line in text.splitlines():
+            if "Compiling entry function" in line:   # mangled: IfE float, IdE double
+                kind = "f64" if "IdE" in line else "f32" if "IfE" in line else "?"
+                fn = line.split("'")[1] if "'" in line else line
+                kind = ("reduce " if "reduce" in fn else "") + kind
+            elif "registers" in line or "spill stores" in line:
+                log(f"  ptxas {name} [{kind}]: {line.split('info    :')[-1].strip()}")
+
+    results = {}
+    t0 = time.time()
+    phase2(dev, results)
+    log(f"phase 2 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE)) as tmp:
+        launches = phase3(dev, tmp)
+    log(f"phase 3 done in {time.time() - t0:.1f} s")
+
+    rows = [dict(name=n, route="cuda", source=src, replaces=rep,
+                 launches=launches[n], **results[n])
+            for n, (src, rep) in KERNELS.items()]
+    log(smi)
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,134 @@
+"""Build, load and launch the hand-written CUDA kernels under csrc/.
+
+Each kernel source has a plain C interface: `<name>_f32(...)` and
+`<name>_f64(...)`, taking device pointers, sizes and a stream, launching on
+that stream without synchronising, and returning `cudaGetLastError()`.
+At first use the source is compiled by nvcc for sm_90a into a shared
+library under `_build/` (keyed by a hash of the sources and flags) and
+loaded with ctypes. Nothing here runs at import time.
+
+`launches[name]` counts the launches each wrapper makes: it is raised by
+one where the kernel is launched, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+
+#: kernel name -> source file; every source also includes common.cuh
+SOURCES = {
+    "recfast": "recfast.cu",          # K4
+    "boltzmann": "perturbations.cu",  # K1
+    "los": "cls.cu",                  # K2a
+    "lensing": "lensing.cu",          # K3
+}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launches = {name: 0 for name in SOURCES}
+#: ptxas report (registers, spills) and build seconds of each built kernel
+build_log: dict = {}
+build_seconds: dict = {}
+_libs: dict = {}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(on PATH or under CUDA_HOME)")
+
+
+def build(name: str) -> str:
+    """Compile csrc/<source> into a shared library (once per content hash);
+    returns its path."""
+    src = os.path.join(CSRC, SOURCES[name])
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for p in (src, os.path.join(CSRC, "common.cuh")):
+        with open(p, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = out + f".{os.getpid()}.tmp"
+    t0 = time.time()
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr[-4000:]}")
+    os.replace(tmp, out)
+    build_seconds[name] = time.time() - t0
+    build_log[name] = res.stderr
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    if name not in _libs:
+        _libs[name] = ctypes.CDLL(build(name))
+    return _libs[name]
+
+
+def check(t: torch.Tensor, what: str, shape, dtype=None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of the given shape
+    (and dtype, where given; float32 or float64 otherwise)."""
+    if not t.is_cuda:
+        raise ValueError(f"{what}: the kernel takes CUDA tensors, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)} != {tuple(shape)}")
+    if dtype is not None and t.dtype != dtype:
+        raise ValueError(f"{what}: dtype {t.dtype} != {dtype}")
+    if dtype is None and t.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{what}: float32 or float64 only, got {t.dtype}")
+
+
+def launch(name: str, dtype: torch.dtype, *args) -> None:
+    """Call `<name>_f32|f64` with tensors as device pointers, ints as int
+    and floats as double, plus the current stream; raise on a CUDA error."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: float32 or float64 only, got {dtype}")
+    fn = getattr(load(name), f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    types, vals, device = [], [], None
+    for a in args:
+        if torch.is_tensor(a):
+            types.append(ctypes.c_void_p)
+            vals.append(a.data_ptr())
+            device = device or a.device
+        elif isinstance(a, (bool, int)):
+            types.append(ctypes.c_int)
+            vals.append(int(a))
+        elif isinstance(a, float):
+            types.append(ctypes.c_double)
+            vals.append(a)
+        else:
+            raise TypeError(f"{name}: unsupported argument {type(a)}")
+    types.append(ctypes.c_void_p)
+    vals.append(torch.cuda.current_stream(device).cuda_stream)
+    fn.argtypes = types
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*vals)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+    launches[name] += 1

@@ -1,0 +1,540 @@
+"""Linear Einstein-Boltzmann evolution, synchronous gauge (kernel K1).
+
+Port of cosmomc_tpu/models/perturbations.py for the base LCDM layout
+(NVAR = 37: CDM, baryons, photon temperature and polarization hierarchies,
+massless neutrinos, metric): Ma & Bertschinger (1995) equations, per-lane
+tight-coupling (TCA) and radiation-streaming (RSA) switches, classical RK4
+on a shared conformal-time grid whose density follows the opacity, lanes
+held on analytic adiabatic ICs until k tau >= IC_RELEASE_KTAU or tau >= 3,
+and source functions at every node normalized by the initial curvature.
+
+The massive-neutrino momentum hierarchy, the dark-energy fluid and CDM
+isocurvature are not in this slice: asking for them raises
+NotImplementedError.
+
+Layout of the work:
+  - `build_thermo_funcs` (plain torch) builds the tau grid and the thermal
+    tables from a recombination history and reionization redshift that the
+    caller computed once;
+  - `_stage_tables` evaluates every k-independent quantity the RHS needs
+    (a, opacity, c_s^2, local step, the species densities, conformal H,
+    pressure, visibility) at the three RK4 stage times of every step, with
+    jnp.interp's arithmetic, as one vectorized pass;
+  - the per-(chain, k) recurrence runs as `_evolve_plain` (batched torch,
+    the reference path and what CPU tensors take) or as the CUDA kernel
+    csrc/perturbations.cu (one thread per (chain, k) lane).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from cosmomc_tpu_torch import kernels
+from cosmomc_tpu_torch.models import constants as const
+from cosmomc_tpu_torch.models.background import (BackgroundParams, H100_MPC,
+                                                 densities, hubble_mpc)
+from cosmomc_tpu_torch.models.neutrino import nu_pres, nu_rho
+from cosmomc_tpu_torch.models.recfast import ThermoHistory
+from cosmomc_tpu_torch.models.reionization import xe_reion
+from cosmomc_tpu_torch.utils.interp import cumsum, gradient, interp, linspace
+
+LMAXG = 12        # photon temperature 0..LMAXG
+LMAXGP = 8        # photon polarization 0..LMAXGP
+LMAXNR = 10       # massless neutrinos 0..LMAXNR
+
+_I_ETA, _I_DC, _I_DB, _I_TB, _I_DG, _I_TG = range(6)
+_I_FG2 = 6
+_I_GP0 = _I_FG2 + (LMAXG - 1)
+_I_DN = _I_GP0 + (LMAXGP + 1)
+_I_TN = _I_DN + 1
+_I_FN2 = _I_TN + 1
+NVAR = _I_FN2 + (LMAXNR - 1)
+
+N_STEP = 8192
+RSA_KTAU = 240.0
+TC_KTAUC = 0.015
+TC_OPACTAU = 200.0
+TC_LAM_MAX = 150.0
+IC_RELEASE_KTAU = 0.08
+
+# fields of the per-stage table (chains, steps, 3 stages, NQ)
+(Q_TAU, Q_OPAC, Q_CSQB, Q_DTLOC, Q_GG, Q_GN, Q_GML, Q_GC, Q_GB, Q_ADOTOA,
+ Q_GRHO, Q_GPRES, Q_R, Q_VIS, Q_EXPMK, Q_GNISW) = range(16)
+NQ = 16
+# output planes
+PLANES = ("s0", "s1", "s2", "slens", "dm", "dmdot", "weyl")
+
+
+class ThermoFuncs(NamedTuple):
+    """Tables on the shared tau grid, each (C, N)."""
+    tau: torch.Tensor
+    a: torch.Tensor
+    opac: torch.Tensor
+    expmk: torch.Tensor
+    vis: torch.Tensor
+    csqb: torch.Tensor
+
+
+class PerturbationOutput(NamedTuple):
+    tau: torch.Tensor          # (C, N)
+    k: torch.Tensor            # (nk,)
+    s0: torch.Tensor           # (C, nk, N)
+    s1: torch.Tensor
+    s2: torch.Tensor
+    spol: torch.Tensor
+    slens: torch.Tensor
+    delta_m: torch.Tensor      # (C, nk)
+    r_init: torch.Tensor       # (C, nk)
+    tau0: torch.Tensor         # (C,)
+    delta_m_z: torch.Tensor    # (C, nz, nk)
+    growth_tau: torch.Tensor   # (C, N)
+    ddelta_m_z: torch.Tensor   # (C, nz, nk)
+    weyl_z: torch.Tensor       # (C, nz, nk)
+    aH_z: torch.Tensor         # (C, nz)
+
+
+def check_switches(massive_nu=False, de_perts=False, iso_cdm_amp=0.0) -> None:
+    if massive_nu or de_perts or iso_cdm_amp != 0.0:
+        raise NotImplementedError(
+            "only the base LCDM layout is ported: the massive-neutrino "
+            "hierarchy, DE fluid and CDM isocurvature are not")
+
+
+def _conformal_time_table(bg: BackgroundParams, n: int = 4096):
+    """tau(a) on a fine log-a grid by cumulative trapezoid; (n,), (C, n)."""
+    dtype, dev = bg.ombh2.dtype, bg.ombh2.device
+    lna = linspace(float(torch.log(torch.tensor(1e-9, dtype=torch.float64))),
+                   0.0, n, dtype=torch.float64, device=dev).to(dtype)
+    a = torch.exp(lna).expand(bg.ombh2.shape[0], -1)
+    f = 1.0 / (a * hubble_mpc(bg, a))
+    dl = lna[1] - lna[0]
+    seg = 0.5 * (f[:, 1:] + f[:, :-1]) * dl
+    tau = torch.cat([torch.zeros_like(f[:, :1]), cumsum(seg)], -1)
+    d = densities(bg)
+    tau0_rad = a[:, 0] / (H100_MPC * torch.sqrt(
+        d["ogh2"] + d["onu1"] * (d["massless_deg"] + d["massive_deg"])))
+    return lna, tau + tau0_rad[:, None]
+
+
+def build_thermo_funcs(bg: BackgroundParams, yhe: torch.Tensor,
+                       th: ThermoHistory, zre: torch.Tensor,
+                       n_step: int = N_STEP, kmax: float = 0.5,
+                       rsa_ktau: float = RSA_KTAU
+                       ) -> Tuple[ThermoFuncs, torch.Tensor]:
+    """Thermal tables on the shared evolution grid from a recombination
+    history `th` and reionization redshift `zre` (each computed once per
+    slow step by the caller). Returns (ThermoFuncs, tau0)."""
+    dtype = bg.ombh2.dtype
+    c = lambda v: v[:, None]
+    lna_tab, tau_tab = _conformal_time_table(bg)
+    a_tab = torch.exp(lna_tab).expand_as(tau_tab)
+    tau0 = tau_tab[:, -1]
+    tau_start_val = min(0.03, IC_RELEASE_KTAU / kmax)
+
+    fHe = yhe / (const.mass_ratio_He_H * (1.0 - yhe))
+    z_t = th.z.flip(-1)
+    xe_tot = th.xe.flip(-1) + xe_reion(z_t, c(zre), c(fHe))
+    tm_t = th.tm.flip(-1)
+    mu_H = 1.0 / (1.0 - yhe)
+    Nnow = const.n_H_today(bg.ombh2, mu_H)
+    akthom = c(const.sigma_thomson * Nnow * const.Mpc)
+
+    def xe_of_z(z):
+        return torch.where(z > 9000.0, c(1.0 + 2.0 * fHe), interp(z, z_t, xe_tot))
+
+    def opac_of_z(z):
+        return akthom * xe_of_z(z) * (1.0 + z) ** 2
+
+    n_prov = 4096
+    tau_start = torch.tensor(tau_start_val, dtype=dtype).item()
+    lt = linspace(float(torch.log(torch.tensor(tau_start, dtype=dtype))),
+                  torch.log(tau0), n_prov)
+    tprov = torch.exp(lt)
+    a_prov = interp(tprov, tau_tab, a_tab)
+    z_prov = 1.0 / a_prov - 1.0
+    opac_prov = opac_of_z(z_prov)
+    d = densities(bg)
+    R_prov = (4.0 / 3.0) * c(d["ogh2"]) / c(bg.ombh2) / a_prov
+    lam = opac_prov * (1.0 + R_prov)
+    lam_active = torch.where(lam <= TC_LAM_MAX, lam, 0.0)
+    k_active = torch.clamp(rsa_ktau / tprov, max=kmax)
+    dt_target = torch.minimum(
+        torch.minimum(torch.clamp(0.9 / k_active, max=5.0),
+                      1.2 / torch.clamp(lam_active, min=1e-10)),
+        0.1 * tprov)
+    dens = 1.0 / dt_target
+    cum = torch.cat([torch.zeros_like(dens[:, :1]), cumsum(
+        0.5 * (dens[:, 1:] + dens[:, :-1]) * (tprov[:, 1:] - tprov[:, :-1]),
+        -1)], -1)
+    cum = cum / cum[:, -1:] * (n_step - 1)
+    idx = torch.arange(n_step, dtype=dtype, device=cum.device).expand(
+        cum.shape[0], -1)
+    tau_grid = interp(idx, cum, tprov)
+
+    a_g = interp(tau_grid, tau_tab, a_tab)
+    z_g = 1.0 / a_g - 1.0
+    opac_g = opac_of_z(z_g)
+    # kappa(tau) = int_tau^tau0 summed BACKWARDS, so small late-time values
+    # are sums of small terms (float32-safe; perturbations.py:296-305)
+    dk = 0.5 * (opac_g[:, 1:] + opac_g[:, :-1]) * (tau_grid[:, 1:]
+                                                   - tau_grid[:, :-1])
+    kappa = torch.cat([cumsum(dk.flip(-1)).flip(-1),
+                       torch.zeros_like(dk[:, :1])], -1)
+    expmk = torch.exp(-kappa)
+    vis = opac_g * expmk
+
+    tm_g = torch.where(z_g > 9000.0, c(bg.tcmb) * (1.0 + z_g),
+                       interp(z_g, z_t, tm_t))
+    lnT = torch.log(torch.clamp(tm_g, min=1e-10))
+    dlnT = gradient(lnT, torch.log(a_g))
+    xe_g = xe_of_z(z_g)
+    mu_b = 1.0 / (1.0 - (1.0 - 1.0 / const.mass_ratio_He_H) * c(yhe)
+                  + xe_g * (1.0 - c(yhe)))
+    csqb = (const.k_B * tm_g / (mu_b * const.m_H * const.c ** 2)
+            * (1.0 - dlnT / 3.0))
+    return ThermoFuncs(tau_grid, a_g, opac_g, expmk, vis, csqb), tau0
+
+
+def grho_terms(bg: BackgroundParams, a: torch.Tensor):
+    """8 pi G a^2 rho_i in Mpc^-2 per species, a (C, M): (grho_g, grho_n,
+    grho_num, gpres_num, grho_c, grho_b, grho_de, grho_k)."""
+    d = {k: v[:, None] for k, v in densities(bg).items()}
+    c = lambda v: v[:, None]
+    C3 = 3.0 * H100_MPC ** 2
+    grho_g = C3 * d["ogh2"] / a ** 2
+    grho_n = C3 * d["onu1"] * d["massless_deg"] / a ** 2
+    gml = C3 * d["onu1"] * d["massive_deg"] / a ** 2
+    am = a * d["nu_mass"]
+    grho_de = C3 * d["omdeh2"] * a ** (2.0 - 3.0 * (1.0 + c(bg.w) + c(bg.wa))) \
+        * torch.exp(-3.0 * c(bg.wa) * (1.0 - a))
+    return (grho_g, grho_n, gml * nu_rho(am), gml * nu_pres(am),
+            C3 * c(bg.omch2) / a, C3 * c(bg.ombh2) / a, grho_de,
+            (C3 * d["omkh2"]).expand_as(a))
+
+
+def _stage_tables(bg: BackgroundParams, tf: ThermoFuncs) -> torch.Tensor:
+    """Every k-independent RHS input at the RK4 stage times (tau_a, the
+    midpoint, tau_b) of every step: (C, N-1, 3, NQ)."""
+    taus = tf.tau
+    dt = taus[:, 1:] - taus[:, :-1]
+    ta = taus[:, :-1]
+    stages = torch.stack([ta, ta + 0.5 * dt, taus[:, 1:]], dim=-1)  # (C,N-1,3)
+    C, M = stages.shape[0], stages.shape[1] * 3
+    ts = stages.reshape(C, M)
+    dtau_tab = torch.cat([dt, dt[:, -1:]], -1)
+    a = interp(ts, taus, tf.a)
+    d = {k: v[:, None] for k, v in densities(bg).items()}
+    c = lambda v: v[:, None]
+    C3 = 3.0 * H100_MPC ** 2
+    gg = C3 * d["ogh2"] / a ** 2
+    gn = C3 * d["onu1"] * d["massless_deg"] / a ** 2
+    gml = C3 * d["onu1"] * d["massive_deg"] / a ** 2
+    gc = C3 * c(bg.omch2) / a
+    gb = C3 * c(bg.ombh2) / a
+    gde = C3 * d["omdeh2"] * a ** (2.0 - 3.0 * (1.0 + c(bg.w) + c(bg.wa))) \
+        * torch.exp(-3.0 * c(bg.wa) * (1.0 - a))
+    gk = C3 * d["omkh2"]
+    # small-mnu layout: the massive eigenstate rides the massless equations
+    grho = gg + gn + gml + gc + gb + gde
+    adotoa = torch.sqrt((grho + gk) / 3.0)
+    w_de = c(bg.w) + c(bg.wa) * (1.0 - a)
+    gpres = (gg + gn) / 3.0 + gml / 3.0 + w_de * gde
+    q = torch.stack([ts, interp(ts, taus, tf.opac), interp(ts, taus, tf.csqb),
+                     interp(ts, taus, dtau_tab), gg, gn, gml, gc, gb, adotoa,
+                     grho, gpres, (4.0 / 3.0) * gg / gb,
+                     interp(ts, taus, tf.vis), interp(ts, taus, tf.expmk),
+                     gn + gml], dim=-1)
+    return q.reshape(C, M // 3, 3, NQ).contiguous()
+
+
+def _r_nu(bg: BackgroundParams) -> torch.Tensor:
+    d = densities(bg)
+    grho_n = d["onu1"] * (d["massless_deg"] + d["massive_deg"])
+    return grho_n / (d["ogh2"] + grho_n)
+
+
+def adiabatic_ics(k: torch.Tensor, tau: torch.Tensor, rnu: torch.Tensor
+                  ) -> torch.Tensor:
+    """MB95 eq (96) adiabatic ICs (C=1): k (nk,), tau and rnu (C, 1) ->
+    state (C, nk, NVAR)."""
+    kt = k * tau
+    dg = -(2.0 / 3.0) * kt ** 2
+    theta = -(1.0 / 18.0) * k * kt ** 3
+    y = torch.zeros(kt.shape + (NVAR,), dtype=kt.dtype, device=kt.device)
+    y[..., _I_DG] = dg
+    y[..., _I_DC] = 0.75 * dg
+    y[..., _I_DB] = 0.75 * dg
+    y[..., _I_DN] = dg
+    y[..., _I_TG] = theta
+    y[..., _I_TB] = theta
+    y[..., _I_TN] = theta * (23.0 + 4.0 * rnu) / (15.0 + 4.0 * rnu)
+    y[..., _I_FN2] = 2.0 * (2.0 * kt ** 2 / (3.0 * (15.0 + 4.0 * rnu)))
+    y[..., _I_ETA] = 2.0 - (5.0 + 4.0 * rnu) / (6.0 * (15.0 + 4.0 * rnu)) * kt ** 2
+    return y
+
+
+def measure_curvature(bg: BackgroundParams, tf: ThermoFuncs, y: torch.Tensor,
+                      k: torch.Tensor) -> torch.Tensor:
+    """Comoving curvature R at the first grid node, (C, nk)."""
+    a = tf.a[:, :1]
+    grho_g, grho_n, grho_num, gpres_num, grho_c, grho_b, grho_de, grho_k = \
+        grho_terms(bg, a)
+    grho = grho_g + grho_n + grho_num + grho_c + grho_b + grho_de
+    adotoa = torch.sqrt((grho + grho_k) / 3.0)
+    wnu = (4.0 / 3.0) * grho_n + grho_num + gpres_num
+    num = (4.0 / 3.0) * grho_g * y[..., _I_TG] + wnu * y[..., _I_TN] \
+        + grho_b * y[..., _I_TB]
+    den = (4.0 / 3.0) * grho_g + wnu + grho_b + grho_c
+    return y[..., _I_ETA] - adotoa * num / (k * k * den)
+
+
+def _rhs(y: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+         rsa_ktau: float):
+    """MB95 synchronous-gauge RHS (perturbations.py:375-683, base layout)
+    for y (C, nk, NVAR) at one stage; q (C, NQ). Returns (dy, aux)."""
+    Q = lambda f: q[:, f:f + 1]
+    tau, opac, csqb, dt_loc = Q(Q_TAU), Q(Q_OPAC), Q(Q_CSQB), Q(Q_DTLOC)
+    grho_g, grho_n, gml, grho_c, grho_b = (Q(Q_GG), Q(Q_GN), Q(Q_GML),
+                                           Q(Q_GC), Q(Q_GB))
+    adotoa, R = Q(Q_ADOTOA), Q(Q_R)
+    eta, dc, db, tb = (y[..., _I_ETA], y[..., _I_DC], y[..., _I_DB],
+                       y[..., _I_TB])
+    dg, tg = y[..., _I_DG], y[..., _I_TG]
+    fg = y[..., _I_FG2:_I_GP0]
+    gp = y[..., _I_GP0:_I_DN]
+    dn, tn = y[..., _I_DN], y[..., _I_TN]
+    fn = y[..., _I_FN2:NVAR]
+    k2 = k * k
+    tau_safe = torch.clamp(tau, min=1e-10)
+
+    tauc = 1.0 / torch.clamp(opac, min=1e-30)
+    rsa = k * tau >= rsa_ktau
+    lam = opac * (1.0 + R)
+    tc_off = ((k * tauc >= TC_KTAUC) | (opac * tau <= TC_OPACTAU)) \
+        & (lam * dt_loc <= 1.3)
+    tc_on = ~tc_off & ~rsa
+
+    dgrho_m = grho_c * dc + grho_b * db
+    z_rsa = (0.5 * dgrho_m / k + k * eta) / adotoa
+    dz_rsa = -adotoa * z_rsa - 0.5 * dgrho_m / k
+    dn_rsa = -4.0 * dz_rsa / k
+    tn_rsa = -k * z_rsa
+    dg_rsa = dn_rsa - (4.0 / k) * opac * (tb / k + z_rsa)
+    dg = torch.where(rsa, dg_rsa, dg)
+    tg = torch.where(rsa, tn_rsa, tg)
+    dn = torch.where(rsa, dn_rsa, dn)
+    tn = torch.where(rsa, tn_rsa, tn)
+
+    wnu_m = (4.0 / 3.0) * gml
+    zero = torch.zeros_like(dg)
+    sigma_n = torch.where(rsa, zero, fn[..., 0] / 2.0)
+    dgrho = (grho_c * dc + grho_b * db + grho_g * dg + grho_n * dn
+             + gml * dn)
+    hdot = (2.0 * k2 * eta + dgrho) / adotoa
+    dgq = ((4.0 / 3.0) * (grho_g * tg + grho_n * tn) + grho_b * tb
+           + wnu_m * tn)
+    etadot = 0.5 * dgq / k2
+
+    fg2_tca = (4.0 / 3.0) * tauc * ((8.0 / 15.0) * tg + (4.0 / 15.0) * hdot
+                                    + (8.0 / 5.0) * etadot)
+    fg2_eff = torch.where(rsa, zero, torch.where(tc_on, fg2_tca, fg[..., 0]))
+    sigma_g = fg2_eff / 2.0
+    pol_term = torch.where(rsa, zero, torch.where(
+        tc_on, 2.5 * fg2_tca, fg[..., 0] + gp[..., 0] + gp[..., 2]))
+    dgpi = (4.0 / 3.0) * (grho_g * sigma_g + grho_n * sigma_n) + wnu_m * sigma_n
+
+    sl = dg / 4.0 - sigma_g
+    tbdot_full = -adotoa * tb + csqb * k2 * db + R * opac * (tg - tb)
+    tgdot_full = k2 * sl + opac * (tb - tg)
+    tbdot_tca = (-adotoa * tb + csqb * k2 * db + R * k2 * sl) / (1.0 + R)
+    tbdot_rsa = -adotoa * tb + csqb * k2 * db
+    tbdot = torch.where(rsa, tbdot_rsa, torch.where(tc_on, tbdot_tca,
+                                                    tbdot_full))
+    tgdot = torch.where(rsa, zero, torch.where(tc_on, tbdot_tca, tgdot_full))
+    dgdot = torch.where(rsa, zero, -(4.0 / 3.0) * tg - (2.0 / 3.0) * hdot)
+    dbdot = -tb - 0.5 * hdot
+    dcdot = -0.5 * hdot
+    dndot = torch.where(rsa, zero, -(4.0 / 3.0) * tn - (2.0 / 3.0) * hdot)
+    tndot = torch.where(rsa, zero, k2 * (dn / 4.0 - sigma_n))
+
+    kk = k[..., None]
+    # photon temperature F_2..F_LMAXG
+    ls_g = torch.arange(2, LMAXG + 1, dtype=y.dtype, device=y.device)
+    f1 = 4.0 * tg / (3.0 * k)
+    fg_prev = torch.cat([f1[..., None], fg[..., :-1]], -1)
+    fg_next = torch.cat([fg[..., 1:], torch.zeros_like(fg[..., :1])], -1)
+    fgdot = (kk / (2 * ls_g + 1)) * (ls_g * fg_prev - (ls_g + 1) * fg_next) \
+        - opac[..., None] * fg
+    fg2dot = (8.0 / 15.0) * tg - (3.0 / 5.0) * k * fg[..., 1] \
+        + (4.0 / 15.0) * hdot + (8.0 / 5.0) * etadot \
+        - opac * (0.9 * fg[..., 0] - 0.1 * (gp[..., 0] + gp[..., 2]))
+    fg_last = k * fg[..., -2] - (LMAXG + 1) / tau_safe * fg[..., -1] \
+        - opac * fg[..., -1]
+    fgdot = torch.cat([fg2dot[..., None], fgdot[..., 1:-1], fg_last[..., None]],
+                      -1)
+    # photon polarization G_0..G_LMAXGP
+    ls_p = torch.arange(0, LMAXGP + 1, dtype=y.dtype, device=y.device)
+    gp_prev = torch.cat([torch.zeros_like(gp[..., :1]), gp[..., :-1]], -1)
+    gp_next = torch.cat([gp[..., 1:], torch.zeros_like(gp[..., :1])], -1)
+    gpdot = (kk / (2 * ls_p + 1)) * (ls_p * gp_prev - (ls_p + 1) * gp_next) \
+        - opac[..., None] * gp
+    gp_last = k * gp[..., -2] - (LMAXGP + 1) / tau_safe * gp[..., -1] \
+        - opac * gp[..., -1]
+    gpdot = torch.cat([(gpdot[..., 0] + opac * 0.5 * pol_term)[..., None],
+                       gpdot[..., 1:2],
+                       (gpdot[..., 2] + opac * 0.1 * pol_term)[..., None],
+                       gpdot[..., 3:-1], gp_last[..., None]], -1)
+    frozen = tc_on | rsa
+    fgdot = torch.where(frozen[..., None], 0.0, fgdot)
+    gpdot = torch.where(frozen[..., None], 0.0, gpdot)
+    # massless neutrinos F_2..F_LMAXNR
+    ls_n = torch.arange(2, LMAXNR + 1, dtype=y.dtype, device=y.device)
+    f1n = 4.0 * tn / (3.0 * k)
+    fn_prev = torch.cat([f1n[..., None], fn[..., :-1]], -1)
+    fn_next = torch.cat([fn[..., 1:], torch.zeros_like(fn[..., :1])], -1)
+    fndot = (kk / (2 * ls_n + 1)) * (ls_n * fn_prev - (ls_n + 1) * fn_next)
+    fn2dot = (8.0 / 15.0) * tn - (3.0 / 5.0) * k * fn[..., 1] \
+        + (4.0 / 15.0) * hdot + (8.0 / 5.0) * etadot
+    fn_last = k * fn[..., -2] - (LMAXNR + 1) / tau_safe * fn[..., -1]
+    fndot = torch.cat([fn2dot[..., None], fndot[..., 1:-1], fn_last[..., None]],
+                      -1)
+    fndot = torch.where(rsa[..., None], 0.0, fndot)
+
+    dy = torch.cat([torch.stack([etadot, dcdot, dbdot, tbdot, dgdot, tgdot],
+                                -1), fgdot, gpdot,
+                    torch.stack([dndot, tndot], -1), fndot], -1)
+    aux = dict(hdot=hdot, etadot=etadot, dgpi=dgpi, sigma_g=sigma_g,
+               sigma_n=sigma_n,
+               sigg_dot=torch.where(frozen, zero, fg2dot) / 2.0,
+               sign_dot=torch.where(rsa, zero, fn2dot) / 2.0,
+               pol_term=pol_term)
+    return dy, aux
+
+
+def _sources(y, dy, aux, q, k):
+    """Newtonian-gauge sources and matter transfers at a node (the JAX
+    sources_at + step tail); returns the 7 planes, each (C, nk)."""
+    Q = lambda f: q[:, f:f + 1]
+    adotoa, grho_g, grho_n = Q(Q_ADOTOA), Q(Q_GG), Q(Q_GNISW)
+    vis, expmk = Q(Q_VIS), Q(Q_EXPMK)
+    k2 = k * k
+    alpha = (aux["hdot"] + 6.0 * aux["etadot"]) / (2.0 * k2)
+    X = 1.5 * aux["dgpi"] / k2
+    eta = y[..., _I_ETA]
+    phi = eta - adotoa * alpha
+    psi = phi - X
+    dadotoa = -(Q(Q_GRHO) + 3.0 * Q(Q_GPRES)) / 6.0
+    alphadot = eta - X - 2.0 * adotoa * alpha
+    phidot = aux["etadot"] - dadotoa * alpha - adotoa * alphadot
+    dgpidot = (4.0 / 3.0) * (
+        -2.0 * adotoa * (grho_g * aux["sigma_g"] + grho_n * aux["sigma_n"])
+        + grho_g * aux["sigg_dot"] + grho_n * aux["sign_dot"])
+    psidot = phidot - 1.5 * dgpidot / k2
+    theta0_N = y[..., _I_DG] / 4.0 - adotoa * alpha
+    vb_N = (y[..., _I_TB] + k2 * alpha) / k
+    Pi = aux["pol_term"] / 4.0
+    s0 = vis * (theta0_N + psi + Pi / 4.0) + expmk * (phidot + psidot)
+    s1 = vis * vb_N
+    s2 = 0.75 * vis * Pi
+    slens = expmk * (phi + psi)
+    weyl = 0.5 * (phi + psi)
+    gc, gb = Q(Q_GC), Q(Q_GB)
+    wsum = gc + gb
+    dm = (gc * y[..., _I_DC] + gb * y[..., _I_DB]) / wsum
+    dmdot = (gc * dy[..., _I_DC] + gb * dy[..., _I_DB]) / wsum
+    return s0, s1, s2, slens, dm, dmdot, weyl
+
+
+def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
+                  rsa_ktau: float) -> torch.Tensor:
+    """RK4 over the grid as batched torch; returns (7, C, N-1, nk)."""
+    C, S = qtab.shape[0], qtab.shape[1]
+    rn = rnu[:, None]
+    out = torch.empty(len(PLANES), C, S, k.shape[0], dtype=qtab.dtype,
+                      device=qtab.device)
+    y = adiabatic_ics(k, qtab[:, 0, 0, Q_TAU:Q_TAU + 1], rn)
+    with torch.no_grad():
+        for i in range(S):
+            qa, qm, qb = qtab[:, i, 0], qtab[:, i, 1], qtab[:, i, 2]
+            tau_a, tau_b = qa[:, Q_TAU:Q_TAU + 1], qb[:, Q_TAU:Q_TAU + 1]
+            dt = (tau_b - tau_a)[..., None]
+            k1, _ = _rhs(y, qa, k, rsa_ktau)
+            k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau)
+            k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau)
+            k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau)
+            y_new = y + (dt / 6.0) * (k1 + 2 * k2_ + 2 * k3_ + k4_)
+            released = (k * tau_b >= IC_RELEASE_KTAU) | (tau_b >= 3.0)
+            y = torch.where(released[..., None], y_new,
+                            adiabatic_ics(k, tau_b, rn))
+            dy, aux = _rhs(y, qb, k, rsa_ktau)
+            out[:, :, i] = torch.stack(_sources(y, dy, aux, qb, k))
+    return out
+
+
+def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
+                 rsa_ktau: float) -> torch.Tensor:
+    """csrc/perturbations.cu: one thread per (chain, k) lane runs the whole
+    tau loop with the 37-variable state in registers.
+
+    Replaces cosmomc_tpu/models/perturbations.py:evolve_perturbations (the
+    lax.scan at :928 over make_rhs.rhs and rk4_step). Bound: 5 RHS
+    evaluations a step, ~8191 dependent steps per lane, about 2.5e3 flops
+    a step: compute- and latency-bound, with the RK4 stages (4 x 37 values)
+    more than the register file holds without spills. Outputs go to
+    (plane, chain, step, k), so neighbouring threads store neighbouring
+    addresses."""
+    C, S = qtab.shape[0], qtab.shape[1]
+    nk = k.shape[0]
+    kernels.check(qtab, "qtab", (C, S, 3, NQ))
+    kernels.check(k, "k", (nk,), qtab.dtype)
+    kernels.check(rnu, "rnu", (C,), qtab.dtype)
+    out = torch.empty(len(PLANES), C, S, nk, dtype=qtab.dtype,
+                      device=qtab.device)
+    kernels.launch("boltzmann", qtab.dtype, qtab, k, rnu, out, C, S, nk,
+                   float(rsa_ktau))
+    return out
+
+
+def evolve_perturbations(bg: BackgroundParams, tf: ThermoFuncs,
+                         tau0: torch.Tensor, k: torch.Tensor,
+                         z_outputs: Tuple[float, ...] = (0.0,),
+                         rsa_ktau: float = RSA_KTAU,
+                         massive_nu: bool = False, de_perts: bool = False,
+                         iso_cdm_amp=0.0) -> PerturbationOutput:
+    """Evolve all k modes of every chain over the shared grid."""
+    check_switches(massive_nu, de_perts, iso_cdm_amp)
+    dtype = tf.tau.dtype
+    k = k.to(dtype=dtype, device=tf.tau.device).contiguous()
+    C, N = tf.tau.shape
+    qtab = _stage_tables(bg, tf)
+    rnu = _r_nu(bg).contiguous()
+    evolve = _evolve_plain if qtab.device.type == "cpu" else _evolve_cuda
+    raw = evolve(qtab, k, rnu, rsa_ktau)                  # (7, C, N-1, nk)
+
+    y0 = adiabatic_ics(k, tf.tau[:, :1], rnu[:, None])
+    norm = measure_curvature(bg, tf, y0, k)               # (C, nk)
+    planes = torch.cat([torch.zeros_like(raw[:, :, :1]), raw], 2)
+    planes = planes.transpose(2, 3)                        # (7, C, nk, N)
+    s0, s1, s2, slens, dm_t, dmdot_t, weyl_t = planes.unbind(0)
+
+    lna_tab, tau_tab = _conformal_time_table(bg)
+    a_out = torch.tensor([1.0 / (1.0 + z) for z in z_outputs], dtype=dtype,
+                         device=tf.tau.device)
+    tau_out = interp(torch.log(a_out).expand(C, -1), lna_tab.expand(C, -1),
+                     tau_tab)                              # (C, nz)
+
+    def snap(rows):                                        # (C, nk, N) -> (C, nz, nk)
+        return interp(tau_out[:, None, :], tf.tau[:, None, :],
+                      rows).transpose(1, 2)
+    grhos = grho_terms(bg, a_out.expand(C, -1))
+    aH_out = torch.sqrt((grhos[0] + grhos[1] + grhos[2] + grhos[4] + grhos[5]
+                         + grhos[6] + grhos[7]) / 3.0)
+    nrm = norm[:, :, None]
+    return PerturbationOutput(
+        tau=tf.tau, k=k, s0=s0 / nrm, s1=s1 / nrm, s2=s2 / nrm, spol=s2 / nrm,
+        slens=slens / nrm, delta_m=dm_t[:, :, -1] / norm, r_init=norm,
+        tau0=tau0, delta_m_z=snap(dm_t) / norm[:, None, :], growth_tau=tf.tau,
+        ddelta_m_z=snap(dmdot_t) / norm[:, None, :],
+        weyl_z=snap(weyl_t) / norm[:, None, :], aH_z=aH_out)

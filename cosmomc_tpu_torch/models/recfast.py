@@ -1,0 +1,277 @@
+"""Recombination history x_e(z): RECFAST 1.5.2 model (kernel K4).
+
+Port of cosmomc_tpu/models/recfast.py:compute_thermo. The model is the
+same: Peebles effective 3-level H with the recfast 1.5 fudge and double-
+Gaussian K correction, the HeI singlet channel, Compton-coupled T_M, and
+Saha phases for He++, He+ and H. Each step of the descending-z grid is a
+Crank-Nicolson update with two Newton iterations, T_M first, then He (with
+x_H frozen), then H (with the new x_He). The code, not the JAX docstring's
+"backward Euler", is what is ported.
+
+Layout of the work:
+  - every quantity that depends on z alone (H(z), n_H(z), T_rad, the K
+    correction and the three Saha solutions) is evaluated in one
+    vectorized pass over the whole (chains, N_Z) grid by `_z_tables`;
+  - the recurrence itself (T_M, x_He, x_H) runs either as a Python loop
+    of batched torch ops (`_scan_plain`, the reference path, and what
+    CPU tensors take) or as the CUDA kernel csrc/recfast.cu (one thread
+    per chain, the z loop inside the thread).
+
+The Newton derivative of each Crank-Nicolson residual is written in
+closed form (the JAX package takes jax.grad of the same expression); it is
+exact, and both paths share it line for line.
+
+float32 hardening kept from the JAX package: the cancellation-free
+quadratic root (`quad_root`), the clipped decaying exponential in the He
+escape rate, and n_H from one folded prefactor (constants.n_H_today).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cosmomc_tpu_torch import kernels
+from cosmomc_tpu_torch.models import constants as const
+from cosmomc_tpu_torch.models.background import BackgroundParams, hubble_mpc
+
+# ---- atomic data (recfast 1.5.2 table) ------------------------------------
+Lambda_H = 8.2245809
+Lambda_He = 51.3
+L_H_ion = 1.096787737e7
+L_H_alpha = 8.225916453e6
+L_He1_ion = 1.98310772e7
+L_He2_ion = 4.389088863e7
+L_He_2s = 1.66277434e7
+L_He_2p = 1.71134891e7
+
+a_PPB, b_PPB, c_PPB, d_PPB = 4.309, -0.6166, 0.6703, 0.5300
+a_VF, b_VF = 10.0 ** (-16.744), 0.711
+T_0_VF, T_1_VF = 10.0 ** 0.477121, 10.0 ** 5.114
+
+FUDGE_H = 1.125
+FUDGE_HE = 0.86
+AGauss1, AGauss2 = -0.14, 0.079
+zGauss1, zGauss2 = 7.28, 6.73
+wGauss1, wGauss2 = 0.18, 0.33
+
+_CR = 2.0 * np.pi * (const.m_e / const.h_planck) * (const.k_B / const.h_planck)
+_CB1 = const.h_planck * const.c * L_H_ion / const.k_B
+_CDB = const.h_planck * const.c * (L_H_ion - L_H_alpha) / const.k_B
+_CL = const.h_planck * const.c * L_H_alpha / const.k_B
+_CB1_He1 = const.h_planck * const.c * L_He1_ion / const.k_B
+_CB1_He2 = const.h_planck * const.c * L_He2_ion / const.k_B
+_CDB_He = const.h_planck * const.c * (L_He1_ion - L_He_2s) / const.k_B
+_CL_He = const.h_planck * const.c * L_He_2s / const.k_B
+_CK = (1.0 / L_H_alpha) ** 3 / (8.0 * np.pi)
+_CK_He = (1.0 / L_He_2p) ** 3 / (8.0 * np.pi)
+_CompT = (8.0 / 3.0) * (const.sigma_thomson / (const.m_e * const.c)) \
+    * const.a_rad
+_Bfact = const.h_planck * const.c * (L_He_2p - L_He_2s) / const.k_B
+
+N_Z = 8000
+Z_INIT = 1e4
+
+#: the constants csrc/recfast.cu reads, folded as the Python expressions fold
+KERNEL_CONSTS = (_CR, _CDB, _CL, _CDB_He, _CL_He, _CK_He, _CompT, _Bfact,
+                 Lambda_H, Lambda_He, FUDGE_H * 1e-19 * a_PPB, b_PPB, c_PPB,
+                 d_PPB, FUDGE_HE * a_VF, 1 - b_VF, 1 + b_VF, T_0_VF, T_1_VF)
+
+# rows of the z table handed to both recurrence paths
+(ZT_Z, ZT_TR, ZT_CT, ZT_HZ1, ZT_N, ZT_NHE, ZT_KHE, ZT_KH, ZT_XEEARLY,
+ ZT_XHESAHA, ZT_XHSAHA, ZT_TMHOT) = range(12)
+N_ZT = 12
+
+
+class ThermoHistory(NamedTuple):
+    z: torch.Tensor      # (C, N) descending
+    xe: torch.Tensor     # (C, N) free-electron fraction n_e/n_H
+    tm: torch.Tensor     # (C, N) matter temperature [K]
+
+
+def z_grid(n_z: int, device, dtype) -> torch.Tensor:
+    """The descending-z grid, log-spaced in (1+z) from Z_INIT to 0."""
+    lz = torch.linspace(float(np.log(1.0 + Z_INIT)), 0.0, n_z,
+                        dtype=torch.float64).to(device=device, dtype=dtype)
+    return torch.exp(lz) - 1.0
+
+
+def quad_root(B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Positive root of x^2 + B x - C = 0, cancellation-free for either
+    sign of B (float32-safe)."""
+    tiny = torch.finfo(B.dtype).tiny
+    disc = torch.sqrt(B * B + 4.0 * C + tiny)
+    den = torch.where(B > 0.0, disc + B, 1.0)
+    return torch.where(B > 0.0, 2.0 * C / den, 0.5 * (disc - B))
+
+
+def _z_tables(bg: BackgroundParams, zs: torch.Tensor, fHe: torch.Tensor,
+              Nnow: torch.Tensor) -> torch.Tensor:
+    """Every z-only quantity of the scan, (C, N_ZT, N): z, T_rad, the
+    Compton factor CompT T_rad^4/(H (1+z)), H (1+z), n_H, n_He, the He and
+    H escape factors, the capped He++ Saha x_e, the He+ and H Saha
+    solutions, and the radiation-locked T_M."""
+    C = fHe.shape[0]
+    z = zs.expand(C, -1)
+    c = lambda v: v[:, None]
+    tr = c(bg.tcmb) * (1.0 + z)
+    n = c(Nnow) * (1.0 + z) ** 3
+    Hz = hubble_mpc(bg, 1.0 / (1.0 + z)) * const.c / const.Mpc
+    hz1 = Hz * (1.0 + z)
+    lz1 = torch.log(1.0 + z)
+    corr = (1.0 + AGauss1 * torch.exp(-((lz1 - zGauss1) / wGauss1) ** 2)
+            + AGauss2 * torch.exp(-((lz1 - zGauss2) / wGauss2) ** 2))
+    lcr = 1.5 * torch.log(_CR * tr)
+    rhs2 = torch.exp(lcr - _CB1_He2 / tr) / n
+    xe_he2 = quad_root(rhs2 - 1.0 - c(fHe), (1.0 + 2.0 * c(fHe)) * rhs2)
+    rhs1 = 4.0 * torch.exp(lcr - _CB1_He1 / tr) / n
+    x0 = quad_root(rhs1 - 1.0, (1.0 + c(fHe)) * rhs1)
+    rhsh = torch.exp(lcr - _CB1 / tr) / n
+    return torch.stack([
+        z, tr, _CompT * tr ** 4 / hz1, hz1, n, c(fHe) * n, _CK_He / Hz,
+        _CK * corr / Hz, torch.minimum(xe_he2, 1.0 + 2.0 * c(fHe)),
+        ((x0 - 1.0) / c(fHe)).clamp(0.0, 1.0), quad_root(rhsh, rhsh), tr],
+        dim=1)
+
+
+def _alpha_H(tm):
+    t = tm / 1e4
+    return FUDGE_H * 1e-19 * a_PPB * t ** b_PPB / (1.0 + c_PPB * t ** d_PPB)
+
+
+def _alpha_He(tm):
+    sq0 = torch.sqrt(tm / T_0_VF)
+    sq1 = torch.sqrt(tm / T_1_VF)
+    return FUDGE_HE * a_VF / (sq0 * (1 + sq0) ** (1 - b_VF)
+                              * (1 + sq1) ** (1 + b_VF))
+
+
+def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor):
+    """The recurrence as batched torch ops; zt (C, N_ZT, N). Returns
+    (xe, tm), each (C, N)."""
+    C, _, N = zt.shape
+    steps = zt.permute(2, 1, 0).unbind(0)          # N x (N_ZT, C)
+    xe_out = torch.empty(N, C, dtype=zt.dtype, device=zt.device)
+    tm_out = torch.empty_like(xe_out)
+    xe_out[0] = 1.0 + 2.0 * fHe
+    tm_out[0] = steps[0][ZT_TMHOT]
+    xH = torch.ones_like(fHe)
+    xHe = torch.ones_like(fHe)
+    tm = tm_out[0]
+
+    def cn(x, f_prev, dz, rhs):
+        xp = x + dz * f_prev
+        for _ in range(2):
+            v, d = rhs(xp)
+            g = xp - x - 0.5 * dz * (f_prev + v)
+            gp = 1.0 - 0.5 * dz * d
+            xp = xp - g / torch.where(gp.abs() > 1e-12, gp, 1.0)
+        return xp
+
+    def he_rate(r, t):
+        rdown = _alpha_He(t)
+        rup = 4.0 * rdown * (_CR * t) ** 1.5 * torch.exp(-_CDB_He / t)
+        return (rdown, rup, torch.exp(-_CL_He / t), -_Bfact / t,
+                r[ZT_KHE], r[ZT_N], r[ZT_NHE], r[ZT_HZ1])
+
+    def dxhe(xx, xe, rate):
+        # He singlet rate (xe = x_H + fHe xx) and its derivative in xx
+        rdown, rup, ecl, bt, khe, n, nhe, hz1 = rate
+        nhe1 = (1.0 - xx) * nhe
+        live = nhe1 > 1e-30
+        nhe1 = torch.where(live, nhe1, 1e-30)
+        arg = bt - torch.log(khe * nhe1)
+        u = torch.exp(torch.clamp(arg, max=80.0))
+        du = torch.where(live & (arg < 80.0), u * nhe / nhe1, 0.0)
+        den = u + Lambda_He + rup
+        crate = (u + Lambda_He) / den
+        dcrate = du * rup / (den * den)
+        q = xe * xx * n * rdown - rup * (1.0 - xx) * ecl
+        dq = (fHe * xx + xe) * n * rdown + rup * ecl
+        return q * crate / hz1, (dq * crate + q * dcrate) / hz1
+
+    def h_rate(r, t):
+        rdown = _alpha_H(t)
+        rup = rdown * (_CR * t) ** 1.5 * torch.exp(-_CDB / t)
+        return rdown, rup, torch.exp(-_CL / t), r[ZT_KH], r[ZT_N], r[ZT_HZ1]
+
+    def dxh(xx, xe, rate):
+        # Peebles rate (xe = xx + fHe x_He) and its derivative in xx
+        rdown, rup, ecl, K, n, hz1 = rate
+        n1s = (1.0 - xx) * n
+        live = n1s > 1e-30
+        n1s = torch.where(live, n1s, 1e-30)
+        den = 1.0 + K * (Lambda_H + rup) * n1s
+        crate = (1.0 + K * Lambda_H * n1s) / den
+        dcrate = torch.where(live, n * K * rup / (den * den), 0.0)
+        q = xe * xx * n * rdown - rup * (1.0 - xx) * ecl
+        dq = (xx + xe) * n * rdown + rup * ecl
+        return q * crate / hz1, (dq * crate + q * dcrate) / hz1
+
+    with torch.no_grad():
+        for i in range(N - 1):
+            r0, r1 = steps[i], steps[i + 1]
+            z = r1[ZT_Z]
+            dz = z - r0[ZT_Z]
+            xe_tot = xH + fHe * xHe
+            # T_M: dTm/dz = A (tm - tr) + 2 tm/(1+z), A = CT xe/(1+xe+fHe)
+            xfac = xe_tot / (1.0 + xe_tot + fHe)
+            A0, A1 = r0[ZT_CT] * xfac, r1[ZT_CT] * xfac
+            tr1, zp1 = r1[ZT_TR], 1.0 + z
+            fT = A0 * (tm - r0[ZT_TR]) + 2.0 * tm / (1.0 + r0[ZT_Z])
+            tm_new = cn(tm, fT, dz, lambda tt: (A1 * (tt - tr1) + 2.0 * tt / zp1,
+                                                A1 + 2.0 / zp1))
+            # He singlet channel, x_H frozen
+            he1 = he_rate(r1, tm_new)
+            f_he = dxhe(xHe, xe_tot, he_rate(r0, tm))[0]
+            xHe_ode = cn(xHe, f_he, dz, lambda xx: dxhe(xx, xH + fHe * xx, he1))
+            # H with the new x_He
+            h1 = h_rate(r1, tm_new)
+            f_h = dxh(xH, xe_tot, h_rate(r0, tm))[0]
+            xH_ode = cn(xH, f_h, dz,
+                        lambda xx: dxh(xx, xx + fHe * xHe_ode, h1))
+            # regime selection
+            xhe_s, xh_s = r1[ZT_XHESAHA], r1[ZT_XHSAHA]
+            xHe = torch.where(xhe_s > 0.995, xhe_s, xHe_ode).clamp(0.0, 1.0)
+            xH = torch.where(xh_s > 0.985, xh_s, xH_ode).clamp(0.0, 1.0)
+            xe_out[i + 1] = torch.where(z > 5500.0, r1[ZT_XEEARLY],
+                                        xH + fHe * xHe)
+            tm = torch.where(z > 3000.0, r1[ZT_TMHOT], tm_new)
+            tm_out[i + 1] = tm
+    return xe_out.T.contiguous(), tm_out.T.contiguous()
+
+
+def _scan_cuda(zt: torch.Tensor, fHe: torch.Tensor):
+    """csrc/recfast.cu: one thread per chain walks the z grid.
+
+    Replaces cosmomc_tpu/models/recfast.py:compute_thermo (the lax.scan at
+    :279). Bound: the 7999-step dependency chain of each chain's state;
+    about 300 flops a step, so the kernel is latency-bound and uses a
+    handful of warps. The design keeps only the state-dependent recurrence
+    in the thread and reads every z-only quantity from the precomputed
+    table."""
+    C, nzt, N = zt.shape
+    kernels.check(zt, "zt", (C, N_ZT, N))
+    kernels.check(fHe, "fHe", (C,), zt.dtype)
+    xe = torch.empty(C, N, dtype=zt.dtype, device=zt.device)
+    tm = torch.empty_like(xe)
+    kc = torch.tensor(KERNEL_CONSTS, dtype=zt.dtype, device=zt.device)
+    kernels.launch("recfast", zt.dtype, zt, fHe, kc, xe, tm, C, N)
+    return xe, tm
+
+
+def compute_thermo(bg: BackgroundParams, yhe: torch.Tensor,
+                   n_z: int = N_Z) -> ThermoHistory:
+    """Integrate the recombination history for every chain.
+    Returns descending-z tables (C, n_z)."""
+    dtype, dev = bg.ombh2.dtype, bg.ombh2.device
+    mu_H = 1.0 / (1.0 - yhe)
+    Nnow = const.n_H_today(bg.ombh2, mu_H)
+    fHe = yhe / (const.mass_ratio_He_H * (1.0 - yhe))
+    zs = z_grid(n_z, dev, dtype)
+    zt = _z_tables(bg, zs, fHe, Nnow).contiguous()
+    scan = _scan_plain if dev.type == "cpu" else _scan_cuda
+    xe, tm = scan(zt, fHe.contiguous())
+    return ThermoHistory(zs.expand(yhe.shape[0], -1), xe, tm)

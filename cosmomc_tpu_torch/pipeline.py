@@ -1,0 +1,301 @@
+"""Posterior assembly: parameterization + theory + likelihoods -> logpost.
+
+Port of cosmomc_tpu/pipeline.py:CMBPosterior (GeneralSetup.f90 TSetup +
+calclike.f90), batched over chains: every stage takes the (C, n) full
+parameter vectors of C chains and returns per-chain tensors.
+
+  stage_slow   thermal history (K4, once), Boltzmann transfers (K1), the
+               line-of-sight Delta_l(k) (K2a), background tables and the
+               slow derived scalars;
+  stage_semi   primordial power on the cached transfers and lensing (K3);
+  stage_fast   likelihoods and the derived-parameter list.
+
+This slice covers the flagship configuration without BAO and halofit:
+`nonlinear_lens=True`, matter power, tensors, the high-l template splice,
+`use_cmb=False`, the recurrence LOS engine and sampled mnu/w/wa/alpha1
+raise NotImplementedError. The BBN table is always passed in.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+from cosmomc_tpu_torch.models import background as bgm
+from cosmomc_tpu_torch.models.bbn import BBNTable, dh_bbn, yhe_bbn
+from cosmomc_tpu_torch.models.cls import cls_from_cl_transfers, compute_cl_transfers
+from cosmomc_tpu_torch.models.cmb import compute_transfers, source_k_grid
+from cosmomc_tpu_torch.models.lensing import lens_cls
+from cosmomc_tpu_torch.models.primordial import PrimordialParams
+from cosmomc_tpu_torch.models.recfast import compute_thermo
+from cosmomc_tpu_torch.models.reionization import zre_from_tau
+from cosmomc_tpu_torch.models.theory import CMBTheoryProducts
+from cosmomc_tpu_torch.models.thermo import compute_thermo_tables, thermo_derived
+from cosmomc_tpu_torch.params.space import Param, ParameterSpace, Speed
+from cosmomc_tpu_torch.sampling.metropolis import make_bounded_posterior
+from cosmomc_tpu_torch.sampling.proposal import BlockedProposal
+from cosmomc_tpu_torch.utils.interp import interp
+from cosmomc_tpu_torch.utils.paramnames import ParamInfo, ParamNames
+
+PRIMORDIAL_PARAMS = [
+    Param("logA", 3.044, 1.61, 3.91, 0.001, 0.001,
+          r"{\rm{ln}}(10^{10} A_s)", Speed.SEMISLOW),
+    Param("ns", 0.965, 0.8, 1.2, 0.004, 0.002, "n_s", Speed.SEMISLOW),
+]
+
+CMB_DERIVED_NAMES = [
+    ("H0", "H_0"), ("omegam", r"\Omega_m"), ("omegal", r"\Omega_\Lambda"),
+    ("omegamh2", r"\Omega_m h^2"), ("omeganuh2", r"\Omega_\nu h^2"),
+    ("omegamh3", r"\Omega_m h^3"),
+    ("zrei", "z_{re}"), ("A", "10^9 A_s"), ("clamp", r"10^9 A_s e^{-2\tau}"),
+    ("yheused", "Y_P"), ("YpBBN", r"Y_P^{\rm{BBN}}"), ("DHBBN", r"10^5D/H"),
+    ("age", r"{\rm{Age}}/{\rm{Gyr}}"),
+    ("zstar", "z_*"), ("rstar", "r_*"), ("thetastar", r"100\theta_*"),
+    ("DAstar", r"D_{\rm{M}}(z_*)/{\rm{Gpc}}"),
+    ("zdrag", r"z_{\rm{drag}}"), ("rdrag", r"r_{\rm drag}"),
+    ("rdragh", r"r_{\rm drag} h"),
+    ("kd", r"k_{\rm D}"), ("thetad", r"100\theta_{\rm{D}}"),
+    ("zeq", r"z_{\rm{eq}}"), ("keq", r"k_{\rm{eq}}"),
+    ("thetaeq", r"100\theta_{\rm{eq}}"),
+    ("thetarseq", r"100\theta_{\rm{s,eq}}"),
+]
+
+#: parameters whose sampling needs a sector this slice does not have
+_UNPORTED_SAMPLED = ("mnu", "w", "wa", "alpha1")
+
+
+def _ztag(z: float) -> str:
+    return f"{z:g}".replace(".", "")
+
+
+def _unported(what: str):
+    raise NotImplementedError(f"CMBPosterior: {what} is not ported yet")
+
+
+@dataclass
+class CMBPosterior:
+    """Theta-parameterized LCDM -> Boltzmann C_l -> CMB likelihoods.
+
+    Sampled blocks: SLOW ombh2, omch2, theta, tau; SEMISLOW logA, ns; FAST
+    likelihood nuisance. YHe follows BBN consistency from `bbn_table`."""
+    parameterization: object                 # ThetaParameterization
+    space: ParameterSpace
+    likes: LikelihoodList
+    bbn_table: BBNTable = None
+    lmax: int = 2508
+    kmax: float = 0.5
+    lens_margin: int = 150
+    lmax_computed: int = 0
+    highl_template: str = ""
+    matter_power: bool = False
+    z_outputs: Tuple[float, ...] = (0.38, 0.51, 0.61)
+    n_step_boltzmann: int = 0
+    source_nk: Optional[Tuple[int, int]] = None
+    los_method: str = "auto"                 # "table" | "auto" (= table)
+    los_tau_stride: int = 4
+    nonlinear_lens: bool = True
+    massive_nu_hierarchy: object = "auto"
+    de_perturbations: object = "auto"
+    use_cmb: bool = True
+    compute_tensors: bool = False
+    device: object = None
+    dtype: torch.dtype = torch.float64
+
+    def __post_init__(self):
+        self.device = torch.device(self.device or "cpu")
+        if self.bbn_table is None:
+            raise ValueError("CMBPosterior needs bbn_table= (load_bbn_table(path) "
+                             "or synthetic_bbn_table())")
+        if self.nonlinear_lens:
+            _unported("nonlinear_lens=True (the halofit lensing ratio)")
+        if self.compute_tensors:
+            _unported("compute_tensors")
+        if not self.use_cmb:
+            _unported("use_cmb=False")
+        if self.los_method == "recurrence":
+            _unported("the recurrence LOS engine")
+        if self.los_method not in ("table", "auto"):
+            raise ValueError(f"unknown los_method {self.los_method!r}")
+        for p in PRIMORDIAL_PARAMS:
+            if p.name not in self.space:
+                self.space.add(Param(**p.__dict__))
+        self.slices = self.likes.add_nuisance_to_space(self.space)
+        self.varying_idx = self.space.varying_indices
+        self._full_template = np.array([p.center for p in self.space.params])
+        self._i_logA = self.space.index("logA")
+        self._i_ns = self.space.index("ns")
+        self._i_tau = self.space.index("tau")
+        self.bbn_table = self.bbn_table.to(self.device, self.dtype)
+        for like in self.likes.likes:
+            need = getattr(like, "required_lmax", lambda: 0)()
+            if need > self.lmax:
+                self.lmax = int(need)
+            if getattr(like, "needs_matter_power", False):
+                self.matter_power = True
+            if getattr(like, "required_kmax", 0.0) > self.kmax:
+                self.kmax = float(like.required_kmax)
+        if self.matter_power:
+            _unported("matter_power")
+        if self.lmax_computed >= self.lmax:
+            self.lmax_computed = 0
+        if self.lmax_computed or self.highl_template:
+            _unported("lmax_computed / highl_template (the high-l splice)")
+        for name in _UNPORTED_SAMPLED:
+            if name in self.space and self.space.get(name).varying:
+                _unported(f"sampling {name}")
+        for name, default in (("mnu", 0.06), ("w", -1.0), ("wa", 0.0),
+                              ("alpha1", 0.0)):
+            if name in self.space:
+                c = self.space.get(name).center
+                if (name == "mnu" and c > 0.2) or (name != "mnu"
+                                                   and abs(c - default) > 1e-6):
+                    _unported(f"{name} = {c} (needs an unported sector)")
+        if self.massive_nu_hierarchy is True or self.de_perturbations is True:
+            _unported("the massive-neutrino hierarchy / DE perturbations")
+        all_derived = list(CMB_DERIVED_NAMES)
+        for z in self.z_outputs:
+            t = _ztag(z)
+            all_derived += [(f"Hubble{t}", f"H({z:g})"),
+                            (f"DM{t}", f"D_{{\\rm{{M}}}}({z:g})")]
+        sampled = {p.name for p in self.space.params}
+        self._derived_keep = [i for i, (n, _) in enumerate(all_derived)
+                              if n not in sampled]
+        self.derived_names = [all_derived[i] for i in self._derived_keep]
+        self.num_derived = len(self.derived_names)
+        self._k = (source_k_grid(kmax=self.kmax, nk_log=self.source_nk[0],
+                                 nk_lin=self.source_nk[1])
+                   if self.source_nk is not None else source_k_grid(kmax=self.kmax))
+
+    def embed_full(self, varying: torch.Tensor) -> torch.Tensor:
+        """(C, n_varying) -> (C, n_full) with the fixed values filled in."""
+        full = torch.as_tensor(self._full_template, dtype=varying.dtype,
+                               device=varying.device).repeat(varying.shape[0], 1)
+        full[:, torch.as_tensor(self.varying_idx, dtype=torch.int64,
+                                device=varying.device)] = varying
+        return full
+
+    # ------------------------------------------------------------------
+    # Staged theory pipeline
+    # ------------------------------------------------------------------
+
+    def stage_slow(self, full_P: torch.Tensor) -> dict:
+        """Everything independent of the primordial power and nuisance."""
+        bg = self.parameterization.to_background(full_P)
+        tau_re = full_P[:, self._i_tau]
+        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, self.bbn_table)
+        th = compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, tau_re, yhe)
+        po, chi_star, _ = compute_transfers(bg, th, zre, yhe, self._k,
+                                            z_outputs=(0.0,),
+                                            n_step=self.n_step_boltzmann)
+        clt = compute_cl_transfers(po, chi_star, coarse_k=self._k,
+                                   lmax=self.lmax + self.lens_margin,
+                                   kmax_hint=self.kmax,
+                                   tau_stride=self.los_tau_stride)
+        tabs = compute_thermo_tables(bg, th, yhe)
+        der = thermo_derived(bg, tabs)
+        bf = bgm.background_functions(bg)
+        dm_star = bgm.comoving_radial_distance(bf, der.z_star)
+        z_eq = bgm.z_equality(bg)
+        a_eq = 1.0 / (1.0 + z_eq)
+        tau_eq = bgm.conformal_time(bg, a_eq)
+        rs_eq = interp(torch.log1p(z_eq)[:, None], tabs.x, tabs.rs)[:, 0]
+        return dict(bg=bg, yhe=yhe, clt=clt, bf=bf, rs_drag=der.r_drag,
+                    z_star=der.z_star, r_star=der.r_star, zre=zre, tau=tau_re,
+                    z_drag=der.z_drag, kd=der.kd, dm_star=dm_star, z_eq=z_eq,
+                    keq=a_eq * bgm.hubble_mpc(bg, a_eq[:, None])[:, 0],
+                    thetaeq=100.0 * tau_eq / dm_star,
+                    thetarseq=100.0 * rs_eq / dm_star,
+                    age=bgm.age_gyr(bg),
+                    dhbbn=1e5 * dh_bbn(bg.ombh2, bg.nnu - 3.046,
+                                       self.bbn_table))
+
+    def stage_semi(self, full_P: torch.Tensor, slow: dict) -> dict:
+        """Primordial power on the cached transfers, then lensing."""
+        pp = PrimordialParams.make(logA=full_P[:, self._i_logA],
+                                   ns=full_P[:, self._i_ns])
+        lm = self.lmax
+        raw = cls_from_cl_transfers(slow["clt"], pp, lmax=lm + self.lens_margin)
+        muk2 = (2.7255e6) ** 2
+        lensed = lens_cls(raw.ls, raw.tt * muk2, raw.te * muk2, raw.ee * muk2,
+                          raw.pp, lmax_lensed=lm)
+        C = full_P.shape[0]
+        cls = torch.zeros(C, 4, 4, self.lmax + 1, dtype=self.dtype,
+                          device=full_P.device)
+        sl = slice(2, lm + 1)
+        cls[:, 0, 0, sl] = lensed.tt
+        cls[:, 1, 0, sl] = lensed.te
+        cls[:, 0, 1, sl] = lensed.te
+        cls[:, 1, 1, sl] = lensed.ee
+        cls[:, 2, 2, sl] = lensed.bb
+        cls[:, 3, 3, sl] = raw.pp[:, :lm - 1]
+        return dict(cls=cls, A9=torch.exp(full_P[:, self._i_logA]) / 10.0)
+
+    def assemble_theory(self, slow: dict, semi: dict) -> CMBTheoryProducts:
+        return CMBTheoryProducts(bg=slow["bg"], bf=slow["bf"],
+                                 rs_drag=slow["rs_drag"], cls=semi["cls"])
+
+    def stage_fast(self, P: torch.Tensor, slow: dict, semi: dict):
+        """Likelihoods + derived parameters from the cached theory."""
+        theory = self.assemble_theory(slow, semi)
+        total, _per = self.likes.total_log_like(theory, P, self.slices)
+        bg = theory.bg
+        h = bg.H0 / 100.0
+        omm = (bg.ombh2 + bg.omch2 + bg.omnuh2) / h ** 2
+        A9 = semi["A9"]
+        yhe = slow["yhe"]
+        mr = 3.9715
+        der = [bg.H0, omm, 1.0 - bg.omk - omm, omm * h ** 2, bg.omnuh2,
+               omm * h ** 3, slow["zre"], A9, A9 * torch.exp(-2.0 * slow["tau"]),
+               yhe, 4.0 * yhe / (mr - yhe * (mr - 4.0)), slow["dhbbn"],
+               slow["age"], slow["z_star"], slow["r_star"],
+               100.0 * slow["r_star"] / slow["dm_star"],
+               slow["dm_star"] / 1000.0, slow["z_drag"], theory.rs_drag,
+               theory.rs_drag * h, slow["kd"],
+               100.0 * torch.pi / slow["kd"] / slow["dm_star"],
+               slow["z_eq"], slow["keq"], slow["thetaeq"], slow["thetarseq"]]
+        for z in self.z_outputs:
+            der += [bgm.hofz_kms(bg, z),
+                    bgm.comoving_radial_distance(slow["bf"], z)]
+        der = torch.stack([d.to(P.dtype) for d in der], -1)
+        return total, der[:, self._derived_keep]
+
+    def raw_logpost(self) -> Callable:
+        def fn(P):
+            full = self.embed_full(P)
+            slow = self.stage_slow(full)
+            return self.stage_fast(P, slow, self.stage_semi(full, slow))
+        return fn
+
+    def logpost(self) -> Callable:
+        arr = self.space.device_arrays(self.device, self.dtype)
+        return make_bounded_posterior(self.raw_logpost(), arr["lo"], arr["hi"],
+                                      prior_arrays=arr,
+                                      num_derived=self.num_derived)
+
+    def paramnames(self) -> ParamNames:
+        pn = self.space.param_names()
+        for name, label in self.derived_names:
+            pn.add(ParamInfo(name, label, derived=True))
+        return pn
+
+    def make_proposal(self, oversample_fast: int = 1,
+                      propose_scale: float = 2.4) -> BlockedProposal:
+        blocks = self.space.speed_blocks()
+        n_slow_blocks = max(1, sum(1 for b in blocks if b and
+                                   self.space.varying[b[0]].speed <= 1))
+        return BlockedProposal(blocks, slow_block_max=n_slow_blocks,
+                               oversample_fast=oversample_fast,
+                               propose_scale=propose_scale)
+
+    def start_positions(self, rng: np.random.Generator, nchains: int) -> np.ndarray:
+        var = self.space.varying
+        out = np.empty((nchains, len(var)))
+        for i, p in enumerate(var):
+            vals = rng.normal(p.center, max(p.start_width, 1e-12), nchains)
+            out[:, i] = np.clip(vals, p.min, p.max)
+        return out

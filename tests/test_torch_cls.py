@@ -1,0 +1,88 @@
+"""Port parity, line-of-sight transfers (kernel K2a, table engine, plain
+path) and the primordial C_l assembly.
+
+JAX perturbation outputs reach the port through convert, so the LOS
+integral is tested alone: plik_lite lmax 2508 + 150 margin, the kmax=0.1
+small config, tau stride 4; float64 on the CPU,
+max |port - jax| <= 1e-9 max |jax| per array.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from cosmomc_tpu.models import background as jbg
+from cosmomc_tpu.models import cls as jcls
+from cosmomc_tpu.models import cmb as jcmb
+from cosmomc_tpu.models import primordial as jprim
+
+from cosmomc_tpu_torch import convert
+from cosmomc_tpu_torch.models import cls as tcls
+from cosmomc_tpu_torch.models import primordial as tprim
+
+F64 = torch.float64
+RTOL = 1e-9
+LMAX_C = 2508 + 150
+K = jcmb.source_k_grid(kmax=0.1, nk_log=24, nk_lin=48)
+
+
+def assert_close(port, ref, rtol=RTOL):
+    port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
+    assert port.shape == ref.shape, (port.shape, ref.shape)
+    err = np.abs(port - ref).max() / max(np.abs(ref).max(), 1e-300)
+    assert err <= rtol, f"rel err {err:.3e} > {rtol:.1e}"
+
+
+@pytest.fixture(scope="module")
+def ref():
+    bg = jbg.BackgroundParams.make(ombh2=0.02237737, omch2=0.1201035,
+                                   H0=67.32, dtype=jnp.float64)
+    po, chi_star = jax.jit(lambda b: jcmb.compute_transfers(
+        b, 0.0543, 0.2454, jnp.asarray(K), n_step=1024))(bg)
+    clt = jcls.compute_cl_transfers(po, chi_star, lmax=LMAX_C, kmax_hint=0.1,
+                                    coarse_k=K, tau_stride=4)
+    return po, chi_star, clt
+
+
+@pytest.fixture(scope="module")
+def port(ref):
+    po, chi_star, _ = ref
+    return tcls.compute_cl_transfers(
+        convert.perturbation_output(po), torch.tensor([float(chi_star)], dtype=F64),
+        coarse_k=K, lmax=LMAX_C, kmax_hint=0.1, tau_stride=4)
+
+
+@pytest.mark.parametrize("field", ["ls", "kf", "wk"])
+def test_grids(ref, port, field):
+    assert_close(getattr(port, field), getattr(ref[2], field), 0.0)
+
+
+@pytest.mark.parametrize("field", ["dT", "dE", "dP"])
+def test_transfers(ref, port, field):
+    assert_close(getattr(port, field)[0], getattr(ref[2], field))
+
+
+def test_cls_from_transfers(ref, port):
+    logA, ns = np.array([3.0447, 3.10]), np.array([0.9659, 0.95])
+    pp = tprim.PrimordialParams.make(logA=torch.tensor(logA, dtype=F64),
+                                     ns=torch.tensor(ns, dtype=F64))
+    two = tcls.ClTransferCache(port.ls, port.kf, port.wk,
+                               *(torch.cat([getattr(port, f)] * 2)
+                                 for f in ("dT", "dE", "dP")))
+    spec = tcls.cls_from_cl_transfers(two, pp, lmax=LMAX_C)
+    for i in range(2):
+        jp = jprim.PrimordialParams.make(logA=logA[i], ns=ns[i],
+                                         dtype=jnp.float64)
+        jspec = jcls.cls_from_cl_transfers(ref[2], jp, lmax=LMAX_C)
+        np.testing.assert_array_equal(spec.ls.numpy(), np.asarray(jspec.ls))
+        for f in ("tt", "te", "ee", "pp"):
+            assert_close(getattr(spec, f)[i], getattr(jspec, f))
+
+
+def test_coarse_grid_required(ref):
+    with pytest.raises(ValueError):
+        tcls.compute_cl_transfers(convert.perturbation_output(ref[0]),
+                                  torch.tensor([1.0e4], dtype=F64),
+                                  coarse_k=K[:-1], lmax=100)

@@ -1,0 +1,181 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. Every test here needs an NVIDIA GPU and nvcc and skips without
+them; run on the card with
+
+    python -m pytest tests/test_torch_kernels.py -q --noconftest
+
+(this file imports neither jax nor cosmomc_tpu, so it runs where only the
+port is installed). Both versions see the same inputs on the same device.
+float64: the kernel agrees with the plain version to 1e-9 of each array's
+largest magnitude. float32: rounding and summation order differ, and some
+outputs are small differences of large sums (lensed BB, late sources), so
+the float32 kernel is held to the float64 plain result on the same
+(float32-rounded) inputs, and must be no less accurate than the float32
+plain version: err(kernel) <= max(2 err(plain), floor).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cosmomc_tpu_torch import kernels
+from cosmomc_tpu_torch.models import cls as tcls
+from cosmomc_tpu_torch.models import lensing as tlens
+from cosmomc_tpu_torch.models import perturbations as tpert
+from cosmomc_tpu_torch.models import recfast as trec
+from cosmomc_tpu_torch.models.background import BackgroundParams
+from cosmomc_tpu_torch.models.cmb import source_k_grid
+from cosmomc_tpu_torch.models.reionization import zre_from_tau
+
+pytestmark = pytest.mark.cuda
+F64, F32 = torch.float64, torch.float32
+
+
+def rel_err(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def check(kern, plain, ref64, dtype, floor, what=""):
+    if dtype == F64:
+        assert rel_err(kern, plain) <= 1e-9, what
+    else:
+        ek, ep = rel_err(kern, ref64), rel_err(plain, ref64)
+        assert ek <= max(2.0 * ep, floor), (what, ek, ep)
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _bg(dev, dtype, C=2):
+    return BackgroundParams.make(ombh2=np.linspace(0.0215, 0.0232, C),
+                                 omch2=np.linspace(0.115, 0.125, C),
+                                 H0=np.linspace(66.0, 69.0, C), nchains=C,
+                                 device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_recfast_kernel(dev, dtype):
+    bg = _bg(dev, F64)
+    yhe = torch.full((2,), 0.245, dtype=F64, device=dev)
+    fHe = yhe / (trec.const.mass_ratio_He_H * (1.0 - yhe))
+    Nnow = trec.const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
+    zt64 = trec._z_tables(bg, trec.z_grid(2000, dev, F64), fHe, Nnow).contiguous()
+    zt, f = zt64.to(dtype), fHe.to(dtype)
+    n0 = kernels.launches["recfast"]
+    xe_k, tm_k = trec._scan_cuda(zt, f)
+    torch.cuda.synchronize()
+    assert kernels.launches["recfast"] == n0 + 1
+    xe_p, tm_p = trec._scan_plain(zt, f)
+    xe_r, tm_r = trec._scan_plain(zt.double(), f.double())
+    check(xe_k, xe_p, xe_r, dtype, 1e-4, "xe")
+    check(tm_k, tm_p, tm_r, dtype, 1e-4, "tm")
+
+
+@pytest.fixture(scope="module")
+def tables(dev):
+    """A 2048-step grid for two chains, and its stage tables. At 1024
+    steps the top k lane sits at the edge of RK4 stability in float32, where
+    the kernel's fused multiply-adds and the plain version's separate
+    roundings flip a switch at different steps (on an H100: the plain version
+    misses float64 by 2.2e-3 of the plane's maximum there, the kernel by
+    2.5e-2, the kernel built without FMA contraction by 2.0e-3)."""
+    bg = _bg(dev, F64)
+    yhe = torch.full((2,), 0.245, dtype=F64, device=dev)
+    th = trec.compute_thermo(bg, yhe, n_z=2000)
+    zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64, device=dev), yhe)
+    tf, tau0 = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=2048)
+    k = torch.as_tensor(source_k_grid(0.1, 8, 16), dtype=F64, device=dev)
+    return bg, tf, tau0, k, tpert._stage_tables(bg, tf), tpert._r_nu(bg)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_boltzmann_kernel(dev, tables, dtype):
+    _, _, _, k, q, rnu = tables
+    qd, kd, rd = q.to(dtype), k.to(dtype), rnu.to(dtype).contiguous()
+    n0 = kernels.launches["boltzmann"]
+    out_k = tpert._evolve_cuda(qd, kd, rd, tpert.RSA_KTAU)
+    torch.cuda.synchronize()
+    assert kernels.launches["boltzmann"] == n0 + 1
+    assert torch.isfinite(out_k).all()
+    out_p = tpert._evolve_plain(qd, kd, rd, tpert.RSA_KTAU)
+    out_r = tpert._evolve_plain(qd.double(), kd.double(), rd.double(),
+                                tpert.RSA_KTAU)
+    for p, name in enumerate(tpert.PLANES):
+        check(out_k[p], out_p[p], out_r[p], dtype, 1e-3, name)
+
+
+def _plain(module, name):
+    """Context that routes a module's CUDA path to its plain version."""
+    class Swap:
+        def __enter__(self):
+            self.real = getattr(module, name)
+            setattr(module, name, getattr(module, name.replace("cuda", "plain")))
+
+        def __exit__(self, *exc):
+            setattr(module, name, self.real)
+    return Swap()
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_los_kernel(dev, tables, dtype):
+    bg, tf, tau0, k, _, _ = tables
+    po64 = tpert.evolve_perturbations(bg, tf, tau0, k)
+    po = po64._replace(**{f: getattr(po64, f).to(dtype) for f in
+                          ("tau", "k", "s0", "s1", "s2", "slens", "tau0")})
+    args = dict(coarse_k=source_k_grid(0.1, 8, 16), lmax=400, kmax_hint=0.1,
+                tau_stride=4)
+    chi = (tau0 - 280.0).to(dtype)
+    n0 = kernels.launches["los"]
+    clt_k = tcls.compute_cl_transfers(po, chi, **args)
+    torch.cuda.synchronize()
+    assert kernels.launches["los"] == n0 + 1
+    with _plain(tcls, "_los_cuda"):
+        clt_p = tcls.compute_cl_transfers(po, chi, **args)
+        po_r = po._replace(**{f: getattr(po, f).double() for f in
+                              ("tau", "k", "s0", "s1", "s2", "slens", "tau0")})
+        clt_r = tcls.compute_cl_transfers(po_r, chi.double(), **args)
+    for f in ("dT", "dE", "dP"):
+        check(getattr(clt_k, f), getattr(clt_p, f), getattr(clt_r, f), dtype,
+              1e-4, f)
+
+
+def _lens_inputs(dev, lmax=800):
+    l = torch.arange(2, lmax + 1, dtype=F64, device=dev)
+    damp = torch.exp(-(l / 1400.0) ** 2)
+    tt = 5800.0 * damp * (0.35 + torch.cos(np.pi * l / 300.0) ** 2)
+    ee = 40.0 * damp * (l / 1000.0) * (1.0 + torch.sin(np.pi * l / 300.0) ** 2)
+    te = 0.4 * torch.sqrt(tt * ee) * torch.cos(np.pi * l / 150.0)
+    pp = 1.8e-7 * (l / 40.0) / (1.0 + (l / 40.0) ** 2) ** 1.2
+    return l.to(torch.int64), [torch.stack([x, 1.1 * x]) for x in (tt, te, ee, pp)]
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_lensing_kernel(dev, dtype):
+    ls, st64 = _lens_inputs(dev)
+    st = [x.to(dtype) for x in st64]
+    n0 = kernels.launches["lensing"]
+    out_k = tlens.lens_cls(ls, *st, lmax_lensed=650)
+    out_k2 = tlens.lens_cls(ls, *st, lmax_lensed=650)
+    torch.cuda.synchronize()
+    assert kernels.launches["lensing"] == n0 + 2
+    with _plain(tlens, "_passes_cuda"):
+        out_p = tlens.lens_cls(ls, *st, lmax_lensed=650)
+        out_r = tlens.lens_cls(ls, *[x.double() for x in st], lmax_lensed=650)
+    for f in ("tt", "te", "ee", "bb"):
+        assert torch.equal(getattr(out_k, f), getattr(out_k2, f)), f
+        check(getattr(out_k, f), getattr(out_p, f), getattr(out_r, f), dtype,
+              1e-4, f)
+
+
+def test_wrappers_reject_bad_inputs(dev):
+    zt = torch.zeros(1, trec.N_ZT, 8, dtype=F64, device=dev)
+    with pytest.raises(ValueError):
+        trec._scan_cuda(zt[:, :, ::2], torch.zeros(1, dtype=F64, device=dev))
+    with pytest.raises(ValueError):
+        trec._scan_cuda(zt.half(), torch.zeros(1, dtype=torch.float16,
+                                               device=dev))
