@@ -3,13 +3,18 @@
 
     python3 chip_smoke.py
 
-Phase 1 builds the four hand-written kernels (csrc/, nvcc, sm_90a).
+Phase 1 builds the seven hand-written kernels (csrc/, nvcc, sm_90a), one
+nvcc process per source, all started together.
 Phase 2 holds each kernel against its plain PyTorch version at the main
-path's shapes, in float32 and float64, and times both.
-Phase 3 runs the flagship slice at full width in float32: C_l at the best
-fit, a plik_lite fiducial written from them, then CMBPosterior (plik_lite
-+ tau prior, synthetic BBN table) under StagedMetropolisSampler: init on 8
-chains and one 16-step segment with one slow step.
+paths' shapes, in float32 and float64, and times both.
+Phase 3 runs the flagship path at full width in float32 (table LOS engine,
+halofit lensing): C_l at the best fit, a plik_lite fiducial written from
+them, then CMBPosterior (plik_lite + tau prior, synthetic BBN table) under
+StagedMetropolisSampler: init on 8 chains and one 16-step segment with one
+slow step.
+Phase 4 runs the LCDM+r path the same way (compute_tensors=True, r
+semi-slow, recurrence LOS engine, halofit lensing), its fiducial written at
+the best fit with r = 0.1, and checks the tensor-only spectrum there.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -19,6 +24,8 @@ is {"ok": true, "device": {...}}; the line before it lists the kernels.
 
 import json
 import os
+import re
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import tempfile
@@ -29,10 +36,11 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 BESTFIT = dict(ombh2=0.02237737, omch2=0.1201035, theta=1.0409020,
-               tau=0.05430138, logA=3.0447260, ns=0.9658923)
+               tau=0.05430138, logA=3.0447260, ns=0.9658923, r=0.1)
 NCHAINS = 8
 SEG_STEPS = 16
-K1_CMP_STEPS = 2048
+K1_CMP_STEPS = 2048      # K1 and K5 are held to their plain versions here
+MUK2 = 2.7255e6 ** 2
 F32, F64 = torch.float32, torch.float64
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
@@ -43,7 +51,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "los": ("cosmomc_tpu_torch/csrc/cls.cu", "cosmomc_tpu/models/cls.py:285"),
     "lensing": ("cosmomc_tpu_torch/csrc/lensing.cu",
                 "cosmomc_tpu/models/lensing.py:136"),
+    "los_rec": ("cosmomc_tpu_torch/csrc/los_recurrence.cu",
+                "cosmomc_tpu/models/cls.py:473"),
+    "tensors": ("cosmomc_tpu_torch/csrc/tensors.cu",
+                "cosmomc_tpu/models/tensors.py:254"),
+    "tensor_los": ("cosmomc_tpu_torch/csrc/tensor_los.cu",
+                   "cosmomc_tpu/models/tensors.py:352"),
 }
+#: the kernels each main path must launch
+PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
+                "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
+                           "tensors", "tensor_los")}
 
 
 def log(msg):
@@ -94,11 +112,27 @@ def check_f64(name, k64, p64):
     require(e <= 1e-9, f"{name} float64 agreement")
 
 
+def bestfit_vector(post):
+    """The varying vector at BESTFIT (centres for the rest)."""
+    return np.array([BESTFIT.get(p.name, p.center) for p in post.space.varying])
+
+
+class plain_version:
+    """Within the block, `module.name` (a CUDA wrapper) is its plain twin."""
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name,
+                getattr(self.module, self.name.replace("cuda", "plain")))
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
 def start_points(post, rng, dtype):
-    names = [p.name for p in post.space.varying]
-    P0 = np.tile([p.center for p in post.space.varying], (NCHAINS, 1))
-    for k, v in BESTFIT.items():
-        P0[:, names.index(k)] = v
+    P0 = np.tile(bestfit_vector(post), (NCHAINS, 1))
     sig = np.array([p.propose_width for p in post.space.varying])
     P0 += 0.3 * sig * rng.standard_normal(P0.shape)
     lo = np.array([p.min for p in post.space.varying])
@@ -112,6 +146,8 @@ def phase2(dev, results):
     from cosmomc_tpu_torch.models import lensing as mlens
     from cosmomc_tpu_torch.models import perturbations as mpert
     from cosmomc_tpu_torch.models import recfast as mrec
+    from cosmomc_tpu_torch.models import tensors as mten
+    from cosmomc_tpu_torch.models.background import BG_FIELDS
     from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
     from cosmomc_tpu_torch.models.cmb import source_k_grid
     from cosmomc_tpu_torch.models.primordial import PrimordialParams
@@ -196,25 +232,18 @@ def phase2(dev, results):
     fields = ("tau", "k", "s0", "s1", "s2", "slens", "tau0")
     cast = lambda po, dt: po._replace(**{f: getattr(po, f).to(dt)
                                          for f in fields})
-    real = mcls._los_cuda
     clt_k64 = mcls.compute_cl_transfers(po64, chi, **args)
-    mcls._los_cuda = mcls._los_plain
-    try:
+    with plain_version(mcls, "_los_cuda"):
         clt_p64 = mcls.compute_cl_transfers(po64, chi, **args)
-    finally:
-        mcls._los_cuda = real
     for f in ("dT", "dE", "dP"):
         check_f64("los." + f, getattr(clt_k64, f), getattr(clt_p64, f))
     po32, chi32 = cast(po64, F32), chi.float()
     ms, clt_k = timed(lambda: mcls.compute_cl_transfers(po32, chi32, **args), 3)
-    mcls._los_cuda = mcls._los_plain
-    try:
+    with plain_version(mcls, "_los_cuda"):
         plain_ms, clt_p = timed(lambda: mcls.compute_cl_transfers(po32, chi32,
                                                                   **args))
         clt_r = mcls.compute_cl_transfers(cast(po32, F64), chi32.double(),
                                           **args)
-    finally:
-        mcls._los_cuda = real
     err = max(check_f32("los." + f, getattr(clt_k, f), getattr(clt_p, f),
                         getattr(clt_r, f), 1e-4) for f in ("dT", "dE", "dP"))
     results["los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
@@ -228,29 +257,21 @@ def phase2(dev, results):
                                ns=torch.full((NCHAINS,), 0.9659, dtype=F64,
                                              device=dev))
     raw = mcls.cls_from_cl_transfers(clt_k64, pp, lmax=2658)
-    muk2 = 2.7255e6 ** 2
-    st64 = [raw.tt * muk2, raw.te * muk2, raw.ee * muk2, raw.pp]
+    st64 = [raw.tt * MUK2, raw.te * MUK2, raw.ee * MUK2, raw.pp]
     out_k64 = mlens.lens_cls(raw.ls, *st64, lmax_lensed=2508)
-    real = mlens._passes_cuda
-    mlens._passes_cuda = mlens._passes_plain
-    try:
+    with plain_version(mlens, "_passes_cuda"):
         out_p64 = mlens.lens_cls(raw.ls, *st64, lmax_lensed=2508)
-    finally:
-        mlens._passes_cuda = real
     for f in ("tt", "te", "ee", "bb"):
         check_f64("lensing." + f, getattr(out_k64, f), getattr(out_p64, f))
     st32 = [x.float() for x in st64]
     mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508)
     ms, out_k = timed(lambda: mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508), 5)
     again = mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508)
-    mlens._passes_cuda = mlens._passes_plain
-    try:
+    with plain_version(mlens, "_passes_cuda"):
         plain_ms, out_p = timed(lambda: mlens.lens_cls(raw.ls, *st32,
                                                        lmax_lensed=2508))
         out_r = mlens.lens_cls(raw.ls, *[x.double() for x in st32],
                                lmax_lensed=2508)
-    finally:
-        mlens._passes_cuda = real
     for f in ("tt", "te", "ee", "bb"):
         require(torch.equal(getattr(out_k, f), getattr(again, f)),
                 f"lensing.{f} repeatable bit for bit")
@@ -258,6 +279,84 @@ def phase2(dev, results):
                         getattr(out_r, f), 1e-4) for f in ("tt", "te", "ee", "bb"))
     results["lensing"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
     log(f"  lensing kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
+
+    # ---- K2b: recurrence LOS at K2a's shape (8 chains, 109 l x 4521 k x
+    # 2048 tau, l walked 2..2658) on the float32 sources of the 8192-step
+    # solve; the float64 check runs on those sources upcast, so one plain
+    # run serves both checks
+    log("K2b los_rec: 8 chains, lmax 2658, kmax 0.5, tau stride 4")
+
+    def rec(po, c):
+        return mcls.compute_cl_transfers_recurrence(po, c, **args)
+    po_u, chi_u = cast(po32, F64), chi32.double()
+    k64 = rec(po_u, chi_u)
+    with plain_version(mcls, "_los_rec_cuda"):
+        r64 = rec(po_u, chi_u)
+    for f in ("dT", "dE", "dP"):
+        check_f64("los_rec." + f, getattr(k64, f), getattr(r64, f))
+    rec(po32, chi32)
+    ms, ck = timed(lambda: rec(po32, chi32), 3)
+    again = rec(po32, chi32)
+    with plain_version(mcls, "_los_rec_cuda"):
+        plain_ms, cp = timed(lambda: rec(po32, chi32))
+    for f in ("dT", "dE", "dP"):
+        require(torch.equal(getattr(ck, f), getattr(again, f)),
+                f"los_rec.{f} repeatable bit for bit")
+    err = max(check_f32("los_rec." + f, getattr(ck, f), getattr(cp, f),
+                        getattr(r64, f), 1e-4) for f in ("dT", "dE", "dP"))
+    results["los_rec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  los_rec kernel {ms:.1f} ms, plain {plain_ms:.1f} ms; the table "
+        f"engine (K2a) at the same shape {results['los']['ms']:.1f} ms")
+
+    # ---- K5: tensor RK4, 8 chains x 96 k; held to its plain version on the
+    # 2048-step grid (upcast float32 tables for the float64 check), timed at
+    # 8192 steps as well (the main path)
+    kt = torch.as_tensor(mten.tensor_k_grid(), dtype=F64, device=dev)
+    log(f"K5 tensors: 8 chains x {kt.shape[0]} k; compare at {K1_CMP_STEPS} steps")
+    q32, kt32 = mten._stage_table(bg, tf1, 1).float(), kt.float()
+    q_u, kt_u = q32.double(), kt32.double()
+    o64 = mten._evolve_t_cuda(q_u, kt_u, 1, True)
+    r64 = mten._evolve_t_plain(q_u, kt_u, 1, True)
+    for i, n in enumerate(mten.T_PLANES):
+        check_f64("tensors." + n, o64[i], r64[i])
+    mten._evolve_t_cuda(q32, kt32, 1, True)
+    ms, o_k = timed(lambda: mten._evolve_t_cuda(q32, kt32, 1, True), 3)
+    plain_ms, o_p = timed(lambda: mten._evolve_t_plain(q32, kt32, 1, True))
+    err = max(check_f32("tensors." + n, o_k[i], o_p[i], r64[i], 1e-4)
+              for i, n in enumerate(mten.T_PLANES))
+    ms_full = {}
+    for dt in (F32, F64):
+        qd, kd = mten._stage_table(bg, tf, 1).to(dt), kt.to(dt)
+        mten._evolve_t_cuda(qd, kd, 1, True)
+        ms_full[dt], _ = timed(lambda: mten._evolve_t_cuda(qd, kd, 1, True), 2)
+    log(f"  tensors@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms; "
+        f"@8192 kernel f32 {ms_full[F32]:.1f} ms, f64 {ms_full[F64]:.1f} ms")
+    results["tensors"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              ms_8192_steps=ms_full[F32])
+
+    # ---- K6: tensor LOS, 8 chains x 65 l x 610 k x 8192 tau, on K5's
+    # float32 output of the 8192-step solve
+    log("K6 tensor_los: 8 chains, lmax 700, on K5's 8192-step sources")
+    tf32 = tf._replace(**{f: getattr(tf, f).float() for f in tf._fields})
+    bg32 = type(bg)(**{f: getattr(bg, f).float() for f in BG_FIELDS},
+                    num_massive_nu=bg.num_massive_nu)
+    to32 = mten.evolve_tensors(bg32, tf32, tau0.float(), kt32)
+    to_u = to32._replace(**{f: getattr(to32, f).double()
+                            for f in ("tau", "k", "sT", "sP", "tau0")})
+    c64 = mten.compute_tensor_transfers(to_u)
+    with plain_version(mten, "_tlos_cuda"):
+        r64 = mten.compute_tensor_transfers(to_u)
+    for f in ("dT", "dE", "dB"):
+        check_f64("tensor_los." + f, getattr(c64, f), getattr(r64, f))
+    mten.compute_tensor_transfers(to32)
+    ms, ck = timed(lambda: mten.compute_tensor_transfers(to32), 3)
+    with plain_version(mten, "_tlos_cuda"):
+        plain_ms, cp = timed(lambda: mten.compute_tensor_transfers(to32))
+    err = max(check_f32("tensor_los." + f, getattr(ck, f), getattr(cp, f),
+                        getattr(r64, f), 1e-4) for f in ("dT", "dE", "dB"))
+    results["tensor_los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    log(f"  tensor_los kernel {ms:.2f} ms, plain {plain_ms:.1f} ms "
+        f"(both incl. the wrapper's stencil and weights)")
 
 
 def write_theory_cl(path, cls):
@@ -269,61 +368,90 @@ def write_theory_cl(path, cls):
                                       c[2, 2, 2:], c[3, 3, 2:]]))
 
 
-def phase3(dev, tmp):
-    """The flagship slice at full width, float32, 8 chains."""
+def tensor_anchors(post, full, slow, dtype):
+    """The tensor-only spectrum at the best fit (r = 0.1, nt = -r/8) against
+    tests/test_tensors.py's anchors (CAMB r = 0.1): the BB recombination
+    bump at 78 <= l <= 98 with 4e-3 < BB < 1.1e-2 muK^2, TT(l=10) in
+    (35, 65) muK^2. Returns the tensor-only BB (l = 2..700)."""
+    from cosmomc_tpu_torch.models.tensors import tensor_cls_from_transfers
+    pp = post._primordial(full)
+    tens = tensor_cls_from_transfers(slow["tt_cache"], pp,
+                                     lmax=min(700, post.lmax))
+    ls = tens.ls.cpu().numpy()
+    bb = tens.bb[0].double().cpu().numpy() * MUK2
+    tt = tens.tt[0].double().cpu().numpy() * MUK2
+    ipk = int(np.argmax(bb[:300 - 2]))
+    log(f"  tensor-only ({str(dtype)[6:]}), r={float(pp.r[0]):.3f}: BB peak "
+        f"{bb[ipk]:.4e} muK^2 at l={ls[ipk]}, TT(l=10) {tt[ls == 10][0]:.2f} muK^2")
+    require(78 <= ls[ipk] <= 98, "tensor BB bump at l 78..98")
+    require(4e-3 < bb[ipk] < 1.1e-2, "tensor BB bump height")
+    require(35.0 < tt[ls == 10][0] < 65.0, "tensor TT plateau at l=10")
+    return torch.as_tensor(bb)
+
+
+def drive_path(dev, tmp, label, cfg):
+    """One main path at full width, float32, 8 chains: C_l at the best fit
+    (float32 and float64), a plik_lite fiducial written from the float32
+    ones, -logL there, then the sampler: init and one 16-step segment with
+    one slow step. Returns the path's launch counts."""
     from cosmomc_tpu_torch import kernels
     from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
     from cosmomc_tpu_torch.likelihoods.forecast import write_plik_lite_fiducial
     from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
     from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
     from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.params.space import Speed
     from cosmomc_tpu_torch.pipeline import CMBPosterior
     from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
 
     par = ThetaParameterization()
     table = synthetic_bbn_table()
+    log(f"path {label}: " + json.dumps(cfg))
 
     def posterior(likes, dtype):
         space = par.default_space()
         space.get("tau").prior_mean = 0.0544
         space.get("tau").prior_std = 0.0073
-        return CMBPosterior(par, space, likes, bbn_table=table,
-                            nonlinear_lens=False, device=dev, dtype=dtype)
+        return CMBPosterior(par, space, likes, bbn_table=table, device=dev,
+                            dtype=dtype, **cfg)
 
     def at_bestfit(post, dtype):
-        names = [p.name for p in post.space.varying]
-        P = np.array([p.center for p in post.space.varying])
-        for k, v in BESTFIT.items():
-            P[names.index(k)] = v
-        return torch.as_tensor(P[None], dtype=dtype, device=dev)
+        return torch.as_tensor(bestfit_vector(post)[None], dtype=dtype,
+                               device=dev)
 
     # 1. C_l at the best fit through the port (float32 and float64)
-    cls = {}
+    cls, tensor_bb = {}, {}
     for dt in (F32, F64):
         p0 = posterior(LikelihoodList(), dt)
-        P = at_bestfit(p0, dt)
-        full = p0.embed_full(P)
+        full = p0.embed_full(at_bestfit(p0, dt))
         t0 = time.time()
         slow = p0.stage_slow(full)
         cls[dt] = p0.stage_semi(full, slow)["cls"][0]
         torch.cuda.synchronize()
         log(f"C_l at best fit ({str(dt)[6:]}) {time.time() - t0:.2f} s")
+        if p0.compute_tensors:
+            tensor_bb[dt] = tensor_anchors(p0, full, slow, dt)
     # float32 vs float64 through the whole stack, relative to each
-    # spectrum's maximum over l <= 2000; BB is printed, not held to it
+    # spectrum's maximum over l <= 2000; with tensors also BB over l <= 700
+    # (where the tensor C_l land) and the tensor-only BB
     e = {n: rel_err(cls[F32][i, j, 2:2001], cls[F64][i, j, 2:2001])
          for n, i, j in (("TT", 0, 0), ("TE", 1, 0), ("EE", 1, 1), ("BB", 2, 2),
                          ("PP", 3, 3))}
+    if tensor_bb:
+        e["BB l<=700"] = rel_err(cls[F32][2, 2, 2:701], cls[F64][2, 2, 2:701])
+        e["tensor-only BB"] = rel_err(tensor_bb[F32], tensor_bb[F64])
     log("lensed C_l (l <= 2000) float32 vs float64 at the best fit, max rel "
         "err: " + ", ".join(f"{n} {v:.2e}" for n, v in e.items()))
     require(bool(torch.isfinite(cls[F32]).all()), "finite C_l")
-    for n in ("TT", "TE", "EE", "PP"):
-        require(e[n] < 1e-2, f"float32 {n} within 1% of float64")
+    for n, v in e.items():
+        require(v < 1e-2, f"float32 {n} within 1% of float64")
     require(2000.0 < float(cls[F64][0, 0, 220]) < 8000.0, "first peak height")
 
     # 2. plik_lite fiducial from those C_l
-    theory_cl = os.path.join(tmp, "bestfit.theory_cl")
+    theory_cl = os.path.join(tmp, f"{label}.theory_cl")
     write_theory_cl(theory_cl, cls[F32])
-    ds = write_plik_lite_fiducial(os.path.join(tmp, "plik_fid"), theory_cl)
+    ds = write_plik_lite_fiducial(os.path.join(tmp, f"{label}_plik_fid"),
+                                  theory_cl)
 
     # 3. the posterior, float32 (the main path's dtype)
     likes = LikelihoodList()
@@ -348,6 +476,14 @@ def phase3(dev, tmp):
     P0 = start_points(post, rng, F32)
     sched = prop.make_schedule(SEG_STEPS, rng, slow_every=SEG_STEPS,
                                expensive_blocks=expensive)
+    step_classes = sampler.block_class[np.asarray(sched.block)]
+    if post.compute_tensors:
+        r_block = [i for i, b in enumerate(post.space.speed_blocks())
+                   if post.space.varying.index(post.space.get("r")) in b]
+        require(post.space.get("r").speed == Speed.SEMISLOW
+                and sampler.block_class[r_block[0]] == 1
+                and bool((step_classes == 1).any()),
+                "r sampled in the semi block, with semi steps in the segment")
     stage_s = {"slow": 0.0, "semi": 0.0, "fast": 0.0}
     calls = {"slow": 0, "semi": 0, "fast": 0}
     for name in stage_s:
@@ -381,9 +517,12 @@ def phase3(dev, tmp):
     mll = state.mloglike
     log("-logL per chain: " + " ".join(f"{float(v):.3f}" for v in mll))
     acc = float(out.accept.float().mean())
-    log(f"acceptance {acc:.3f}, step classes "
-        f"{sampler.block_class[np.asarray(sched.block)].tolist()}")
-    require(all(v > 0 for v in launches.values()), "every kernel launched")
+    log(f"acceptance {acc:.3f}, step classes {step_classes.tolist()}")
+    for n in KERNELS:
+        if n in PATH_KERNELS[label]:
+            require(launches[n] > 0, f"{n} launched on the {label} path")
+        else:
+            require(launches[n] == 0, f"{n} not launched on the {label} path")
     require(bool(torch.isfinite(mll).all()), "finite -logL")
     require(bool((mll < 1e29).all()), "no chain stuck at LOG_ZERO")
     require(out.P.shape == (SEG_STEPS, NCHAINS, post.space.num_varying),
@@ -415,6 +554,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     t0 = time.time()
+    with ThreadPoolExecutor(max_workers=len(kernels.SOURCES)) as pool:
+        list(pool.map(kernels.build, kernels.SOURCES))
     for name in kernels.SOURCES:
         kernels.load(name)
     log(f"phase 1: built {len(kernels.SOURCES)} kernels in "
@@ -423,10 +564,12 @@ def main() -> int:
     for name, text in kernels.build_log.items():
         kind = "?"
         for line in text.splitlines():
-            if "Compiling entry function" in line:   # mangled: IfE float, IdE double
-                kind = "f64" if "IdE" in line else "f32" if "IfE" in line else "?"
-                fn = line.split("'")[1] if "'" in line else line
-                kind = ("reduce " if "reduce" in fn else "") + kind
+            if "Compiling entry function" in line:
+                # mangled: <len><fn>I{f,d}[Li<NPT>E]E...: f float, d double
+                m = re.search(r"\d+([a-z_]+)I([fd])(?:Li(\d+)E)?", line)
+                kind = (f"{m.group(1)} {'f64' if m.group(2) == 'd' else 'f32'}"
+                        + (f" NPT={m.group(3)}" if m.group(3) else "")
+                        if m else line.split("'")[1] if "'" in line else "?")
             elif "registers" in line or "spill stores" in line:
                 log(f"  ptxas {name} [{kind}]: {line.split('info    :')[-1].strip()}")
 
@@ -434,14 +577,22 @@ def main() -> int:
     t0 = time.time()
     phase2(dev, results)
     log(f"phase 2 done in {time.time() - t0:.1f} s")
-    t0 = time.time()
+    launches = {}
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE)) as tmp:
-        launches = phase3(dev, tmp)
-    log(f"phase 3 done in {time.time() - t0:.1f} s")
+        for phase, label, cfg in (
+                (3, "flagship", {}),
+                (4, "lcdm_r", dict(compute_tensors=True,
+                                   los_method="recurrence"))):
+            t0 = time.time()
+            launches[label] = drive_path(dev, tmp, label, cfg)
+            log(f"phase {phase} done in {time.time() - t0:.1f} s")
 
-    rows = [dict(name=n, route="cuda", source=src, replaces=rep,
-                 launches=launches[n], **results[n])
-            for n, (src, rep) in KERNELS.items()]
+    rows = []
+    for n, (src, rep) in KERNELS.items():
+        by_path = {p: launches[p][n] for p in PATH_KERNELS}
+        rows.append(dict(name=n, route="cuda", source=src, replaces=rep,
+                         launches=sum(by_path.values()),
+                         launches_by_path=by_path, **results[n]))
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,7 @@ from cosmomc_tpu_torch.models.cls import ClTransferCache
 from cosmomc_tpu_torch.models.perturbations import (PerturbationOutput,
                                                     ThermoFuncs)
 from cosmomc_tpu_torch.models.recfast import ThermoHistory
+from cosmomc_tpu_torch.models.tensors import TensorOutput, TensorTransferCache
 from cosmomc_tpu_torch.sampling.staged import StagedChainState
 
 
@@ -82,6 +83,26 @@ def cl_transfer_cache(clt, device=None, dtype=torch.float64) -> ClTransferCache:
                              for f in ("dT", "dE", "dP")])
 
 
+def tensor_output(to, device=None, dtype=torch.float64) -> TensorOutput:
+    """JAX TensorOutput (k, tau layout) -> the port's (C, k, tau)."""
+    b = lambda x, nd: _batched(x, nd, device, dtype)
+    k = np.asarray(to.k)
+    return TensorOutput(tau=b(to.tau, 1),
+                        k=tensor(k if k.ndim == 1 else k[0], device, dtype),
+                        sT=b(to.sT, 2), sP=b(to.sP, 2), tau0=b(to.tau0, 0),
+                        ht=None if to.ht is None else b(to.ht, 2))
+
+
+def tensor_transfer_cache(tc, device=None, dtype=torch.float64
+                          ) -> TensorTransferCache:
+    """Shared grids (ls, kf, wk) lose a chains axis if they carry one."""
+    shared = lambda x: tensor(np.asarray(x) if np.asarray(x).ndim == 1
+                              else np.asarray(x)[0], device, dtype)
+    return TensorTransferCache(shared(tc.ls), shared(tc.kf), shared(tc.wk),
+                               *[_batched(getattr(tc, f), 2, device, dtype)
+                                 for f in ("dT", "dE", "dB")])
+
+
 def background_functions(bf, device=None, dtype=torch.float64
                          ) -> BackgroundFunctions:
     lz = np.asarray(bf.lz_grid)
@@ -102,13 +123,15 @@ def _slow_cache(slow: dict, device, dtype) -> dict:
     out = {}
     for k, v in slow.items():
         if v is None:
-            continue
-        if k == "bg":
+            out[k] = None
+        elif k == "bg":
             out[k] = background_params(v, device, dtype)
         elif k == "bf":
             out[k] = background_functions(v, device, dtype)
         elif k == "clt":
             out[k] = cl_transfer_cache(v, device, dtype)
+        elif k == "tt_cache":
+            out[k] = tensor_transfer_cache(v, device, dtype)
         else:
             out[k] = tensor(v, device, dtype)
     return out

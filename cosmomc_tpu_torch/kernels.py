@@ -31,6 +31,9 @@ SOURCES = {
     "boltzmann": "perturbations.cu",  # K1
     "los": "cls.cu",                  # K2a
     "lensing": "lensing.cu",          # K3
+    "los_rec": "los_recurrence.cu",   # K2b
+    "tensors": "tensors.cu",          # K5
+    "tensor_los": "tensor_los.cu",    # K6
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

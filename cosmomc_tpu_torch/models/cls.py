@@ -10,12 +10,21 @@ SourceToTransfers + ClTransferToCl): for each sampled multipole l,
   C_l^XY = 4 pi int dlnk P_R(k) Delta_Xl Delta_Yl
 
 Sources are cubic-Lagrange interpolated in ln k from the coarse evolution
-grid onto the fine quadrature grid (host-precomputed stencils), j_l and
-j_l' come from float32 tables by linear interpolation, read in the compute
-dtype. `compute_cl_transfers` runs either `_los_plain` (batched torch,
-k-chunked so the fine (k, tau) plane is never built whole) or the CUDA
-kernel csrc/cls.cu. The port has only the table engine: "auto" means
-"table" on every device; the recurrence engine is not ported yet.
+grid onto the fine quadrature grid (host-precomputed stencils). Two engines
+give the same Delta_l(k):
+
+  - table (K2a): j_l and j_l' from float32 tables by linear interpolation,
+    read in the compute dtype. `compute_cl_transfers` runs `_los_plain`
+    (batched torch, k-chunked so the fine (k, tau) plane is never built
+    whole) or the CUDA kernel csrc/cls.cu.
+  - recurrence (K2b): j_l generated by the upward recurrence over every
+    l = 2..lmax with the Airy cut and the small-x series, no table.
+    `compute_cl_transfers_recurrence` runs `_los_rec_plain` or
+    csrc/los_recurrence.cu.
+
+The pipeline's "auto" means "table" on every device (the JAX package picks
+the recurrence off the CPU; on Hopper the table gathers are L2 hits and the
+table engine is the faster one, ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from cosmomc_tpu_torch.models.primordial import PrimordialParams, scalar_power
 from cosmomc_tpu_torch.utils.interp import spline_eval, spline_fit
 
 L_BATCH = 4        # sampled l's per kernel thread (and per plain-path step)
+REC_MAX_NODES = 16 * 256   # strided tau nodes the recurrence kernel takes
 
 
 class CMBSpectra(NamedTuple):
@@ -217,21 +227,10 @@ def _los_cuda(src, idx, w, kf, chi_arg, wt, wl, jl_tab, jlp_tab, ls, inv_dx,
     return out
 
 
-def compute_cl_transfers(po: PerturbationOutput, chi_star: torch.Tensor,
-                         coarse_k: np.ndarray, lmax: int = 2500,
-                         tau0_hint: float = 14200.0, kmax_hint: float = 0.6,
-                         points_per_osc: float = 4.0, k_chunk: int = 256,
-                         tau_stride: int = 1) -> ClTransferCache:
-    """SLOW stage: source x Bessel time integration -> Delta_l(k) for
-    every chain. `coarse_k` is the host grid the sources live on."""
-    coarse_k = np.asarray(coarse_k, np.float64)
-    if len(coarse_k) != po.k.shape[0]:
-        raise ValueError("coarse_k must be the grid the sources were evolved on")
-    dtype, dev = po.s0.dtype, po.s0.device
-    key = (lmax, tau0_hint, kmax_hint, points_per_osc, k_chunk,
-           tuple(coarse_k.tolist()))
-    plan = _plan(*key)
-    dp = _device_plan(key, str(dev), dtype)
+def _los_inputs(po: PerturbationOutput, chi_star: torch.Tensor,
+                tau_stride: int):
+    """The strided sources (C, 4, nk, nt) and, per chain, tau0 - tau, the
+    trapezoid weights and the weights times the lensing kernel (C, nt)."""
     taus, s0, s1, s2, sL = _strided_sources(po, tau_stride)
     tau0 = po.tau0[:, None]
     dt = taus[:, 1:] - taus[:, :-1]
@@ -240,17 +239,177 @@ def compute_cl_transfers(po: PerturbationOutput, chi_star: torch.Tensor,
     chi = torch.clamp(tau0 - taus, min=1e-6)
     cs = chi_star[:, None]
     lens_w = torch.where(chi < cs, (cs - chi) / (cs * chi), 0.0)
-    src = torch.stack([s0, s1, s2, sL], 1).contiguous()
+    return (torch.stack([s0, s1, s2, sL], 1).contiguous(),
+            (tau0 - taus).contiguous(), wt.contiguous(),
+            (wt * lens_w).contiguous())
+
+
+def compute_cl_transfers(po: PerturbationOutput, chi_star: torch.Tensor,
+                         coarse_k: np.ndarray, lmax: int = 2500,
+                         tau0_hint: float = 14200.0, kmax_hint: float = 0.6,
+                         points_per_osc: float = 4.0, k_chunk: int = 256,
+                         tau_stride: int = 1) -> ClTransferCache:
+    """SLOW stage: source x Bessel time integration -> Delta_l(k) for
+    every chain. `coarse_k` is the host grid the sources live on."""
+    if coarse_k is None or len(coarse_k) != po.k.shape[0]:
+        raise ValueError("coarse_k must be the grid the sources were evolved "
+                         "on (the port interpolates with host-built stencils)")
+    coarse_k = np.asarray(coarse_k, np.float64)
+    dtype, dev = po.s0.dtype, po.s0.device
+    key = (lmax, tau0_hint, kmax_hint, points_per_osc, k_chunk,
+           tuple(coarse_k.tolist()))
+    plan = _plan(*key)
+    dp = _device_plan(key, str(dev), dtype)
+    src, chi_arg, wt, wl = _los_inputs(po, chi_star, tau_stride)
     inv_dx = float(torch.tensor(1.0 / plan.dx, dtype=dtype))
     los = _los_plain if dev.type == "cpu" else _los_cuda
-    out = los(src, dp["idx"], dp["w"], dp["kf"], (tau0 - taus).contiguous(),
-              wt.contiguous(), (wt * lens_w).contiguous(), dp["jl"], dp["jlp"],
-              dp["ls"], inv_dx, k_chunk)
+    out = los(src, dp["idx"], dp["w"], dp["kf"], chi_arg, wt, wl, dp["jl"],
+              dp["jlp"], dp["ls"], inv_dx, k_chunk)
     nl, nkf = len(plan.ls), len(plan.kf)
     out = out[:, :, :nl, :nkf]
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
     return ClTransferCache(f(plan.ls), f(plan.kf), f(plan.wk), out[0], out[1],
                            out[2])
+
+
+@lru_cache(maxsize=4)
+def _rec_plan(lmax: int, tau0_hint: float, kmax_hint: float,
+              points_per_osc: float, coarse_k: tuple):
+    """Static layout of the recurrence engine: sampled l, fine k grid and
+    weights, cubic stencils, and the Airy cut nu - 2.5 nu^(1/3) (nu = l +
+    1/2) per l, built once on the host so kernel and plain version compare
+    against the same numbers."""
+    ls = default_l_samples(lmax)
+    kf = fine_k_grid(tau0_hint, kmax_hint, points_per_osc)
+    dlnk = np.diff(np.log(kf))
+    wk = np.concatenate([dlnk[:1] / 2, (dlnk[1:] + dlnk[:-1]) / 2, dlnk[-1:] / 2])
+    idx, w = _cubic_k_weights(np.asarray(coarse_k), kf)
+    nu = np.arange(lmax + 1) + 0.5
+    cut = np.maximum(nu - 2.5 * np.cbrt(nu), 0.0)
+    return ls, kf, wk, idx, w, cut
+
+
+def _los_rec_plain(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
+    """Batched torch recurrence LOS: src (C, 4, nk, nt) -> (3, C, nl, nkf).
+    The arithmetic of cosmomc_tpu/models/cls.py:compute_cl_transfers_
+    recurrence; the sums are taken at the sampled l only."""
+    C, nt = chi_arg.shape
+    nl, nkf = ls.shape[0], kf.shape[0]
+    ls_h = [int(v) for v in ls.tolist()]
+    cut_h = cut.tolist()
+    out = torch.empty(3, C, nl, nkf, dtype=src.dtype, device=src.device)
+    with torch.no_grad():
+        for k0 in range(0, nkf, k_chunk):
+            sl = slice(k0, k0 + k_chunk)
+            ki, kw = idx[sl].long(), w[sl]
+
+            def k_interp(S):                 # (C, nk, nt) -> (C, kc, nt)
+                return (kw[:, 0:1] * S[:, ki[:, 0]] + kw[:, 1:2] * S[:, ki[:, 1]]
+                        + kw[:, 2:3] * S[:, ki[:, 2]]
+                        + kw[:, 3:4] * S[:, ki[:, 3]])
+            S0w = k_interp(src[:, 0]) * wt[:, None]
+            S1w = k_interp(src[:, 1]) * wt[:, None]
+            S2w = k_interp(src[:, 2]) * wt[:, None]
+            SLw = k_interp(src[:, 3]) * wl[:, None]
+            x = kf[sl][None, :, None] * chi_arg[:, None, :]
+            inv_x = 1.0 / torch.clamp(x, min=1e-6)
+            inv_x2 = inv_x * inv_x
+            xx = x * x
+            y2 = 0.5 * x * x                 # series variable x^2/2
+            small = x < 1e-3
+            sx, cx = torch.sin(x), torch.cos(x)
+            jm1 = torch.where(small, 1.0 - x * x / 6.0, sx * inv_x)
+            jl = torch.where(small, x / 3.0, sx * inv_x2 - cx * inv_x)
+            # p_l = x^l/(2l+1)!!, carried multiplicatively, clamped at 1
+            pser = torch.clamp(x / 3.0, max=1.0)
+            s = 0
+            for l in range(2, ls_h[-1] + 1):
+                lf = float(l)
+                jnew = ((2.0 * lf - 1.0) * inv_x) * jl - jm1
+                pser = torch.clamp(pser * (x / (2.0 * lf + 1.0)), max=1.0)
+                poly = (1.0 - y2 / (2.0 * lf + 3.0)
+                        + y2 * y2 / (2.0 * (2.0 * lf + 3.0) * (2.0 * lf + 5.0)))
+                # small-x series where x^2 < l+1; zero below the Airy cut
+                jnew = torch.where(xx < lf + 1.0, pser * poly, jnew)
+                jnew = torch.where(x > cut_h[l], jnew, 0.0)
+                jm1, jl = jl, jnew
+                if l != ls_h[s]:
+                    continue
+                jp = jm1 - (lf + 1.0) * inv_x * jl
+                jpp = -2.0 * jp * inv_x + (lf * (lf + 1.0) * inv_x2 - 1.0) * jl
+                out[0, :, s, sl] = torch.sum(S0w * jl + S1w * jp + S2w * jpp, -1)
+                efac = np.sqrt(max((lf + 2.0) * (lf + 1.0) * lf * (lf - 1.0), 0.0))
+                out[1, :, s, sl] = efac * torch.sum(S2w * jl * inv_x2, -1)
+                out[2, :, s, sl] = torch.sum(SLw * jl, -1)
+                s += 1
+    return out
+
+
+def _los_rec_cuda(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
+    """csrc/los_recurrence.cu: one block per (chain, fine k); its 256
+    threads split the strided tau nodes and walk l = 2..lmax upward with
+    (j_{l-1}, j_l, p_l) in registers; at the sampled l only, the block
+    reduces over tau (warp shuffles, then shared memory in warp order).
+
+    Replaces cosmomc_tpu/models/cls.py:compute_cl_transfers_recurrence (the
+    lax.scan at cls.py:473). Bound: every (k, tau, l) point, 4608 x 2048 x
+    2657 ~ 2.5e10 per chain at ~20 flops: compute-bound, no table traffic.
+    No atomics."""
+    del k_chunk
+    C, _, nk, nt = src.shape
+    nl, nkf = ls.shape[0], kf.shape[0]
+    dtype = src.dtype
+    kernels.check(src, "sources", (C, 4, nk, nt))
+    kernels.check(idx, "k_idx", (nkf, 4), torch.int32)
+    kernels.check(w, "k_w", (nkf, 4), dtype)
+    kernels.check(kf, "kf", (nkf,), dtype)
+    for name, t in (("chi", chi_arg), ("wt", wt), ("wl", wl)):
+        kernels.check(t, name, (C, nt), dtype)
+    kernels.check(ls, "ls", (nl,), torch.int32)
+    lmax = int(ls[-1])
+    kernels.check(cut, "cut", (lmax + 1,), dtype)
+    if nt > REC_MAX_NODES:
+        raise ValueError(f"{nt} tau nodes: the recurrence kernel takes at most "
+                         f"{REC_MAX_NODES} (raise tau_stride)")
+    out = torch.empty(3, C, nl, nkf, dtype=dtype, device=src.device)
+    kernels.launch("los_rec", dtype, src, idx, w, kf, chi_arg, wt, wl, ls, cut,
+                   out, C, nk, nt, nl, nkf)
+    return out
+
+
+def compute_cl_transfers_recurrence(po: PerturbationOutput,
+                                    chi_star: torch.Tensor,
+                                    coarse_k: np.ndarray,
+                                    lmax: int = 2500,
+                                    tau0_hint: float = 14200.0,
+                                    kmax_hint: float = 0.6,
+                                    points_per_osc: float = 4.0,
+                                    k_chunk: int = 512,
+                                    tau_stride: int = 1) -> ClTransferCache:
+    """SLOW stage, table-free: the same Delta_l(k) as compute_cl_transfers
+    from j_l generated by the upward recurrence
+
+        j_{l+1}(x) = ((2l+1)/x) j_l(x) - j_{l-1}(x),
+
+    stable for x > l, zeroed below the Airy turning region (x < nu -
+    2.5 nu^(1/3)), and replaced by the 3-term ascending series where
+    x^2 < l+1. `coarse_k` is the host grid the sources live on."""
+    if coarse_k is None or len(coarse_k) != po.k.shape[0]:
+        # the JAX function hands over to its table engine here; the port's
+        # table engine needs the same grid and raises, so raise directly
+        raise ValueError("coarse_k must be the grid the sources were evolved "
+                         "on (the port interpolates with host-built stencils)")
+    coarse_k = np.asarray(coarse_k, np.float64)
+    dtype, dev = po.s0.dtype, po.s0.device
+    ls, kf, wk, idx, w, cut = _rec_plan(lmax, tau0_hint, kmax_hint,
+                                        points_per_osc, tuple(coarse_k.tolist()))
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+    src, chi_arg, wt, wl = _los_inputs(po, chi_star, tau_stride)
+    los = _los_rec_plain if dev.type == "cpu" else _los_rec_cuda
+    out = los(src, torch.as_tensor(idx, dtype=torch.int32, device=dev), f(w),
+              f(kf), chi_arg, wt, wl,
+              torch.as_tensor(ls, dtype=torch.int32, device=dev), f(cut), k_chunk)
+    return ClTransferCache(f(ls), f(kf), f(wk), out[0], out[1], out[2])
 
 
 def cls_from_cl_transfers(cache: ClTransferCache, pp: PrimordialParams,

@@ -2,6 +2,7 @@
 
   P_R(k) = A_s (k/k_pivot)^(n_s - 1 + (1/2) n_run ln(k/kp)
                              + (1/6) n_runrun ln^2(k/kp))
+  P_t(k) = r A_s (k/k_pivot_t)^(n_t + (1/2) n_t_run ln(k/kp))
 """
 
 from __future__ import annotations
@@ -45,3 +46,12 @@ def scalar_power(pp: PrimordialParams, k: torch.Tensor) -> torch.Tensor:
     return c(pp.As) * torch.exp((c(pp.ns) - 1.0 + lnk * (c(pp.nrun) / 2.0
                                                          + c(pp.nrunrun) * lnk
                                                          / 6.0)) * lnk)
+
+
+def tensor_power(pp: PrimordialParams, k: torch.Tensor) -> torch.Tensor:
+    """P_t(k) per chain (power_tilt.f90 TensorPower): k (nk,) -> (C, nk);
+    inflation consistency (nt = -r/8) is set by the caller."""
+    lnk = torch.log(k / pp.pivot_tensor)[None, :]
+    c = lambda v: v[:, None]
+    return c(pp.r) * c(pp.As) * torch.exp((c(pp.nt) + c(pp.ntrun) * lnk / 2.0)
+                                          * lnk)

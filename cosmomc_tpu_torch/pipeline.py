@@ -5,15 +5,19 @@ calclike.f90), batched over chains: every stage takes the (C, n) full
 parameter vectors of C chains and returns per-chain tensors.
 
   stage_slow   thermal history (K4, once), Boltzmann transfers (K1), the
-               line-of-sight Delta_l(k) (K2a), background tables and the
-               slow derived scalars;
-  stage_semi   primordial power on the cached transfers and lensing (K3);
+               halofit lensing-source ratio, the line-of-sight Delta_l(k)
+               (K2a table engine or K2b recurrence), with compute_tensors the
+               tensor evolution (K5) and tensor Delta_l(k) (K6), background
+               tables and the slow derived scalars;
+  stage_semi   primordial power on the cached transfers (plus the tensor
+               TT/TE/EE/BB) and lensing (K3);
   stage_fast   likelihoods and the derived-parameter list.
 
-This slice covers the flagship configuration without BAO and halofit:
-`nonlinear_lens=True`, matter power, tensors, the high-l template splice,
-`use_cmb=False`, the recurrence LOS engine and sampled mnu/w/wa/alpha1
-raise NotImplementedError. The BBN table is always passed in.
+Covered: the flagship configuration (theta LCDM, halofit lensing) and
+LCDM+r (`compute_tensors=True`, r semi-slow, nt = -r/8), without BAO.
+Matter power, the high-l template splice, `use_cmb=False` and sampled
+mnu/w/wa/alpha1 raise NotImplementedError. The BBN table is always passed
+in. `los_method="auto"` means the table engine on every device.
 """
 
 from __future__ import annotations
@@ -27,12 +31,18 @@ import torch
 from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
 from cosmomc_tpu_torch.models import background as bgm
 from cosmomc_tpu_torch.models.bbn import BBNTable, dh_bbn, yhe_bbn
-from cosmomc_tpu_torch.models.cls import cls_from_cl_transfers, compute_cl_transfers
+from cosmomc_tpu_torch.models.cls import (cls_from_cl_transfers,
+                                          compute_cl_transfers,
+                                          compute_cl_transfers_recurrence)
 from cosmomc_tpu_torch.models.cmb import compute_transfers, source_k_grid
 from cosmomc_tpu_torch.models.lensing import lens_cls
+from cosmomc_tpu_torch.models.matterpower import LENS_NL_Z, lensing_nl_ratio
 from cosmomc_tpu_torch.models.primordial import PrimordialParams
 from cosmomc_tpu_torch.models.recfast import compute_thermo
 from cosmomc_tpu_torch.models.reionization import zre_from_tau
+from cosmomc_tpu_torch.models.tensors import (compute_tensor_transfers,
+                                              evolve_tensors, tensor_k_grid,
+                                              tensor_cls_from_transfers)
 from cosmomc_tpu_torch.models.theory import CMBTheoryProducts
 from cosmomc_tpu_torch.models.thermo import compute_thermo_tables, thermo_derived
 from cosmomc_tpu_torch.params.space import Param, ParameterSpace, Speed
@@ -80,8 +90,9 @@ def _unported(what: str):
 class CMBPosterior:
     """Theta-parameterized LCDM -> Boltzmann C_l -> CMB likelihoods.
 
-    Sampled blocks: SLOW ombh2, omch2, theta, tau; SEMISLOW logA, ns; FAST
-    likelihood nuisance. YHe follows BBN consistency from `bbn_table`."""
+    Sampled blocks: SLOW ombh2, omch2, theta, tau; SEMISLOW logA, ns (and r
+    with compute_tensors); FAST likelihood nuisance. YHe follows BBN
+    consistency from `bbn_table`."""
     parameterization: object                 # ThetaParameterization
     space: ParameterSpace
     likes: LikelihoodList
@@ -95,13 +106,15 @@ class CMBPosterior:
     z_outputs: Tuple[float, ...] = (0.38, 0.51, 0.61)
     n_step_boltzmann: int = 0
     source_nk: Optional[Tuple[int, int]] = None
-    los_method: str = "auto"                 # "table" | "auto" (= table)
+    #: "table" (K2a), "recurrence" (K2b) or "auto" (= table on every
+    #: device: the JAX package's "auto" picks the recurrence off the CPU)
+    los_method: str = "auto"
     los_tau_stride: int = 4
     nonlinear_lens: bool = True
     massive_nu_hierarchy: object = "auto"
     de_perturbations: object = "auto"
     use_cmb: bool = True
-    compute_tensors: bool = False
+    compute_tensors: bool = False            # r -> tensor TT/TE/EE/BB
     device: object = None
     dtype: torch.dtype = torch.float64
 
@@ -110,25 +123,28 @@ class CMBPosterior:
         if self.bbn_table is None:
             raise ValueError("CMBPosterior needs bbn_table= (load_bbn_table(path) "
                              "or synthetic_bbn_table())")
-        if self.nonlinear_lens:
-            _unported("nonlinear_lens=True (the halofit lensing ratio)")
-        if self.compute_tensors:
-            _unported("compute_tensors")
         if not self.use_cmb:
             _unported("use_cmb=False")
-        if self.los_method == "recurrence":
-            _unported("the recurrence LOS engine")
-        if self.los_method not in ("table", "auto"):
+        if self.los_method not in ("table", "auto", "recurrence"):
             raise ValueError(f"unknown los_method {self.los_method!r}")
         for p in PRIMORDIAL_PARAMS:
             if p.name not in self.space:
                 self.space.add(Param(**p.__dict__))
+        if self.compute_tensors and "r" not in self.space:
+            # test.ini's conventional range (compute_tensors=T + param[r])
+            self.space.add(Param("r", 0.03, 0.0, 2.0, 0.04, 0.04, "r",
+                                 Speed.SEMISLOW))
         self.slices = self.likes.add_nuisance_to_space(self.space)
         self.varying_idx = self.space.varying_indices
         self._full_template = np.array([p.center for p in self.space.params])
         self._i_logA = self.space.index("logA")
         self._i_ns = self.space.index("ns")
         self._i_tau = self.space.index("tau")
+        self._i_r = self.space.index("r") if self.compute_tensors else None
+        # fiducial primordial power for the halofit lensing ratio (fixed, so
+        # the slow cache stays independent of the semi-slow parameters)
+        self._fid_logA = float(self.space.get("logA").center)
+        self._fid_ns = float(self.space.get("ns").center)
         self.bbn_table = self.bbn_table.to(self.device, self.dtype)
         for like in self.likes.likes:
             need = getattr(like, "required_lmax", lambda: 0)()
@@ -189,13 +205,21 @@ class CMBPosterior:
         yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, self.bbn_table)
         th = compute_thermo(bg, yhe)
         zre = zre_from_tau(bg, tau_re, yhe)
-        po, chi_star, _ = compute_transfers(bg, th, zre, yhe, self._k,
-                                            z_outputs=(0.0,),
-                                            n_step=self.n_step_boltzmann)
-        clt = compute_cl_transfers(po, chi_star, coarse_k=self._k,
-                                   lmax=self.lmax + self.lens_margin,
-                                   kmax_hint=self.kmax,
-                                   tau_stride=self.los_tau_stride)
+        z_nl = LENS_NL_Z if self.nonlinear_lens else (0.0,)
+        po, chi_star, tf = compute_transfers(bg, th, zre, yhe, self._k,
+                                             z_outputs=z_nl,
+                                             n_step=self.n_step_boltzmann)
+        if self.nonlinear_lens:
+            po = self._nonlinear_lensing(bg, po, tf, z_nl)
+        los = (compute_cl_transfers_recurrence
+               if self.los_method == "recurrence" else compute_cl_transfers)
+        clt = los(po, chi_star, coarse_k=self._k,
+                  lmax=self.lmax + self.lens_margin, kmax_hint=self.kmax,
+                  tau_stride=self.los_tau_stride)
+        tt_cache = None
+        if self.compute_tensors:
+            to = evolve_tensors(bg, tf, po.tau0, tensor_k_grid())
+            tt_cache = compute_tensor_transfers(to, lmax=min(700, self.lmax))
         tabs = compute_thermo_tables(bg, th, yhe)
         der = thermo_derived(bg, tabs)
         bf = bgm.background_functions(bg)
@@ -204,9 +228,9 @@ class CMBPosterior:
         a_eq = 1.0 / (1.0 + z_eq)
         tau_eq = bgm.conformal_time(bg, a_eq)
         rs_eq = interp(torch.log1p(z_eq)[:, None], tabs.x, tabs.rs)[:, 0]
-        return dict(bg=bg, yhe=yhe, clt=clt, bf=bf, rs_drag=der.r_drag,
-                    z_star=der.z_star, r_star=der.r_star, zre=zre, tau=tau_re,
-                    z_drag=der.z_drag, kd=der.kd, dm_star=dm_star, z_eq=z_eq,
+        return dict(bg=bg, yhe=yhe, clt=clt, tt_cache=tt_cache, bf=bf,
+                    rs_drag=der.r_drag, z_star=der.z_star,
+                    r_star=der.r_star, zre=zre, tau=tau_re, z_drag=der.z_drag, kd=der.kd, dm_star=dm_star, z_eq=z_eq,
                     keq=a_eq * bgm.hubble_mpc(bg, a_eq[:, None])[:, 0],
                     thetaeq=100.0 * tau_eq / dm_star,
                     thetarseq=100.0 * rs_eq / dm_star,
@@ -214,10 +238,35 @@ class CMBPosterior:
                     dhbbn=1e5 * dh_bbn(bg.ombh2, bg.nnu - 3.046,
                                        self.bbn_table))
 
+    def _primordial(self, full_P: torch.Tensor) -> PrimordialParams:
+        if self.compute_tensors:
+            # inflation consistency, as the JAX package's default
+            r = full_P[:, self._i_r]
+            nt = -r / 8.0
+        else:
+            r, nt = 0.0, 0.0
+        return PrimordialParams.make(logA=full_P[:, self._i_logA],
+                                     ns=full_P[:, self._i_ns], r=r, nt=nt)
+
+    def _nonlinear_lensing(self, bg, po, tf, z_nl):
+        """CAMB MakeNonlinearSources: the lensing source times
+        sqrt(P_NL/P_lin)(k, z(tau)) at the fiducial primordial power."""
+        one = po.k.new_ones(bg.ombh2.shape[0])
+        pp_fid = PrimordialParams.make(logA=one * self._fid_logA,
+                                       ns=one * self._fid_ns)
+        ratio = lensing_nl_ratio(bg, pp_fid, po.k, po.delta_m_z, z_nl)
+        a_nl = torch.as_tensor([1.0 / (1.0 + z) for z in z_nl],
+                               dtype=po.k.dtype, device=po.k.device)
+        tau_nl = interp(a_nl.expand(tf.a.shape[0], -1), tf.a, tf.tau)
+        # z ascending -> tau descending; the ratio is held at the z=10 node
+        # (~1) above it
+        mult = interp(po.tau[:, None, :], tau_nl.flip(-1)[:, None, :],
+                      ratio.transpose(1, 2).flip(-1))        # (C, nk, ntau)
+        return po._replace(slens=po.slens * mult)
+
     def stage_semi(self, full_P: torch.Tensor, slow: dict) -> dict:
         """Primordial power on the cached transfers, then lensing."""
-        pp = PrimordialParams.make(logA=full_P[:, self._i_logA],
-                                   ns=full_P[:, self._i_ns])
+        pp = self._primordial(full_P)
         lm = self.lmax
         raw = cls_from_cl_transfers(slow["clt"], pp, lmax=lm + self.lens_margin)
         muk2 = (2.7255e6) ** 2
@@ -233,6 +282,15 @@ class CMBPosterior:
         cls[:, 1, 1, sl] = lensed.ee
         cls[:, 2, 2, sl] = lensed.bb
         cls[:, 3, 3, sl] = raw.pp[:, :lm - 1]
+        if self.compute_tensors:
+            lmax_t = min(700, self.lmax)
+            tens = tensor_cls_from_transfers(slow["tt_cache"], pp, lmax=lmax_t)
+            slt, nlt = slice(2, lmax_t + 1), lmax_t - 1
+            cls[:, 0, 0, slt] += muk2 * tens.tt[:, :nlt]
+            cls[:, 1, 0, slt] += muk2 * tens.te[:, :nlt]
+            cls[:, 0, 1, slt] += muk2 * tens.te[:, :nlt]
+            cls[:, 1, 1, slt] += muk2 * tens.ee[:, :nlt]
+            cls[:, 2, 2, slt] += muk2 * tens.bb[:, :nlt]
         return dict(cls=cls, A9=torch.exp(full_P[:, self._i_logA]) / 10.0)
 
     def assemble_theory(self, slow: dict, semi: dict) -> CMBTheoryProducts:

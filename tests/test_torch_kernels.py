@@ -23,6 +23,7 @@ from cosmomc_tpu_torch.models import cls as tcls
 from cosmomc_tpu_torch.models import lensing as tlens
 from cosmomc_tpu_torch.models import perturbations as tpert
 from cosmomc_tpu_torch.models import recfast as trec
+from cosmomc_tpu_torch.models import tensors as tten
 from cosmomc_tpu_torch.models.background import BackgroundParams
 from cosmomc_tpu_torch.models.cmb import source_k_grid
 from cosmomc_tpu_torch.models.reionization import zre_from_tau
@@ -141,6 +142,68 @@ def test_los_kernel(dev, tables, dtype):
         clt_r = tcls.compute_cl_transfers(po_r, chi.double(), **args)
     for f in ("dT", "dE", "dP"):
         check(getattr(clt_k, f), getattr(clt_p, f), getattr(clt_r, f), dtype,
+              1e-4, f)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_los_rec_kernel(dev, tables, dtype):
+    bg, tf, tau0, k, _, _ = tables
+    po64 = tpert.evolve_perturbations(bg, tf, tau0, k)
+    po = po64._replace(**{f: getattr(po64, f).to(dtype) for f in
+                          ("tau", "k", "s0", "s1", "s2", "slens", "tau0")})
+    args = dict(coarse_k=source_k_grid(0.1, 8, 16), lmax=400, kmax_hint=0.1,
+                tau_stride=4)
+    chi = (tau0 - 280.0).to(dtype)
+    n0 = kernels.launches["los_rec"]
+    clt_k = tcls.compute_cl_transfers_recurrence(po, chi, **args)
+    again = tcls.compute_cl_transfers_recurrence(po, chi, **args)
+    torch.cuda.synchronize()
+    assert kernels.launches["los_rec"] == n0 + 2
+    with _plain(tcls, "_los_rec_cuda"):
+        clt_p = tcls.compute_cl_transfers_recurrence(po, chi, **args)
+        po_r = po._replace(**{f: getattr(po, f).double() for f in
+                              ("tau", "k", "s0", "s1", "s2", "slens", "tau0")})
+        clt_r = tcls.compute_cl_transfers_recurrence(po_r, chi.double(), **args)
+    for f in ("dT", "dE", "dP"):
+        assert torch.equal(getattr(clt_k, f), getattr(again, f)), f
+        check(getattr(clt_k, f), getattr(clt_p, f), getattr(clt_r, f), dtype,
+              1e-4, f)
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+def test_tensor_kernels(dev, tables, dtype):
+    """K5 on the 2048-step grid (16 tensor k), then K6 on K5's output."""
+    bg, tf, tau0, _, _, _ = tables
+    tfd = tf._replace(**{f: getattr(tf, f).to(dtype) for f in tf._fields})
+    bgd = BackgroundParams(**{f: getattr(bg, f).to(dtype) for f in
+                              ("ombh2", "omch2", "H0", "omk", "omnuh2", "nnu",
+                               "w", "wa", "tcmb")},
+                           num_massive_nu=bg.num_massive_nu)
+    kt = tten.tensor_k_grid(nk=16)
+    n0 = (kernels.launches["tensors"], kernels.launches["tensor_los"])
+    to_k = tten.evolve_tensors(bgd, tfd, tau0.to(dtype), kt)
+    tc_k = tten.compute_tensor_transfers(to_k, lmax=300)
+    torch.cuda.synchronize()
+    assert (kernels.launches["tensors"], kernels.launches["tensor_los"]) == \
+        (n0[0] + 1, n0[1] + 1)
+    with _plain(tten, "_evolve_t_cuda"):
+        to_p = tten.evolve_tensors(bgd, tfd, tau0.to(dtype), kt)
+        tf64 = tf._replace(**{f: getattr(tfd, f).double() for f in tf._fields})
+        bg64 = BackgroundParams(**{f: getattr(bgd, f).double() for f in
+                                   ("ombh2", "omch2", "H0", "omk", "omnuh2",
+                                    "nnu", "w", "wa", "tcmb")},
+                                num_massive_nu=bg.num_massive_nu)
+        to_r = tten.evolve_tensors(bg64, tf64, tau0.to(dtype).double(), kt)
+    for f in ("sT", "sP", "ht"):
+        check(getattr(to_k, f), getattr(to_p, f), getattr(to_r, f), dtype,
+              1e-4, f)
+    with _plain(tten, "_tlos_cuda"):
+        tc_p = tten.compute_tensor_transfers(to_k, lmax=300)
+        to_kr = to_k._replace(**{f: getattr(to_k, f).double() for f in
+                                 ("tau", "k", "sT", "sP", "tau0")})
+        tc_r = tten.compute_tensor_transfers(to_kr, lmax=300)
+    for f in ("dT", "dE", "dB"):
+        check(getattr(tc_k, f), getattr(tc_p, f), getattr(tc_r, f), dtype,
               1e-4, f)
 
 
