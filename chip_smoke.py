@@ -6,7 +6,10 @@
 Phase 1 builds the seven hand-written kernels (csrc/, nvcc, sm_90a), one
 nvcc process per source, all started together.
 Phase 2 holds each kernel against its plain PyTorch version at the main
-paths' shapes, in float32 and float64, and times both.
+paths' shapes, in float32 and float64, times both, and computes each
+kernel's bound from shape-based counts (OPS): the larger of its operations
+over the card's peak rate for their type and its bytes over the memory
+rate. K4, K1 and K5 are also timed on one lane, their serial floor.
 Phase 3 runs the flagship path at full width in float32 (table LOS engine,
 halofit lensing): C_l at the best fit, a plik_lite fiducial written from
 them, then CMBPosterior (plik_lite + tau prior, synthetic BBN table) under
@@ -63,6 +66,67 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los")}
 
+#: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
+#: FP64 tensor cores' rate, and the memory rate
+PEAK_OPS = {"fp32": 67e12, "fp64": 34e12, "fp64_tensor": 67e12}
+MEM_BYTES_PER_S = 3.35e12
+#: operations per unit of work, counted from each kernel's plain version
+#: unless said otherwise (a multiply-add counts as two, a divide, square
+#: root, exp, log or pow as one):
+OPS = {
+    # per (chain, z step): T_M step and 2 Newton iterations ~40, four rate
+    # sets (pow, sqrt, exp) ~100, 3 + 3 Newton residuals of x_He, x_H ~140,
+    # regime selection ~20 (models/recfast.py:_scan_plain)
+    "recfast": 300,
+    # per (chain, k, step): 5 RHS of ~285 (the non-frozen branch; frozen
+    # lanes compute it and discard it), 37 variables x 16 for the RK4
+    # combinations, ~50 for the sources (models/perturbations.py:_rhs)
+    "boltzmann": 5 * 285 + 37 * 16 + 50,
+    # the least arithmetic that computes the function (csrc/cls.cu, where
+    # j'' is folded into the j and j' coefficients): per (chain, l, k, tau)
+    # point two lerps 6 and five multiply-adds 10; per (chain, k, tau) the
+    # 4 x 4-point interpolation 28, the weights 4, x, index, fraction, 1 - f
+    # 4, 1/x, 1/x^2 2, the folded coefficients 5
+    "los": (16, 43),
+    # per (chain, k, tau, l): the upward recurrence 3, the series term 3,
+    # the series polynomial 5, the two selects 4 (models/cls.py:
+    # _los_rec_plain; the sums at the 109 sampled l are negligible)
+    "los_rec": 15,
+    # per (chain, k, step): 5 RHS of ~600, 45 variables x 16 (RK4)
+    "tensors": 5 * 600 + 45 * 16,
+    # per (chain, l, k, tau): two lerps, the three kernels, products, sums
+    "tensor_los": 40,
+}
+
+
+def lensing_ops(C, L, nth, nl_out):
+    """FP64 operations of models/lensing.py:_passes_plain, which does the
+    chain-independent work once per (theta, l): pass 1 15, pass 2 108 (the
+    Legendre and three Jacobi recurrences, 15 Wigner-d's), pass 3 36 per
+    output l; and per (chain, theta, l): pass 1 5, pass 2 84 (the exp, the
+    X's and the four xi terms), pass 3 8 per output l. Pass 3's per-chain
+    product is a contraction over theta, which csrc/lensing.cu runs on the
+    FP64 tensor cores."""
+    return {"fp64": nth * (L * (15 + 108) + nl_out * 36) + C * nth * L * (5 + 84),
+            "fp64_tensor": C * nth * nl_out * 8}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops, moved):
+    """The least time the card could take (ms), the larger of the
+    operations over the peak rate of their type (`ops`: type -> count; the
+    types' times add) and the bytes (each input read once, each output
+    written once) over the memory rate."""
+    t_ops = sum(n / PEAK_OPS[kind] for kind, n in ops.items())
+    t_mem = moved / MEM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_mem),
+                bound_by="operations" if t_ops >= t_mem else "bytes",
+                ops={kind: float(n) for kind, n in ops.items()},
+                bytes=float(moved))
+
 
 def log(msg):
     print(msg, flush=True)
@@ -118,14 +182,15 @@ def bestfit_vector(post):
 
 
 class plain_version:
-    """Within the block, `module.name` (a CUDA wrapper) is its plain twin."""
-    def __init__(self, module, name):
+    """Within the block, `module.name` (a CUDA wrapper) is its plain twin:
+    `module.twin`, by default the name with "plain" for "cuda"."""
+    def __init__(self, module, name, twin=None):
         self.module, self.name = module, name
+        self.twin = twin or name.replace("cuda", "plain")
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
-        setattr(self.module, self.name,
-                getattr(self.module, self.name.replace("cuda", "plain")))
+        setattr(self.module, self.name, getattr(self.module, self.twin))
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.real)
@@ -183,8 +248,16 @@ def phase2(dev, results):
     r64 = mrec._scan_plain(zt32.double(), f32.double())
     err = max(check_f32("recfast." + n, a, b, c, 1e-4)
               for a, b, c, n in zip(k32, p32, r64, ("xe", "tm")))
-    results["recfast"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    log(f"  recfast kernel {ms:.3f} ms, plain {plain_ms:.1f} ms")
+    C, _, N = zt32.shape
+    z1, f1 = zt32[:1].contiguous(), f32[:1].contiguous()
+    mrec._scan_cuda(z1, f1)
+    serial_ms, _ = timed(lambda: mrec._scan_cuda(z1, f1), reps=10)
+    results["recfast"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              serial_ms=serial_ms, **bound(
+                                  {"fp32": C * (N - 1) * OPS["recfast"]},
+                                  nbytes(zt32, f32, *k32)))
+    log(f"  recfast kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, one chain "
+        f"{serial_ms:.3f} ms (the serial floor)")
 
     # ---- K1: Boltzmann, 8 chains x 248 k; compared at n_step=2048 (the
     # plain version launches ~1e3 ops a step; at 1024 steps the top k lanes
@@ -210,6 +283,13 @@ def phase2(dev, results):
     err = max(check_f32("boltzmann." + n, o_k[i], o_p[i], o_r[i], 1e-3)
               for i, n in enumerate(mpert.PLANES))
     log(f"  boltzmann@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
+    C, S = q32.shape[0], q32.shape[1]
+    k1_bound = bound({"fp32": C * S * k.shape[0] * OPS["boltzmann"]},
+                     nbytes(q32, k32_, rnu32, o_k))
+    q1l, k1l, r1l = q32[:1].contiguous(), k32_[-1:].contiguous(), rnu32[:1].contiguous()
+    mpert._evolve_cuda(q1l, k1l, r1l, mpert.RSA_KTAU)
+    serial_ms, _ = timed(lambda: mpert._evolve_cuda(q1l, k1l, r1l, mpert.RSA_KTAU), 3)
+    log(f"  boltzmann@{K1_CMP_STEPS} one lane {serial_ms:.2f} ms (the serial floor)")
     tf, tau0 = mpert.build_thermo_funcs(bg, yhe, th, zre)
     q = mpert._stage_tables(bg, tf)
     ms_full = {}
@@ -221,7 +301,8 @@ def phase2(dev, results):
     log(f"  boltzmann@8192 kernel f32 {ms_full[F32]:.1f} ms, "
         f"f64 {ms_full[F64]:.1f} ms")
     results["boltzmann"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                ms_8192_steps=ms_full[F32])
+                                ms_8192_steps=ms_full[F32], serial_ms=serial_ms,
+                                **k1_bound)
 
     # ---- K2a: LOS at 109 l x 4521 k x 2048 tau, from the 8192-step sources
     log("K2a los: 8 chains, lmax 2658, kmax 0.5, tau stride 4")
@@ -233,20 +314,28 @@ def phase2(dev, results):
     cast = lambda po, dt: po._replace(**{f: getattr(po, f).to(dt)
                                          for f in fields})
     clt_k64 = mcls.compute_cl_transfers(po64, chi, **args)
-    with plain_version(mcls, "_los_cuda"):
+    with plain_version(mcls, "_los_cuda", "_los_plan_plain"):
         clt_p64 = mcls.compute_cl_transfers(po64, chi, **args)
     for f in ("dT", "dE", "dP"):
         check_f64("los." + f, getattr(clt_k64, f), getattr(clt_p64, f))
     po32, chi32 = cast(po64, F32), chi.float()
+    mcls.compute_cl_transfers(po32, chi32, **args)   # builds the float32 plan
     ms, clt_k = timed(lambda: mcls.compute_cl_transfers(po32, chi32, **args), 3)
-    with plain_version(mcls, "_los_cuda"):
+    with plain_version(mcls, "_los_cuda", "_los_plan_plain"):
         plain_ms, clt_p = timed(lambda: mcls.compute_cl_transfers(po32, chi32,
                                                                   **args))
         clt_r = mcls.compute_cl_transfers(cast(po32, F64), chi32.double(),
                                           **args)
     err = max(check_f32("los." + f, getattr(clt_k, f), getattr(clt_p, f),
                         getattr(clt_r, f), 1e-4) for f in ("dT", "dE", "dP"))
-    results["los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    C, nl, nkf = clt_k.dT.shape
+    nt = len(range(0, po32.tau.shape[-1], args["tau_stride"]))
+    nx = mcls._plan(2658, 14200.0, 0.5, 4.0, 256,
+                    tuple(np.asarray(kgrid, np.float64).tolist())).jl.shape[1]
+    per_pt, per_knode = OPS["los"]
+    results["los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+        {"fp32": C * nkf * nt * (nl * per_pt + per_knode)},
+        4 * (C * 4 * len(kgrid) * nt + 2 * nl * nx + 3 * C * nt + 3 * C * nl * nkf)))
     log(f"  los kernel {ms:.1f} ms, plain {plain_ms:.1f} ms "
         f"(both incl. the wrapper's source striding/weights)")
 
@@ -259,7 +348,7 @@ def phase2(dev, results):
     raw = mcls.cls_from_cl_transfers(clt_k64, pp, lmax=2658)
     st64 = [raw.tt * MUK2, raw.te * MUK2, raw.ee * MUK2, raw.pp]
     out_k64 = mlens.lens_cls(raw.ls, *st64, lmax_lensed=2508)
-    with plain_version(mlens, "_passes_cuda"):
+    with plain_version(mlens, "_passes_cuda", "_passes_grid_plain"):
         out_p64 = mlens.lens_cls(raw.ls, *st64, lmax_lensed=2508)
     for f in ("tt", "te", "ee", "bb"):
         check_f64("lensing." + f, getattr(out_k64, f), getattr(out_p64, f))
@@ -267,7 +356,7 @@ def phase2(dev, results):
     mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508)
     ms, out_k = timed(lambda: mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508), 5)
     again = mlens.lens_cls(raw.ls, *st32, lmax_lensed=2508)
-    with plain_version(mlens, "_passes_cuda"):
+    with plain_version(mlens, "_passes_cuda", "_passes_grid_plain"):
         plain_ms, out_p = timed(lambda: mlens.lens_cls(raw.ls, *st32,
                                                        lmax_lensed=2508))
         out_r = mlens.lens_cls(raw.ls, *[x.double() for x in st32],
@@ -277,7 +366,11 @@ def phase2(dev, results):
                 f"lensing.{f} repeatable bit for bit")
     err = max(check_f32("lensing." + f, getattr(out_k, f), getattr(out_p, f),
                         getattr(out_r, f), 1e-4) for f in ("tt", "te", "ee", "bb"))
-    results["lensing"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    C, L = st32[0].shape
+    nth, nl_out = 2 * (L + 1) - 1, 2508 - 1
+    results["lensing"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+        lensing_ops(C, L, nth, nl_out),
+        4 * C * 4 * L + 8 * 7 * nth + 4 * C * nl_out * 4))
     log(f"  lensing kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
 
     # ---- K2b: recurrence LOS at K2a's shape (8 chains, 109 l x 4521 k x
@@ -304,7 +397,10 @@ def phase2(dev, results):
                 f"los_rec.{f} repeatable bit for bit")
     err = max(check_f32("los_rec." + f, getattr(ck, f), getattr(cp, f),
                         getattr(r64, f), 1e-4) for f in ("dT", "dE", "dP"))
-    results["los_rec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    C, nl, nkf = ck.dT.shape
+    results["los_rec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+        {"fp32": C * nkf * nt * (2658 - 1) * OPS["los_rec"]},
+        4 * (C * 4 * len(kgrid) * nt + 3 * C * nt + 3 * C * nl * nkf)))
     log(f"  los_rec kernel {ms:.1f} ms, plain {plain_ms:.1f} ms; the table "
         f"engine (K2a) at the same shape {results['los']['ms']:.1f} ms")
 
@@ -331,8 +427,15 @@ def phase2(dev, results):
         ms_full[dt], _ = timed(lambda: mten._evolve_t_cuda(qd, kd, 1, True), 2)
     log(f"  tensors@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms; "
         f"@8192 kernel f32 {ms_full[F32]:.1f} ms, f64 {ms_full[F64]:.1f} ms")
+    C, S = q32.shape[0], q32.shape[1]
+    q1l, k1l = q32[:1].contiguous(), kt32[-1:].contiguous()
+    mten._evolve_t_cuda(q1l, k1l, 1, True)
+    serial_ms, _ = timed(lambda: mten._evolve_t_cuda(q1l, k1l, 1, True), 3)
+    log(f"  tensors@{K1_CMP_STEPS} one lane {serial_ms:.2f} ms (the serial floor)")
     results["tensors"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              ms_8192_steps=ms_full[F32])
+                              ms_8192_steps=ms_full[F32], serial_ms=serial_ms,
+                              **bound({"fp32": C * S * kt.shape[0] * OPS["tensors"]},
+                                      nbytes(q32, kt32, *o_k)))
 
     # ---- K6: tensor LOS, 8 chains x 65 l x 610 k x 8192 tau, on K5's
     # float32 output of the 8192-step solve
@@ -354,7 +457,10 @@ def phase2(dev, results):
         plain_ms, cp = timed(lambda: mten.compute_tensor_transfers(to32))
     err = max(check_f32("tensor_los." + f, getattr(ck, f), getattr(cp, f),
                         getattr(r64, f), 1e-4) for f in ("dT", "dE", "dB"))
-    results["tensor_los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    C, nl, nkf = ck.dT.shape
+    results["tensor_los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
+        {"fp32": C * nl * nkf * to32.tau.shape[-1] * OPS["tensor_los"]},
+        nbytes(to32.tau, to32.sT, to32.sP, ck.dT, ck.dE, ck.dB)))
     log(f"  tensor_los kernel {ms:.2f} ms, plain {plain_ms:.1f} ms "
         f"(both incl. the wrapper's stencil and weights)")
 
@@ -504,11 +610,14 @@ def drive_path(dev, tmp, label, cfg):
     state = sampler.init_state(P0)
     torch.cuda.synchronize()
     t_init = time.time() - t0
+    at_init = dict(kernels.launches)
     t0 = time.time()
     state, out = sampler.run_segment(state, sched)
     torch.cuda.synchronize()
     t_seg = time.time() - t0
     launches = dict(kernels.launches)
+    per_segment = {n: launches[n] - at_init[n] for n in launches}
+    log("launches in the segment alone: " + json.dumps(per_segment))
     log(f"init {t_init:.2f} s, segment {t_seg:.2f} s "
         f"({SEG_STEPS * NCHAINS / t_seg:.2f} chain steps/s)")
     log("stage wall time: " + ", ".join(
@@ -529,7 +638,7 @@ def drive_path(dev, tmp, label, cfg):
             "segment output shape")
     require(bool(torch.isfinite(out.derived).all()), "finite derived")
     require(not bool(out.error.any()), "no error points")
-    return launches
+    return launches, per_segment
 
 
 def main() -> int:
@@ -566,7 +675,7 @@ def main() -> int:
         for line in text.splitlines():
             if "Compiling entry function" in line:
                 # mangled: <len><fn>I{f,d}[Li<NPT>E]E...: f float, d double
-                m = re.search(r"\d+([a-z_]+)I([fd])(?:Li(\d+)E)?", line)
+                m = re.search(r"\d+([a-z_][a-z_0-9]*)I([fd])(?:Li(\d+)E)?", line)
                 kind = (f"{m.group(1)} {'f64' if m.group(2) == 'd' else 'f32'}"
                         + (f" NPT={m.group(3)}" if m.group(3) else "")
                         if m else line.split("'")[1] if "'" in line else "?")
@@ -577,22 +686,29 @@ def main() -> int:
     t0 = time.time()
     phase2(dev, results)
     log(f"phase 2 done in {time.time() - t0:.1f} s")
-    launches = {}
+    launches, segment = {}, {}
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE)) as tmp:
         for phase, label, cfg in (
                 (3, "flagship", {}),
                 (4, "lcdm_r", dict(compute_tensors=True,
                                    los_method="recurrence"))):
             t0 = time.time()
-            launches[label] = drive_path(dev, tmp, label, cfg)
+            launches[label], segment[label] = drive_path(dev, tmp, label, cfg)
             log(f"phase {phase} done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():
         by_path = {p: launches[p][n] for p in PATH_KERNELS}
+        r = results[n]
+        log(f"  {n:10s} {r['ms']:9.3f} ms  bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {r['bound_ms'] / r['ms']:.1%} of it)")
+        # library_ms: no single PyTorch call computes any of these functions
         rows.append(dict(name=n, route="cuda", source=src, replaces=rep,
                          launches=sum(by_path.values()),
-                         launches_by_path=by_path, **results[n]))
+                         launches_by_path=by_path,
+                         launches_per_segment={p: segment[p][n]
+                                               for p in PATH_KERNELS},
+                         library_ms=None, **r))
     log(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

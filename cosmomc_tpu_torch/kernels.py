@@ -50,6 +50,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def entry_device(device, what: str) -> torch.device:
+    """The device of an entry point: the card unless the caller asks for
+    the CPU. Raises when the card is asked for (the default) and there is
+    none, so a run never carries on on the CPU by accident."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on the card by default and no CUDA "
+                           "device is available; pass device='cpu' for the "
+                           "plain PyTorch versions on the CPU")
+    return dev
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -107,11 +119,18 @@ def check(t: torch.Tensor, what: str, shape, dtype=None) -> None:
 
 
 def launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Call `<name>_f32|f64` with tensors as device pointers, ints as int
-    and floats as double, plus the current stream; raise on a CUDA error."""
+    """Call `<name>_f32|f64` (see `call`) and count the launch."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: float32 or float64 only, got {dtype}")
-    fn = getattr(load(name), f"{name}_{'f64' if dtype == torch.float64 else 'f32'}")
+    call(getattr(load(name), f"{name}_{'f64' if dtype == torch.float64 else 'f32'}"),
+         *args)
+    launches[name] += 1
+
+
+def call(fn, *args) -> None:
+    """Call a C entry point with tensors as device pointers, ints as int and
+    floats as double, plus the current stream; raise on a CUDA error."""
+    name = fn.__name__
     types, vals, device = [], [], None
     for a in args:
         if torch.is_tensor(a):
@@ -134,4 +153,3 @@ def launch(name: str, dtype: torch.dtype, *args) -> None:
         err = fn(*vals)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
-    launches[name] += 1

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.likelihoods.base import Likelihood, read_dataset_ini
 from cosmomc_tpu_torch.params.space import Param, Speed
 from cosmomc_tpu_torch.utils.paramnames import ParamNames
@@ -48,8 +49,9 @@ class PlikLiteLikelihood(Likelihood):
 
     def __init__(self, dataset_path: str, name: str = "plik_lite",
                  param_specs: Optional[Dict[str, Sequence[float]]] = None,
-                 device=None, dtype=torch.float64):
+                 device="cuda", dtype=torch.float64):
         super().__init__(name)
+        device = kernels.entry_device(device, "PlikLiteLikelihood")
         self.device, self.dtype = device, dtype
         ini = read_dataset_ini(dataset_path)
         ddir = os.path.dirname(os.path.abspath(dataset_path))

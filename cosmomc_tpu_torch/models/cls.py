@@ -41,7 +41,7 @@ from cosmomc_tpu_torch.models.perturbations import PerturbationOutput
 from cosmomc_tpu_torch.models.primordial import PrimordialParams, scalar_power
 from cosmomc_tpu_torch.utils.interp import spline_eval, spline_fit
 
-L_BATCH = 4        # sampled l's per kernel thread (and per plain-path step)
+L_BATCH = 4        # sampled l's padded to a multiple of this (K6: l's a thread)
 REC_MAX_NODES = 16 * 256   # strided tau nodes the recurrence kernel takes
 
 
@@ -136,16 +136,38 @@ def _plan(lmax: int, tau0_hint: float, kmax_hint: float, points_per_osc: float,
     return _LosPlan(ls, ls_pad, kf, kf_pad, wk, idx, w, tab.jl, tab.jlp, tab.dx)
 
 
+def packed_bessel(jl: np.ndarray, jlp: np.ndarray) -> np.ndarray:
+    """(nl, nx, 2) float32 with (j_l, j_l') interleaved: the kernel reads a
+    table neighbour's pair with one 8-byte load."""
+    return np.ascontiguousarray(np.stack([jl, jlp], -1), dtype=np.float32)
+
+
+LOS_KT = 32    # fine k per kernel block (csrc/cls.cu KT)
+
+
+def row_span(idx: np.ndarray, nkf: int) -> int:
+    """The most coarse source rows that the stencils of one kernel block
+    (LOS_KT consecutive fine k) touch; it sizes csrc/cls.cu's shared
+    memory. idx is monotone in k, so a block's rows are one range."""
+    starts = np.arange(0, nkf, LOS_KT)
+    ends = np.minimum(starts + LOS_KT - 1, nkf - 1)
+    return int((idx[ends, 3] - idx[starts, 0]).max()) + 1
+
+
 @lru_cache(maxsize=8)
 def _device_plan(key: tuple, device: str, dtype: torch.dtype) -> dict:
-    """A plan's arrays on a device (the Bessel tables stay float32)."""
+    """A plan's arrays on a device (the Bessel tables stay float32). The
+    tables are stored once, packed as `packed_bessel` (what the kernel
+    reads); `jl` and `jlp` are strided views of it, what the plain version
+    indexes. `rspan` is the kernel's row_span."""
     plan = _plan(*key)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    packed = torch.as_tensor(packed_bessel(plan.jl, plan.jlp), device=device)
     return dict(ls=f(plan.ls_pad), kf=f(plan.kf_pad),
                 idx=torch.as_tensor(plan.idx, dtype=torch.int32, device=device),
-                w=f(plan.w),
-                jl=torch.as_tensor(plan.jl, dtype=torch.float32, device=device),
-                jlp=torch.as_tensor(plan.jlp, dtype=torch.float32, device=device))
+                w=f(plan.w), jl=packed[..., 0], jlp=packed[..., 1],
+                packed=packed, rspan=row_span(plan.idx, len(plan.kf_pad)),
+                k_chunk=key[4])
 
 
 def _strided_sources(po: PerturbationOutput, tau_stride: int):
@@ -194,20 +216,28 @@ def _los_plain(src, idx, w, kf, chi_arg, wt, wl, jl_tab, jlp_tab, ls, inv_dx,
     return out
 
 
-def _los_cuda(src, idx, w, kf, chi_arg, wt, wl, jl_tab, jlp_tab, ls, inv_dx,
-              k_chunk: int):
-    """csrc/cls.cu: one thread per (chain, fine k, batch of 4 sampled l)
-    reduces over the strided tau nodes, with the cubic ln-k source
-    interpolation fused into the loop.
+def _los_plan_plain(src, dp: dict, chi_arg, wt, wl, inv_dx):
+    """_los_plain on a device plan (`_device_plan`): the CPU's path, and
+    the kernel's twin with the same signature."""
+    return _los_plain(src, dp["idx"], dp["w"], dp["kf"], chi_arg, wt, wl,
+                      dp["jl"], dp["jlp"], dp["ls"], inv_dx, dp["k_chunk"])
+
+
+def _los_cuda(src, dp: dict, chi_arg, wt, wl, inv_dx):
+    """csrc/cls.cu: a block owns (chain, 32 fine k) and up to 64 sampled
+    l (a warp per 8 l's, a lane per k), one block per SM so the table rows
+    it reads stay in L1. Per tile of tau nodes the coarse source rows the
+    tile's stencils touch arrive by cp.async (double buffered), the four
+    sources are interpolated once per (k, tau) into shared memory with the
+    per-(k, tau) Bessel arguments, and every thread then gathers (j_l,
+    j_l') pairs from the packed table (dp["packed"]) for its 8 l's. Each
+    output has one owner, summed over tau in order; no atomics.
 
     Replaces cosmomc_tpu/models/cls.py:compute_cl_transfers (the flat
-    lax.map at cls.py:285). Bound: ~1e9 (l, k, tau) points per chain, each
-    two table gathers from the 32 MB float32 Bessel tables (L2-resident)
-    and ~25 flops; a thread's 4 l's share one source interpolation, so
-    source traffic is a quarter of the per-l form. No atomics."""
-    del k_chunk
+    lax.map at cls.py:285); the bound and the design are in the source."""
     C, _, nk, nt = src.shape
-    nl, nx = jl_tab.shape
+    idx, w, kf, ls, packed = dp["idx"], dp["w"], dp["kf"], dp["ls"], dp["packed"]
+    nl, nx, _ = packed.shape
     nkf = kf.shape[0]
     dtype = src.dtype
     kernels.check(src, "sources", (C, 4, nk, nt))
@@ -216,14 +246,11 @@ def _los_cuda(src, idx, w, kf, chi_arg, wt, wl, jl_tab, jlp_tab, ls, inv_dx,
     kernels.check(kf, "kf", (nkf,), dtype)
     for name, t in (("chi", chi_arg), ("wt", wt), ("wl", wl)):
         kernels.check(t, name, (C, nt), dtype)
-    kernels.check(jl_tab, "jl", (nl, nx), torch.float32)
-    kernels.check(jlp_tab, "jlp", (nl, nx), torch.float32)
+    kernels.check(packed, "packed Bessel table", (nl, nx, 2), torch.float32)
     kernels.check(ls, "ls", (nl,), dtype)
-    if nl % L_BATCH:
-        raise ValueError(f"sampled l count {nl} not a multiple of {L_BATCH}")
     out = torch.empty(3, C, nl, nkf, dtype=dtype, device=src.device)
-    kernels.launch("los", dtype, src, idx, w, kf, chi_arg, wt, wl, jl_tab,
-                   jlp_tab, ls, out, C, nk, nt, nl, nx, nkf, float(inv_dx))
+    kernels.launch("los", dtype, src, idx, w, kf, chi_arg, wt, wl, packed, ls,
+                   out, C, nk, nt, nl, nx, nkf, float(inv_dx), dp["rspan"])
     return out
 
 
@@ -262,9 +289,8 @@ def compute_cl_transfers(po: PerturbationOutput, chi_star: torch.Tensor,
     dp = _device_plan(key, str(dev), dtype)
     src, chi_arg, wt, wl = _los_inputs(po, chi_star, tau_stride)
     inv_dx = float(torch.tensor(1.0 / plan.dx, dtype=dtype))
-    los = _los_plain if dev.type == "cpu" else _los_cuda
-    out = los(src, dp["idx"], dp["w"], dp["kf"], chi_arg, wt, wl, dp["jl"],
-              dp["jlp"], dp["ls"], inv_dx, k_chunk)
+    los = _los_plan_plain if dev.type == "cpu" else _los_cuda
+    out = los(src, dp, chi_arg, wt, wl, inv_dx)
     nl, nkf = len(plan.ls), len(plan.kf)
     out = out[:, :, :nl, :nkf]
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)

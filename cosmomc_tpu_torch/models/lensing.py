@@ -17,11 +17,17 @@ used for them.
 `lens_cls` runs the passes as `_passes_plain` (batched torch loops over l,
 the reference path and what CPU tensors take) or as csrc/lensing.cu. Units
 in and out: l(l+1)C_l/2pi, [l(l+1)]^2 C_l^pp/2pi; every spectrum (C, L).
+
+The kernel splits l into segments of SEG multipoles and starts each from
+recurrence seeds (P_{l-2}, P_{l-1} and the three Jacobi pairs, per theta)
+and reads every l-only constant from a per-l table; both are built here
+once per (L, n_theta) in float64 by the plain recurrences and formulas.
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -32,6 +38,21 @@ from cosmomc_tpu_torch import kernels
 # rows of the theta table handed to both paths
 TH_X, TH_SIN, TH_SIN2, TH_FAC1, TH_FAC2, TH_TAIL, TH_SW = range(7)
 N_TH = 7
+
+SEG = 64            # multipoles per recurrence segment (csrc/lensing.cu SEG)
+THETA_SPLITS = 6    # pass 3: theta ranges summed separately, then in order
+#: seed rows per (segment, theta): the recurrence state before its first l
+SEED_ROWS = ("pmm", "pmmp1", "j40m1", "j40", "j44m1", "j44", "j80m1", "j80")
+#: the Jacobi families (a, b, n = l - shift) of the high-spin Wigner-d's
+JACOBI = (("j40", 4.0, 0.0, 2), ("j44", 4.0, 4.0, 4), ("j80", 8.0, 0.0, 4))
+#: columns of the per-l table (csrc/lensing.cu enum LC_*); for each Jacobi
+#: family c2, c3, c4 and 1/c1 of its upward recurrence at n = l - shift
+L_COLS = ("l", "inv_l", "two_lm1", "lm1", "llp1", "inv_llp1", "lfacs2",
+          "inv_lfacs2", "inv_lrootfacs", "rf1", "inv_rf1", "rf2", "inv_rf2",
+          "inv_rf3", "norm04", "inv_sqrt_llp1", "x220", "x121", "x132",
+          "x242", "dx000", "dx022", "c8") + tuple(
+              f"{name}_{c}" for name, *_ in JACOBI
+              for c in ("c2", "c3", "c4", "ic1"))
 
 
 class LensedCls(NamedTuple):
@@ -183,33 +204,154 @@ def _passes_plain(cl: torch.Tensor, th: torch.Tensor, nl_out: int
     return torch.stack(sums, 1)
 
 
-def _passes_cuda(cl: torch.Tensor, th: torch.Tensor, nl_out: int
+def theta_table(n_theta: int, apodize: bool, device) -> torch.Tensor:
+    """(N_TH, n_theta - 1) float64 rows x, sin, sin^2, 1 - x, 1 + x, the
+    apodizing tail and sin(theta) dtheta at theta_i = i pi / n_theta. Built
+    on the CPU and copied, so the kernel's seeds (built from the same x)
+    and its theta nodes are the same numbers on every device; one cached
+    tensor per (n_theta, apodize, device). 1 - cos at the first nodes is
+    ~1e-7, hence float64; the plain version reads the table in the
+    spectra's dtype."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return _theta_table(n_theta, bool(apodize), str(dev))
+
+
+@lru_cache(maxsize=8)
+def _theta_table(n_theta: int, apodize: bool, device: str) -> torch.Tensor:
+    dtheta = np.pi / n_theta
+    i = torch.arange(1, n_theta, dtype=torch.float64)
+    theta = i * dtheta
+    x = torch.cos(theta)
+    sinth = torch.sin(theta)
+    if apodize:
+        wid = max(int(0.003 / dtheta), 1)
+        tail = torch.exp(-torch.clamp(i - (n_theta - 3.0 * wid), min=0.0) ** 2
+                         / (2.0 * wid ** 2))
+    else:
+        tail = torch.ones_like(x)
+    return torch.stack([x, sinth, sinth ** 2, 1.0 - x, 1.0 + x, tail,
+                        sinth * dtheta]).contiguous().to(device)
+
+
+@lru_cache(maxsize=4)
+def l_table(L: int) -> np.ndarray:
+    """(L, len(L_COLS)) float64: every quantity of passes 1-3 that depends
+    on l alone, for l = 2..L+1, by the plain version's formulas; the
+    kernel multiplies by the reciprocals where the plain version divides.
+    A column is 0 at the l where the plain version does not use it (rf2
+    below l = 3; rf3 and norm04 below l = 4; a Jacobi family below n = 2,
+    where the kernel takes the closed forms)."""
+    lc = np.arange(L, dtype=np.float64) + 2.0
+    llp1 = lc * (lc + 1.0)
+    lfacs2 = (lc + 2.0) * (lc - 1.0)
+    lroot = np.sqrt(llp1 * lfacs2)
+    rf1 = np.sqrt(lfacs2)
+    rf2 = np.sqrt((lc + 3.0) * (lc - 2.0))
+    rf3 = np.sqrt(np.maximum((lc - 3.0) * (lc + 4.0), 0.0))
+    s4 = lc - 4.0
+    with np.errstate(divide="ignore", invalid="ignore"):
+        inv = lambda v: np.where(v > 0.0, 1.0 / v, 0.0)
+        norm04 = np.where(lc >= 4.0, np.sqrt(
+            ((s4 + 5.0) * (s4 + 6.0) * (s4 + 7.0) * (s4 + 8.0))
+            / ((s4 + 1.0) * (s4 + 2.0) * (s4 + 3.0) * (s4 + 4.0))), 0.0)
+        cols = dict(l=lc, inv_l=1.0 / lc, two_lm1=2 * lc - 1, lm1=lc - 1,
+                    llp1=llp1, inv_llp1=1.0 / llp1, lfacs2=lfacs2,
+                    inv_lfacs2=1.0 / lfacs2, inv_lrootfacs=1.0 / lroot,
+                    rf1=rf1, inv_rf1=1.0 / rf1, rf2=rf2, inv_rf2=inv(rf2),
+                    inv_rf3=inv(rf3), norm04=norm04,
+                    inv_sqrt_llp1=1.0 / np.sqrt(llp1), x220=lroot / 4.0,
+                    x121=-0.5 * rf1, x132=-0.5 * rf2, x242=0.25 * rf2 * rf3,
+                    dx000=-llp1 / 4.0, dx022=1.0 - llp1 / 4.0, c8=8.0 / llp1)
+        for name, a, b, shift in JACOBI:
+            n, apb = lc - shift, a + b
+            use = n >= 2.0
+            c1 = 2.0 * n * (n + apb) * (2.0 * n + apb - 2.0)
+            cols[f"{name}_c2"] = np.where(use, (2.0 * n + apb - 1.0)
+                                          * (a * a - b * b), 0.0)
+            cols[f"{name}_c3"] = np.where(use, (2.0 * n + apb - 1.0)
+                                          * (2.0 * n + apb)
+                                          * (2.0 * n + apb - 2.0), 0.0)
+            cols[f"{name}_c4"] = np.where(use, 2.0 * (n + a - 1.0)
+                                          * (n + b - 1.0) * (2.0 * n + apb),
+                                          0.0)
+            cols[f"{name}_ic1"] = np.where(use, inv(c1), 0.0)
+    return np.ascontiguousarray(np.stack([cols[c] for c in L_COLS], 1))
+
+
+@lru_cache(maxsize=4)
+def recurrence_seeds(L: int, n_theta: int) -> torch.Tensor:
+    """(ceil(L / SEG), len(SEED_ROWS), n_theta - 1) float64 on the CPU: the
+    state of the plain version's Legendre and Jacobi recurrences just
+    before l index s * SEG, for every segment s, at the nodes of
+    theta_table(n_theta, ...). Run by the plain version's own expressions,
+    so a segment started from its seed continues the uninterrupted run."""
+    x = theta_table(n_theta, False, "cpu")[TH_X]
+    zeros = torch.zeros_like(x)
+    pmm, pmmp1 = torch.ones_like(x), x
+    jac = [(zeros, zeros) for _ in JACOBI]
+    out = torch.empty(-(-L // SEG), len(SEED_ROWS), x.shape[0],
+                      dtype=torch.float64)
+    for il in range(L):
+        if il % SEG == 0:
+            out[il // SEG] = torch.stack([pmm, pmmp1] + [v for j in jac for v in j])
+        lc = float(il + 2)
+        P = ((2 * lc - 1) * x * pmmp1 - (lc - 1) * pmm) / lc
+        pmm, pmmp1 = pmmp1, P
+        jac = [(j[1], _jacobi_advance(lc - shift, a, b, x, *j))
+               for j, (_, a, b, shift) in zip(jac, JACOBI)]
+    return out
+
+
+@lru_cache(maxsize=4)
+def _kernel_tables(L: int, n_theta: int, device: str):
+    return (torch.as_tensor(l_table(L), device=device),
+            recurrence_seeds(L, n_theta).to(device))
+
+
+def _passes_grid_plain(cl: torch.Tensor, n_theta: int, apodize: bool,
+                       nl_out: int) -> torch.Tensor:
+    """_passes_plain on theta_table(n_theta, apodize): the CPU's path, and
+    the kernel's twin with the same signature."""
+    return _passes_plain(cl, theta_table(n_theta, apodize, cl.device), nl_out)
+
+
+def _passes_cuda(cl: torch.Tensor, n_theta: int, apodize: bool, nl_out: int
                  ) -> torch.Tensor:
-    """csrc/lensing.cu: one thread per (chain, theta) runs all three l
-    passes with the Legendre and Jacobi recurrences in registers and C_l
-    tiles in shared memory; pass 3 reduces over theta per warp (shuffles,
-    fixed order) into per-warp partials, and a second kernel sums the
-    partials in warp order, so repeated runs agree bit for bit. It computes
-    in float64 for float32 inputs too (see the source note: float32 loses
-    the lensed TE and BB at high l) and stores in the input's type.
+    """csrc/lensing.cu, six launches on the stream: passes 1 and 2 give a
+    thread one theta and one l segment (~14 segments, each started from
+    its recurrence seeds) and do the chain-independent Legendre, Jacobi
+    and Wigner-d work once for a register tile of 4 chains; a reduction
+    after each adds the segments' partial sums in segment order. Pass 3
+    generates P, d22, d2m2, d20 for 128 theta x 16 l in shared memory and
+    contracts them with 8 chains' xi over theta on the FP64 tensor cores
+    (mma.sync m8n8k4); its 6 theta ranges are added in order at the end.
+    No atomics, so repeated runs agree bit for bit. It computes in float64
+    for float32 inputs too (see the source note: float32 loses the lensed
+    TE and BB at high l) and stores in the input's type. The theta nodes
+    and the seeds both come from (n_theta, apodize), so they agree.
 
     Replaces cosmomc_tpu/models/lensing.py:lens_cls (the lax.scans at
-    :136, :247 and :287). Bound: ~2657 l x 5315 theta x ~250 flops per
-    chain for pass 2, compute-bound; the sequential l dependence lives
-    inside each thread, the theta lanes fill the card."""
+    :136, :247 and :287); the bound and the design are in the source."""
     C, _, L = cl.shape
-    nth = th.shape[1]
     kernels.check(cl, "cl", (C, 4, L))
-    kernels.check(th, "theta table", (N_TH, nth), torch.float64)
     if nl_out > L:
         raise ValueError(f"nl_out {nl_out} > L {L}")
-    threads = 128
-    n_warps = -(-nth // threads) * (threads // 32)
-    partial = torch.empty(C, n_warps, nl_out, 4, dtype=torch.float64,
-                          device=cl.device)
+    th = theta_table(n_theta, apodize, cl.device)
+    nth = n_theta - 1
+    lt, seeds = _kernel_tables(L, n_theta, str(th.device))
+    seg12 = SEG * max(1, round(seeds.shape[0] / 14))
+    nseg = -(-L // seg12)
+    f64 = dict(dtype=torch.float64, device=cl.device)
+    part1 = torch.empty(nseg, 2, C, nth, **f64)
+    sgcg = torch.empty(2, C, nth, **f64)
+    part2 = torch.empty(nseg, C, 4, nth, **f64)
+    xi = torch.empty(4, nth, C, **f64)
+    part3 = torch.empty(THETA_SPLITS, C, nl_out, 4, **f64)
     sums = torch.empty(C, nl_out, 4, dtype=cl.dtype, device=cl.device)
-    kernels.launch("lensing", cl.dtype, cl, th, partial, sums, C, L, nth,
-                   nl_out, n_warps)
+    kernels.launch("lensing", cl.dtype, cl, th, lt, seeds, part1, sgcg, part2,
+                   xi, part3, sums, C, L, nth, nl_out, seg12, THETA_SPLITS)
     return sums
 
 
@@ -235,23 +377,8 @@ def lens_cls(ls: torch.Tensor, tt: torch.Tensor, te: torch.Tensor,
                       pp * (2.0 * torch.pi / llp1 ** 2) * llp1 * two_l1_4pi],
                      1).contiguous()
 
-    # the theta table in float64 (1 - cos(theta) at the first nodes is
-    # ~1e-7); the plain version reads it in the spectra's dtype
-    dtheta = np.pi / n_theta
-    theta = torch.arange(1, n_theta, dtype=torch.float64, device=dev) * dtheta
-    x = torch.cos(theta)
-    sinth = torch.sin(theta)
-    if apodize:
-        i = torch.arange(1, n_theta, dtype=torch.float64, device=dev)
-        wid = max(int(0.003 / dtheta), 1)
-        tail = torch.exp(-torch.clamp(i - (n_theta - 3.0 * wid), min=0.0) ** 2
-                         / (2.0 * wid ** 2))
-    else:
-        tail = torch.ones_like(x)
-    th = torch.stack([x, sinth, sinth ** 2, 1.0 - x, 1.0 + x, tail,
-                      sinth * dtheta]).contiguous()
-    passes = _passes_plain if dev.type == "cpu" else _passes_cuda
-    s = passes(cl, th, nl_out)
+    passes = _passes_grid_plain if dev.type == "cpu" else _passes_cuda
+    s = passes(cl, n_theta, apodize, nl_out)
     dctt = 2.0 * torch.pi * s[..., 0]
     dcee = 2.0 * torch.pi * 0.5 * (s[..., 1] + s[..., 2])
     dcbb = 2.0 * torch.pi * 0.5 * (s[..., 1] - s[..., 2])

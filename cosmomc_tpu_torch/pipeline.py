@@ -28,6 +28,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
 from cosmomc_tpu_torch.models import background as bgm
 from cosmomc_tpu_torch.models.bbn import BBNTable, dh_bbn, yhe_bbn
@@ -115,11 +116,12 @@ class CMBPosterior:
     de_perturbations: object = "auto"
     use_cmb: bool = True
     compute_tensors: bool = False            # r -> tensor TT/TE/EE/BB
-    device: object = None
+    #: "cuda" (the default) or "cpu"; without a card only "cpu" is accepted
+    device: object = "cuda"
     dtype: torch.dtype = torch.float64
 
     def __post_init__(self):
-        self.device = torch.device(self.device or "cpu")
+        self.device = kernels.entry_device(self.device, "CMBPosterior")
         if self.bbn_table is None:
             raise ValueError("CMBPosterior needs bbn_table= (load_bbn_table(path) "
                              "or synthetic_bbn_table())")

@@ -110,12 +110,14 @@ def test_boltzmann_kernel(dev, tables, dtype):
         check(out_k[p], out_p[p], out_r[p], dtype, 1e-3, name)
 
 
-def _plain(module, name):
-    """Context that routes a module's CUDA path to its plain version."""
+def _plain(module, name, twin=None):
+    """Context that routes a module's CUDA path to its plain version (the
+    function `twin`, by default the name with "plain" for "cuda")."""
     class Swap:
         def __enter__(self):
             self.real = getattr(module, name)
-            setattr(module, name, getattr(module, name.replace("cuda", "plain")))
+            setattr(module, name,
+                    getattr(module, twin or name.replace("cuda", "plain")))
 
         def __exit__(self, *exc):
             setattr(module, name, self.real)
@@ -124,18 +126,24 @@ def _plain(module, name):
 
 @pytest.mark.parametrize("dtype", [F64, F32])
 def test_los_kernel(dev, tables, dtype):
+    """lmax 450: 60 sampled l after padding (not a multiple of a warp's 8);
+    k_chunk 100 pads the fine k to a count that is not a multiple of the
+    32-k block; tau stride 3 leaves 683 nodes (a ragged last tau tile)."""
     bg, tf, tau0, k, _, _ = tables
     po64 = tpert.evolve_perturbations(bg, tf, tau0, k)
     po = po64._replace(**{f: getattr(po64, f).to(dtype) for f in
                           ("tau", "k", "s0", "s1", "s2", "slens", "tau0")})
-    args = dict(coarse_k=source_k_grid(0.1, 8, 16), lmax=400, kmax_hint=0.1,
-                tau_stride=4)
+    args = dict(coarse_k=source_k_grid(0.1, 8, 16), lmax=450, kmax_hint=0.1,
+                tau_stride=3, k_chunk=100)
     chi = (tau0 - 280.0).to(dtype)
     n0 = kernels.launches["los"]
     clt_k = tcls.compute_cl_transfers(po, chi, **args)
+    again = tcls.compute_cl_transfers(po, chi, **args)
     torch.cuda.synchronize()
-    assert kernels.launches["los"] == n0 + 1
-    with _plain(tcls, "_los_cuda"):
+    assert kernels.launches["los"] == n0 + 2
+    for f in ("dT", "dE", "dP"):
+        assert torch.equal(getattr(clt_k, f), getattr(again, f)), f
+    with _plain(tcls, "_los_cuda", "_los_plan_plain"):
         clt_p = tcls.compute_cl_transfers(po, chi, **args)
         po_r = po._replace(**{f: getattr(po, f).double() for f in
                               ("tau", "k", "s0", "s1", "s2", "slens", "tau0")})
@@ -207,32 +215,51 @@ def test_tensor_kernels(dev, tables, dtype):
               1e-4, f)
 
 
-def _lens_inputs(dev, lmax=800):
+def _lens_inputs(dev, lmax=800, chains=2):
     l = torch.arange(2, lmax + 1, dtype=F64, device=dev)
     damp = torch.exp(-(l / 1400.0) ** 2)
     tt = 5800.0 * damp * (0.35 + torch.cos(np.pi * l / 300.0) ** 2)
     ee = 40.0 * damp * (l / 1000.0) * (1.0 + torch.sin(np.pi * l / 300.0) ** 2)
     te = 0.4 * torch.sqrt(tt * ee) * torch.cos(np.pi * l / 150.0)
     pp = 1.8e-7 * (l / 40.0) / (1.0 + (l / 40.0) ** 2) ** 1.2
-    return l.to(torch.int64), [torch.stack([x, 1.1 * x]) for x in (tt, te, ee, pp)]
+    amp = torch.linspace(1.0, 1.2, chains, dtype=F64, device=dev)[:, None]
+    return l.to(torch.int64), [amp * x for x in (tt, te, ee, pp)]
 
 
-@pytest.mark.parametrize("dtype", [F64, F32])
-def test_lensing_kernel(dev, dtype):
-    ls, st64 = _lens_inputs(dev)
+@pytest.mark.parametrize("dtype,chains", [(F64, 2), (F32, 2), (F64, 9)])
+def test_lensing_kernel(dev, dtype, chains):
+    """lmax 800 -> 650: 1599 theta (not a multiple of the 128-theta
+    block), 799 and 649 multipoles (not multiples of the 64-l segment);
+    9 chains leave the second 8-chain register tile ragged."""
+    ls, st64 = _lens_inputs(dev, chains=chains)
     st = [x.to(dtype) for x in st64]
     n0 = kernels.launches["lensing"]
     out_k = tlens.lens_cls(ls, *st, lmax_lensed=650)
     out_k2 = tlens.lens_cls(ls, *st, lmax_lensed=650)
     torch.cuda.synchronize()
     assert kernels.launches["lensing"] == n0 + 2
-    with _plain(tlens, "_passes_cuda"):
+    with _plain(tlens, "_passes_cuda", "_passes_grid_plain"):
         out_p = tlens.lens_cls(ls, *st, lmax_lensed=650)
         out_r = tlens.lens_cls(ls, *[x.double() for x in st], lmax_lensed=650)
     for f in ("tt", "te", "ee", "bb"):
         assert torch.equal(getattr(out_k, f), getattr(out_k2, f)), f
         check(getattr(out_k, f), getattr(out_p, f), getattr(out_r, f), dtype,
               1e-4, f)
+
+
+def test_lensing_kernel_theta_grid_options(dev):
+    """The wrapper builds its theta nodes and recurrence seeds from
+    (n_theta, apodize): an odd n_theta without the apodizing tail."""
+    ls, st = _lens_inputs(dev)
+    kw = dict(lmax_lensed=650, n_theta=1501, apodize=False)
+    out_k = tlens.lens_cls(ls, *st, **kw)
+    with _plain(tlens, "_passes_cuda", "_passes_grid_plain"):
+        out_p = tlens.lens_cls(ls, *st, **kw)
+    for f in ("tt", "te", "ee", "bb"):
+        check(getattr(out_k, f), getattr(out_p, f), None, F64, 0.0, f)
+    with pytest.raises(ValueError):
+        tlens._passes_cuda(torch.zeros(2, 4, 799, dtype=F64, device=dev),
+                           1600, True, 800)
 
 
 def test_wrappers_reject_bad_inputs(dev):

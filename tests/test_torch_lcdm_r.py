@@ -85,8 +85,8 @@ def posts():
                 *(jnp.asarray(getattr(tab, f)) for f in GRID_FIELDS))
     jpost = JPost(JPar(jnp.float64), _space(JPar(jnp.float64)), JLikes(),
                   bbn_table=jtab, dtype=jnp.float64, **CFG)
-    tpost = TPost(TPar(), _space(TPar()), TLikes(), bbn_table=tab, dtype=F64,
-                  **CFG)
+    tpost = TPost(TPar(), _space(TPar()), TLikes(), bbn_table=tab,
+                  device="cpu", dtype=F64, **CFG)
     return jpost, tpost
 
 

@@ -97,10 +97,11 @@ def posts(tmp_path_factory):
     js, ts = _spaces(JPar(jnp.float64), TPar())
     jl, tl = JLikes(), TLikes()
     jl.add(JPlik(ds, name="plik_lite", dtype=jnp.float64))
-    tl.add(TPlik(ds, name="plik_lite", dtype=F64))
+    tl.add(TPlik(ds, name="plik_lite", device="cpu", dtype=F64))
     jpost = JPost(JPar(jnp.float64), js, jl, bbn_table=jtab, dtype=jnp.float64,
                   **CFG)
-    tpost = TPost(TPar(), ts, tl, bbn_table=tab, dtype=F64, **CFG)
+    tpost = TPost(TPar(), ts, tl, bbn_table=tab, device="cpu", dtype=F64,
+                  **CFG)
     return jpost, tpost
 
 
