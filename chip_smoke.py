@@ -9,7 +9,8 @@ Phase 2 holds each kernel against its plain PyTorch version at the main
 paths' shapes, in float32 and float64, times both, and computes each
 kernel's bound from shape-based counts (OPS): the larger of its operations
 over the card's peak rate for their type and its bytes over the memory
-rate. K4, K1 and K5 are also timed on one lane, their serial floor.
+rate. K4, K1 and K5 are also timed on one chain or lane: what one
+dependency chain costs, however many run beside it.
 Phase 3 runs the flagship path at full width in float32 (table LOS engine,
 halofit lensing): C_l at the best fit, a plik_lite fiducial written from
 them, then CMBPosterior (plik_lite + tau prior, synthetic BBN table) under
@@ -74,14 +75,19 @@ MEM_BYTES_PER_S = 3.35e12
 #: unless said otherwise (a multiply-add counts as two, a divide, square
 #: root, exp, log or pow as one):
 OPS = {
-    # per (chain, z step): T_M step and 2 Newton iterations ~40, four rate
+    # per (chain, z step) from the first live node on (before it the state
+    # is the table's): T_M step and 2 Newton iterations ~40, four rate
     # sets (pow, sqrt, exp) ~100, 3 + 3 Newton residuals of x_He, x_H ~140,
     # regime selection ~20 (models/recfast.py:_scan_plain)
     "recfast": 300,
-    # per (chain, k, step): 5 RHS of ~285 (the non-frozen branch; frozen
-    # lanes compute it and discard it), 37 variables x 16 for the RK4
-    # combinations, ~50 for the sources (models/perturbations.py:_rhs)
-    "boltzmann": 5 * 285 + 37 * 16 + 50,
+    # per (chain, k, step): an RHS of ~285 (the non-frozen branch; frozen
+    # lanes compute it and discard it), and 37 variables x 16 for the RK4
+    # combinations + ~50 for the sources (models/perturbations.py:_rhs).
+    # The plain version evaluates 5 RHS a step; the least arithmetic is 4
+    # where a step's first table row repeats the previous step's last (the
+    # fifth evaluation is then the next step's first), which phase 2 counts
+    # from the table it runs
+    "boltzmann": (285, 37 * 16 + 50),
     # the least arithmetic that computes the function (csrc/cls.cu, where
     # j'' is folded into the j and j' coefficients): per (chain, l, k, tau)
     # point two lerps 6 and five multiply-adds 10; per (chain, k, tau) the
@@ -249,15 +255,17 @@ def phase2(dev, results):
     err = max(check_f32("recfast." + n, a, b, c, 1e-4)
               for a, b, c, n in zip(k32, p32, r64, ("xe", "tm")))
     C, _, N = zt32.shape
+    live = mrec.first_live_node(zt32)
+    log(f"  first live node per chain: {live.tolist()} of {N}")
     z1, f1 = zt32[:1].contiguous(), f32[:1].contiguous()
     mrec._scan_cuda(z1, f1)
     serial_ms, _ = timed(lambda: mrec._scan_cuda(z1, f1), reps=10)
     results["recfast"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                               serial_ms=serial_ms, **bound(
-                                  {"fp32": C * (N - 1) * OPS["recfast"]},
+                                  {"fp32": int((N - live).sum()) * OPS["recfast"]},
                                   nbytes(zt32, f32, *k32)))
     log(f"  recfast kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, one chain "
-        f"{serial_ms:.3f} ms (the serial floor)")
+        f"{serial_ms:.3f} ms (one dependency chain)")
 
     # ---- K1: Boltzmann, 8 chains x 248 k; compared at n_step=2048 (the
     # plain version launches ~1e3 ops a step; at 1024 steps the top k lanes
@@ -284,12 +292,19 @@ def phase2(dev, results):
               for i, n in enumerate(mpert.PLANES))
     log(f"  boltzmann@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
     C, S = q32.shape[0], q32.shape[1]
-    k1_bound = bound({"fp32": C * S * k.shape[0] * OPS["boltzmann"]},
-                     nbytes(q32, k32_, rnu32, o_k))
+    per_rhs, per_step = OPS["boltzmann"]
+
+    def k1_ops(qt):
+        """FP32 operations of one solve: 5 RHS a step, 4 where the step's
+        first row repeats the row before."""
+        repeats = (qt[:, 1:, 0] == qt[:, :-1, 2]).all(-1).sum(-1)
+        return int(((5 * qt.shape[1] - repeats) * per_rhs
+                    + qt.shape[1] * per_step).sum()) * k.shape[0]
+    k1_bound = bound({"fp32": k1_ops(q32)}, nbytes(q32, k32_, rnu32, o_k))
     q1l, k1l, r1l = q32[:1].contiguous(), k32_[-1:].contiguous(), rnu32[:1].contiguous()
     mpert._evolve_cuda(q1l, k1l, r1l, mpert.RSA_KTAU)
     serial_ms, _ = timed(lambda: mpert._evolve_cuda(q1l, k1l, r1l, mpert.RSA_KTAU), 3)
-    log(f"  boltzmann@{K1_CMP_STEPS} one lane {serial_ms:.2f} ms (the serial floor)")
+    log(f"  boltzmann@{K1_CMP_STEPS} one lane {serial_ms:.2f} ms (one dependency chain)")
     tf, tau0 = mpert.build_thermo_funcs(bg, yhe, th, zre)
     q = mpert._stage_tables(bg, tf)
     ms_full = {}
@@ -297,12 +312,14 @@ def phase2(dev, results):
         qd, kd, rd = q.to(dt), k.to(dt), rnu.to(dt)
         mpert._evolve_cuda(qd, kd, rd, mpert.RSA_KTAU)
         ms_full[dt], _ = timed(lambda: mpert._evolve_cuda(qd, kd, rd,
-                                                          mpert.RSA_KTAU), 2)
-    log(f"  boltzmann@8192 kernel f32 {ms_full[F32]:.1f} ms, "
-        f"f64 {ms_full[F64]:.1f} ms")
+                                                          mpert.RSA_KTAU), 5)
+    full_bound = bound({"fp32": k1_ops(q.float())}, 0)["bound_ms"]
+    log(f"  boltzmann@8192 kernel f32 {ms_full[F32]:.2f} ms (bound "
+        f"{full_bound:.3f} ms), f64 {ms_full[F64]:.2f} ms")
     results["boltzmann"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                ms_8192_steps=ms_full[F32], serial_ms=serial_ms,
-                                **k1_bound)
+                                ms_8192_steps=ms_full[F32],
+                                bound_ms_8192_steps=full_bound,
+                                serial_ms=serial_ms, **k1_bound)
 
     # ---- K2a: LOS at 109 l x 4521 k x 2048 tau, from the 8192-step sources
     log("K2a los: 8 chains, lmax 2658, kmax 0.5, tau stride 4")

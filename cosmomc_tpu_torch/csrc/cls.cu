@@ -63,18 +63,6 @@ struct Tile {
 };
 
 template <typename T>
-__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
-               "n"(sizeof(T)));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-template <typename T>
 size_t smem_bytes(int rspan) {
   constexpr int TT = Tile<T>::TT, TP = Tile<T>::TP;
   return (size_t)2 * 4 * rspan * TP * sizeof(T)   // coarse rows, double buffered

@@ -31,3 +31,24 @@ template <typename T>
 __device__ __forceinline__ T lerp_nodes(T x, T x0, T x1, T f0, T f1) {
   return f0 + ((x - x0) / (x1 - x0)) * (f1 - f0);
 }
+
+constexpr unsigned FULL_WARP = 0xffffffffu;
+
+// Asynchronous copy of one element from global to shared memory (cp.async),
+// grouped by commit and awaited by group count: cp_async_wait<1>() returns
+// when all but the newest committed group have landed. The copies of a
+// thread are visible to other threads only after a barrier.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+               "n"(sizeof(T))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}

@@ -22,7 +22,8 @@ Layout of the work:
     jnp.interp's arithmetic, as one vectorized pass;
   - the per-(chain, k) recurrence runs as `_evolve_plain` (batched torch,
     the reference path and what CPU tensors take) or as the CUDA kernel
-    csrc/perturbations.cu (one thread per (chain, k) lane).
+    csrc/perturbations.cu (one warp per (chain, k) lane, one multipole a
+    thread).
 """
 
 from __future__ import annotations
@@ -63,6 +64,9 @@ IC_RELEASE_KTAU = 0.08
 (Q_TAU, Q_OPAC, Q_CSQB, Q_DTLOC, Q_GG, Q_GN, Q_GML, Q_GC, Q_GB, Q_ADOTOA,
  Q_GRHO, Q_GPRES, Q_R, Q_VIS, Q_EXPMK, Q_GNISW) = range(16)
 NQ = 16
+#: csrc/perturbations.cu: the first thread of a warp that holds a multipole
+#: of each hierarchy (F_g 2..LMAXG, G 0..LMAXGP, F_nu 2..LMAXNR, one a thread)
+MULTIPOLE_LANES = {"fg": 0, "gp": LMAXG - 1, "fn": LMAXG - 1 + LMAXGP + 1}
 # output planes
 PLANES = ("s0", "s1", "s2", "slens", "dm", "dmdot", "weyl")
 
@@ -475,16 +479,20 @@ def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
 
 def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
                  rsa_ktau: float) -> torch.Tensor:
-    """csrc/perturbations.cu: one thread per (chain, k) lane runs the whole
-    tau loop with the 37-variable state in registers.
+    """csrc/perturbations.cu: one warp per (chain, k) lane runs the whole
+    tau loop.
 
     Replaces cosmomc_tpu/models/perturbations.py:evolve_perturbations (the
-    lax.scan at :928 over make_rhs.rhs and rk4_step). Bound: 5 RHS
-    evaluations a step, ~8191 dependent steps per lane, about 2.5e3 flops
-    a step: compute- and latency-bound, with the RK4 stages (4 x 37 values)
-    more than the register file holds without spills. Outputs go to
-    (plane, chain, step, k), so neighbouring threads store neighbouring
-    addresses."""
+    lax.scan at :928 over make_rhs.rhs and rk4_step). Bound: operations (5
+    RHS evaluations a step, ~8191 dependent steps per lane), and in
+    practice each lane's dependency chain. Every thread of the warp holds
+    the eight fluid variables and computes their derivatives alike; threads
+    0..28 hold one multipole each (`MULTIPOLE_LANES`), neighbours by warp
+    shuffles, so the RK4 state is 4 x 9 values a thread. A block is 8
+    warps of consecutive k of one chain: it stages the next 16 steps' qtab
+    rows in shared memory by cp.async, computes their k-independent terms
+    once, and collects its 8 lanes' sources to store (plane, chain, step,
+    8 consecutive k) at once. One launch a call."""
     C, S = qtab.shape[0], qtab.shape[1]
     nk = k.shape[0]
     kernels.check(qtab, "qtab", (C, S, 3, NQ))

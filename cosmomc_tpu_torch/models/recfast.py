@@ -14,8 +14,8 @@ Layout of the work:
     vectorized pass over the whole (chains, N_Z) grid by `_z_tables`;
   - the recurrence itself (T_M, x_He, x_H) runs either as a Python loop
     of batched torch ops (`_scan_plain`, the reference path, and what
-    CPU tensors take) or as the CUDA kernel csrc/recfast.cu (one thread
-    per chain, the z loop inside the thread).
+    CPU tensors take) or as the CUDA kernel csrc/recfast.cu (one warp
+    per chain, the z loop inside the kernel).
 
 The Newton derivative of each Crank-Nicolson residual is written in
 closed form (the JAX package takes jax.grad of the same expression); it is
@@ -148,90 +148,139 @@ def _alpha_He(tm):
                               * (1 + sq1) ** (1 + b_VF))
 
 
-def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor):
+def _rate_coeffs(t):
+    """The T_M-dependent rate coefficients of both channels at T_M = t:
+    (He: rdown, rup, exp(-CL_He/t), -Bfact/t), (H: rdown, rup, exp(-CL/t))."""
+    he_down = _alpha_He(t)
+    he_up = 4.0 * he_down * (_CR * t) ** 1.5 * torch.exp(-_CDB_He / t)
+    h_down = _alpha_H(t)
+    h_up = h_down * (_CR * t) ** 1.5 * torch.exp(-_CDB / t)
+    return ((he_down, he_up, torch.exp(-_CL_He / t), -_Bfact / t),
+            (h_down, h_up, torch.exp(-_CL / t)))
+
+
+def _he_rate(coeffs, r):
+    """The He rate set at a node: coefficients at its T_M + the node's row."""
+    return coeffs[0] + (r[ZT_KHE], r[ZT_N], r[ZT_NHE], r[ZT_HZ1])
+
+
+def _h_rate(coeffs, r):
+    return coeffs[1] + (r[ZT_KH], r[ZT_N], r[ZT_HZ1])
+
+
+def _cn(x, f_prev, dz, rhs):
+    """Crank-Nicolson step from x with two Newton iterations; rhs(x) gives
+    the rate and its derivative."""
+    xp = x + dz * f_prev
+    for _ in range(2):
+        v, d = rhs(xp)
+        g = xp - x - 0.5 * dz * (f_prev + v)
+        gp = 1.0 - 0.5 * dz * d
+        xp = xp - g / torch.where(gp.abs() > 1e-12, gp, 1.0)
+    return xp
+
+
+def _tm_step(r0, r1, tm, xe_tot, fHe):
+    """T_M at the next node: dTm/dz = A (tm - tr) + 2 tm/(1+z),
+    A = CT xe/(1+xe+fHe)."""
+    z = r1[ZT_Z]
+    dz = z - r0[ZT_Z]
+    xfac = xe_tot / (1.0 + xe_tot + fHe)
+    A0, A1 = r0[ZT_CT] * xfac, r1[ZT_CT] * xfac
+    tr1, zp1 = r1[ZT_TR], 1.0 + z
+    fT = A0 * (tm - r0[ZT_TR]) + 2.0 * tm / (1.0 + r0[ZT_Z])
+    return _cn(tm, fT, dz, lambda tt: (A1 * (tt - tr1) + 2.0 * tt / zp1,
+                                       A1 + 2.0 / zp1))
+
+
+def _dxhe(xx, xe, fHe, rate):
+    """He singlet rate (xe = x_H + fHe xx) and its derivative in xx."""
+    rdown, rup, ecl, bt, khe, n, nhe, hz1 = rate
+    nhe1 = (1.0 - xx) * nhe
+    live = nhe1 > 1e-30
+    nhe1 = torch.where(live, nhe1, 1e-30)
+    arg = bt - torch.log(khe * nhe1)
+    u = torch.exp(torch.clamp(arg, max=80.0))
+    du = torch.where(live & (arg < 80.0), u * nhe / nhe1, 0.0)
+    den = u + Lambda_He + rup
+    crate = (u + Lambda_He) / den
+    dcrate = du * rup / (den * den)
+    q = xe * xx * n * rdown - rup * (1.0 - xx) * ecl
+    dq = (fHe * xx + xe) * n * rdown + rup * ecl
+    return q * crate / hz1, (dq * crate + q * dcrate) / hz1
+
+
+def _dxh(xx, xe, rate):
+    """Peebles rate (xe = xx + fHe x_He) and its derivative in xx."""
+    rdown, rup, ecl, K, n, hz1 = rate
+    n1s = (1.0 - xx) * n
+    live = n1s > 1e-30
+    n1s = torch.where(live, n1s, 1e-30)
+    den = 1.0 + K * (Lambda_H + rup) * n1s
+    crate = (1.0 + K * Lambda_H * n1s) / den
+    dcrate = torch.where(live, n * K * rup / (den * den), 0.0)
+    q = xe * xx * n * rdown - rup * (1.0 - xx) * ecl
+    dq = (xx + xe) * n * rdown + rup * ecl
+    return q * crate / hz1, (dq * crate + q * dcrate) / hz1
+
+
+def first_live_node(zt: torch.Tensor) -> torch.Tensor:
+    """(C,) the first node j >= 1 of each chain where the regime selection
+    can take an ODE value: not (z > 3000, x_He,Saha > 0.995 and
+    x_H,Saha > 0.985); N where there is none. Before it the state is the
+    table's whatever the ODE steps give, so the recurrence can start at
+    the node before it (what csrc/recfast.cu does)."""
+    N = zt.shape[-1]
+    live = ~((zt[:, ZT_Z] > 3000.0) & (zt[:, ZT_XHESAHA] > 0.995)
+             & (zt[:, ZT_XHSAHA] > 0.985))
+    live[:, 0] = False
+    idx = torch.arange(N, device=zt.device).expand_as(live)
+    return torch.where(live, idx, N).amin(-1)
+
+
+def table_prefix(zt: torch.Tensor, fHe: torch.Tensor, n: int):
+    """(x_H, x_He, x_e, T_M) at nodes 0..n-1, each (C, n), where every one of
+    them lies before the first live node: the selection's table branch."""
+    xHe = zt[:, ZT_XHESAHA, :n].clamp(0.0, 1.0)
+    xH = zt[:, ZT_XHSAHA, :n].clamp(0.0, 1.0)
+    xe = torch.where(zt[:, ZT_Z, :n] > 5500.0, zt[:, ZT_XEEARLY, :n],
+                     xH + fHe[:, None] * xHe)
+    xH[:, 0], xHe[:, 0], xe[:, 0] = 1.0, 1.0, 1.0 + 2.0 * fHe
+    return xH, xHe, xe, zt[:, ZT_TMHOT, :n]
+
+
+def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor, start: int = 1):
     """The recurrence as batched torch ops; zt (C, N_ZT, N). Returns
-    (xe, tm), each (C, N)."""
+    (xe, tm), each (C, N). `start`: the first node the recurrence computes
+    (1: all of them); nodes before it take the table's state, which is the
+    same result when start <= first_live_node(zt).min()."""
     C, _, N = zt.shape
     steps = zt.permute(2, 1, 0).unbind(0)          # N x (N_ZT, C)
     xe_out = torch.empty(N, C, dtype=zt.dtype, device=zt.device)
     tm_out = torch.empty_like(xe_out)
-    xe_out[0] = 1.0 + 2.0 * fHe
-    tm_out[0] = steps[0][ZT_TMHOT]
-    xH = torch.ones_like(fHe)
-    xHe = torch.ones_like(fHe)
-    tm = tm_out[0]
-
-    def cn(x, f_prev, dz, rhs):
-        xp = x + dz * f_prev
-        for _ in range(2):
-            v, d = rhs(xp)
-            g = xp - x - 0.5 * dz * (f_prev + v)
-            gp = 1.0 - 0.5 * dz * d
-            xp = xp - g / torch.where(gp.abs() > 1e-12, gp, 1.0)
-        return xp
-
-    def he_rate(r, t):
-        rdown = _alpha_He(t)
-        rup = 4.0 * rdown * (_CR * t) ** 1.5 * torch.exp(-_CDB_He / t)
-        return (rdown, rup, torch.exp(-_CL_He / t), -_Bfact / t,
-                r[ZT_KHE], r[ZT_N], r[ZT_NHE], r[ZT_HZ1])
-
-    def dxhe(xx, xe, rate):
-        # He singlet rate (xe = x_H + fHe xx) and its derivative in xx
-        rdown, rup, ecl, bt, khe, n, nhe, hz1 = rate
-        nhe1 = (1.0 - xx) * nhe
-        live = nhe1 > 1e-30
-        nhe1 = torch.where(live, nhe1, 1e-30)
-        arg = bt - torch.log(khe * nhe1)
-        u = torch.exp(torch.clamp(arg, max=80.0))
-        du = torch.where(live & (arg < 80.0), u * nhe / nhe1, 0.0)
-        den = u + Lambda_He + rup
-        crate = (u + Lambda_He) / den
-        dcrate = du * rup / (den * den)
-        q = xe * xx * n * rdown - rup * (1.0 - xx) * ecl
-        dq = (fHe * xx + xe) * n * rdown + rup * ecl
-        return q * crate / hz1, (dq * crate + q * dcrate) / hz1
-
-    def h_rate(r, t):
-        rdown = _alpha_H(t)
-        rup = rdown * (_CR * t) ** 1.5 * torch.exp(-_CDB / t)
-        return rdown, rup, torch.exp(-_CL / t), r[ZT_KH], r[ZT_N], r[ZT_HZ1]
-
-    def dxh(xx, xe, rate):
-        # Peebles rate (xe = xx + fHe x_He) and its derivative in xx
-        rdown, rup, ecl, K, n, hz1 = rate
-        n1s = (1.0 - xx) * n
-        live = n1s > 1e-30
-        n1s = torch.where(live, n1s, 1e-30)
-        den = 1.0 + K * (Lambda_H + rup) * n1s
-        crate = (1.0 + K * Lambda_H * n1s) / den
-        dcrate = torch.where(live, n * K * rup / (den * den), 0.0)
-        q = xe * xx * n * rdown - rup * (1.0 - xx) * ecl
-        dq = (xx + xe) * n * rdown + rup * ecl
-        return q * crate / hz1, (dq * crate + q * dcrate) / hz1
+    start = max(1, min(int(start), N))
+    xH, xHe, xe_pre, tm_pre = table_prefix(zt, fHe, start)
+    xe_out[:start], tm_out[:start] = xe_pre.T, tm_pre.T
+    xH, xHe, tm = xH[:, -1], xHe[:, -1], tm_out[start - 1]
 
     with torch.no_grad():
-        for i in range(N - 1):
+        for i in range(start - 1, N - 1):
             r0, r1 = steps[i], steps[i + 1]
             z = r1[ZT_Z]
             dz = z - r0[ZT_Z]
             xe_tot = xH + fHe * xHe
-            # T_M: dTm/dz = A (tm - tr) + 2 tm/(1+z), A = CT xe/(1+xe+fHe)
-            xfac = xe_tot / (1.0 + xe_tot + fHe)
-            A0, A1 = r0[ZT_CT] * xfac, r1[ZT_CT] * xfac
-            tr1, zp1 = r1[ZT_TR], 1.0 + z
-            fT = A0 * (tm - r0[ZT_TR]) + 2.0 * tm / (1.0 + r0[ZT_Z])
-            tm_new = cn(tm, fT, dz, lambda tt: (A1 * (tt - tr1) + 2.0 * tt / zp1,
-                                                A1 + 2.0 / zp1))
+            tm_new = _tm_step(r0, r1, tm, xe_tot, fHe)
+            c0, c1 = _rate_coeffs(tm), _rate_coeffs(tm_new)
             # He singlet channel, x_H frozen
-            he1 = he_rate(r1, tm_new)
-            f_he = dxhe(xHe, xe_tot, he_rate(r0, tm))[0]
-            xHe_ode = cn(xHe, f_he, dz, lambda xx: dxhe(xx, xH + fHe * xx, he1))
+            he1 = _he_rate(c1, r1)
+            f_he = _dxhe(xHe, xe_tot, fHe, _he_rate(c0, r0))[0]
+            xHe_ode = _cn(xHe, f_he, dz,
+                          lambda xx: _dxhe(xx, xH + fHe * xx, fHe, he1))
             # H with the new x_He
-            h1 = h_rate(r1, tm_new)
-            f_h = dxh(xH, xe_tot, h_rate(r0, tm))[0]
-            xH_ode = cn(xH, f_h, dz,
-                        lambda xx: dxh(xx, xx + fHe * xHe_ode, h1))
+            h1 = _h_rate(c1, r1)
+            f_h = _dxh(xH, xe_tot, _h_rate(c0, r0))[0]
+            xH_ode = _cn(xH, f_h, dz,
+                         lambda xx: _dxh(xx, xx + fHe * xHe_ode, h1))
             # regime selection
             xhe_s, xh_s = r1[ZT_XHESAHA], r1[ZT_XHSAHA]
             xHe = torch.where(xhe_s > 0.995, xhe_s, xHe_ode).clamp(0.0, 1.0)
@@ -244,14 +293,20 @@ def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor):
 
 
 def _scan_cuda(zt: torch.Tensor, fHe: torch.Tensor):
-    """csrc/recfast.cu: one thread per chain walks the z grid.
+    """csrc/recfast.cu: one warp per chain walks the z grid.
 
     Replaces cosmomc_tpu/models/recfast.py:compute_thermo (the lax.scan at
-    :279). Bound: the 7999-step dependency chain of each chain's state;
-    about 300 flops a step, so the kernel is latency-bound and uses a
-    handful of warps. The design keeps only the state-dependent recurrence
-    in the thread and reads every z-only quantity from the precomputed
-    table."""
+    :279). Bound: the dependency chain of each chain's state, 7999 steps of
+    about 300 flops, not bytes or operations. The kernel shortens the
+    chain: the warp writes the nodes before `first_live_node` from the
+    table in parallel and walks only the rest; the independent pow and exp
+    of the rate coefficients are evaluated one per lane and gathered by
+    shuffles; the coefficients at node j are kept for step j + 1; a solve
+    whose result the selection discards is skipped; divisors that depend on
+    z alone become reciprocals taken once per 32 nodes and quotients with
+    a common divisor share it (18 divides a step where the plain version
+    has 47); the table rows of the next 32 nodes are staged into shared
+    memory while the current 32 are walked. One launch a call."""
     C, nzt, N = zt.shape
     kernels.check(zt, "zt", (C, N_ZT, N))
     kernels.check(fHe, "fHe", (C,), zt.dtype)

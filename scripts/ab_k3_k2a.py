@@ -62,23 +62,35 @@ FIRST_ABI = {
 }
 
 
-def build_parent(parent: str, name: str, src: str) -> ctypes.CDLL:
+def build_parent(parent: str, name: str, src: str, abi=None,
+                 who: str = "ab_k3_k2a") -> ctypes.CDLL:
+    """Compile the first version of csrc/<src> from the tree `parent`, after
+    checking that it is not this tree's source and declares the entry point
+    `abi[src]` (by default FIRST_ABI's)."""
     path = os.path.join(parent, "cosmomc_tpu_torch", "csrc", src)
     with open(path, "rb") as f:
         text = f.read()
-    fn, params = FIRST_ABI[src]
+    with open(os.path.join(kernels.CSRC, src), "rb") as f:
+        if f.read() == text:
+            sys.exit(f"{who}: {path} is this tree's {src}, not a first version")
+    fn, params = (abi or FIRST_ABI)[src]
     m = re.search(rf'extern "C" int {fn}\(([^)]*)\)',
                   text.decode().replace("\\\n", " "))
     if not m or " ".join(m.group(1).split()) != params:
-        sys.exit(f"ab_k3_k2a: {path} does not declare the first version's "
+        sys.exit(f"{who}: {path} does not declare the first version's "
                  f"{fn}({params})")
     h = hashlib.sha1(text).hexdigest()[:12]
     out = os.path.join(kernels.BUILD_DIR, f"libparent_{name}_{h}.so")
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
     if not os.path.exists(out):
-        subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
-                        os.path.dirname(path), "-o", out, path], check=True,
-                       capture_output=True)
+        res = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
+                              os.path.dirname(path), "-o", out, path], check=True,
+                             capture_output=True, text=True)
+        # the first version's registers and spills, as ptxas reports them
+        for line in res.stderr.splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"ptxas {src} (first version): "
+                      + line.split("info    :")[-1].strip(), flush=True)
     return ctypes.CDLL(out)
 
 

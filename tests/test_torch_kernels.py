@@ -77,6 +77,28 @@ def test_recfast_kernel(dev, dtype):
     check(tm_k, tm_p, tm_r, dtype, 1e-4, "tm")
 
 
+@pytest.mark.parametrize("chains,n_z", [(1, 2000), (3, 1000), (8, 977)])
+def test_recfast_kernel_chain_counts(dev, chains, n_z):
+    """One warp a chain: 1, 3 and 8 chains; 977 nodes leave the last
+    32-node tile ragged, and each chain finds its own first live node."""
+    bg = _bg(dev, F64, chains)
+    yhe = torch.linspace(0.24, 0.25, chains, dtype=F64, device=dev)
+    fHe = yhe / (trec.const.mass_ratio_He_H * (1.0 - yhe))
+    Nnow = trec.const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
+    zt = trec._z_tables(bg, trec.z_grid(n_z, dev, F64), fHe, Nnow).contiguous()
+    assert 1 < int(trec.first_live_node(zt).min()) < n_z
+    for dtype in (F64, F32):
+        z, f = zt.to(dtype), fHe.to(dtype)
+        k, p = trec._scan_cuda(z, f), trec._scan_plain(z, f)
+        r = trec._scan_plain(z.double(), f.double())
+        for a, b, c, n in zip(k, p, r, ("xe", "tm")):
+            check(a, b, c, dtype, 1e-4, n)
+    # a table that never leaves the Saha/hot regime is all prefix
+    hot = zt[:, :, :40].contiguous()
+    for a, b in zip(trec._scan_cuda(hot, fHe), trec._scan_plain(hot, fHe)):
+        check(a, b, None, F64, 0.0, "all-prefix table")
+
+
 @pytest.fixture(scope="module")
 def tables(dev):
     """A 2048-step grid for two chains, and its stage tables. At 1024
@@ -108,6 +130,23 @@ def test_boltzmann_kernel(dev, tables, dtype):
                                 tpert.RSA_KTAU)
     for p, name in enumerate(tpert.PLANES):
         check(out_k[p], out_p[p], out_r[p], dtype, 1e-3, name)
+
+
+@pytest.mark.parametrize("chains,nk,steps", [(1, 24, 2047), (2, 13, 500), (2, 1, 70)])
+def test_boltzmann_kernel_ragged_blocks(dev, tables, chains, nk, steps):
+    """One warp a (chain, k) lane in blocks of 8: one chain; 13 k (a last
+    block of 5 warps) over 500 steps (a last tile of 4 steps); one lane."""
+    _, _, _, k, q, rnu = tables
+    for dtype in (F64, F32):
+        qd = q[:chains, :steps].to(dtype).contiguous()
+        kd, rd = k[-nk:].to(dtype).contiguous(), rnu[:chains].to(dtype).contiguous()
+        out_k = tpert._evolve_cuda(qd, kd, rd, tpert.RSA_KTAU)
+        out_p = tpert._evolve_plain(qd, kd, rd, tpert.RSA_KTAU)
+        out_r = tpert._evolve_plain(qd.double(), kd.double(), rd.double(),
+                                    tpert.RSA_KTAU)
+        assert out_k.shape == (len(tpert.PLANES), chains, steps, nk)
+        for p, name in enumerate(tpert.PLANES):
+            check(out_k[p], out_p[p], out_r[p], dtype, 1e-3, name)
 
 
 def _plain(module, name, twin=None):
