@@ -94,12 +94,27 @@ OPS = {
     # 4 x 4-point interpolation 28, the weights 4, x, index, fraction, 1 - f
     # 4, 1/x, 1/x^2 2, the folded coefficients 5
     "los": (16, 43),
-    # per (chain, k, tau, l): the upward recurrence 3, the series term 3,
-    # the series polynomial 5, the two selects 4 (models/cls.py:
-    # _los_rec_plain; the sums at the 109 sampled l are negligible)
-    "los_rec": 15,
-    # per (chain, k, step): 5 RHS of ~600, 45 variables x 16 (RK4)
-    "tensors": 5 * 600 + 45 * 16,
+    # the least arithmetic that computes the function (models/cls.py:
+    # _los_rec_plain, counted on the data phase 2 runs): per (chain, k,
+    # tau, l) point on the live lattice (x above the Airy cut; below it
+    # j_l is 0) the recurrence 3 and the cut's compare and select 2; per
+    # point below L0 (where x*x < l+1 can hold above the cut) the series
+    # term 3, its polynomial 5 and its select 2; per (node, sampled l)
+    # where j_l or j_{l-1} is nonzero the three sums 12 (regrouped onto
+    # four per-node coefficients); per (chain, k, tau) node the 4 x 4-point
+    # interpolation 28, the weights 4, x, 1/x, sin, cos, j_0, j_1 and the
+    # coefficients 18. (The plain version's own count, 15 per point on the
+    # whole lattice, is kept as `bound_ms_whole_lattice`.)
+    "los_rec": (5, 10, 12, 50),
+    # per RHS evaluation re-read from models/tensors.py:_tensor_rhs (a
+    # divide counted as the product csrc/tensors.cu takes): Psi 13, the
+    # switches 3, the stress 11, h'' 4, the Dt ladder 121, Dp 64, Dn 85 =
+    # 300 where the row is not past the freeze (k tau >= 240), else h'' 8;
+    # per step 45 variables x 15 (RK4) + 10 (step, sources). Counted on the
+    # table phase 2 runs: 4 evaluations a released step where its first row
+    # repeats the row before (5 otherwise), the source evaluation alone
+    # where the lane is not released (the RK4 result is discarded)
+    "tensors": (300, 8, 45 * 15 + 10),
     # per (chain, l, k, tau): two lerps, the three kernels, products, sums
     "tensor_los": 40,
 }
@@ -115,6 +130,27 @@ def lensing_ops(C, L, nth, nl_out):
     FP64 tensor cores."""
     return {"fp64": nth * (L * (15 + 108) + nl_out * 36) + C * nth * L * (5 + 84),
             "fp64_tensor": C * nth * nl_out * 8}
+
+
+def k5_ops(qt, k):
+    """FP32 operations of one K5 solve on the stage table qt (C, S, R, NQT)
+    and wavenumbers k, by OPS["tensors"] (the rows past the freeze, the
+    held steps and the repeated rows counted from the table)."""
+    from cosmomc_tpu_torch.models import tensors as mten
+    per_rhs, per_frozen, per_step = OPS["tensors"]
+    tau = qt[..., mten.QT_TAU]                                # (C, S, R)
+    kk = k.to(qt.dtype)
+    rhs = torch.where(kk * tau[..., None] >= mten.RSA_KTAU_T, per_frozen, per_rhs)
+    R = qt.shape[2]
+    repeats = torch.zeros(qt.shape[:2], dtype=torch.bool, device=qt.device)
+    repeats[:, 1:] = (qt[:, 1:, 0] == qt[:, :-1, -1]).all(-1)
+    # a released step: every stage row (rows 3s + 1 twice), the first row
+    # unless it repeats, and the source evaluation at the last row
+    stages = rhs[:, :, 1:R - 1].sum(2) + rhs[:, :, 1:R - 1:3].sum(2) \
+        + torch.where(repeats[..., None], 0, rhs[:, :, 0])
+    released = kk * tau[:, :, -1, None] >= mten.RELEASE_KTAU_T
+    per = torch.where(released, stages + per_step, 0) + rhs[:, :, -1]
+    return int(per.sum())
 
 
 def nbytes(*tensors):
@@ -415,9 +451,25 @@ def phase2(dev, results):
     err = max(check_f32("los_rec." + f, getattr(ck, f), getattr(cp, f),
                         getattr(r64, f), 1e-4) for f in ("dT", "dE", "dP"))
     C, nl, nkf = ck.dT.shape
-    results["los_rec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
-        {"fp32": C * nkf * nt * (2658 - 1) * OPS["los_rec"]},
-        4 * (C * 4 * len(kgrid) * nt + 3 * C * nt + 3 * C * nl * nkf)))
+    ls_h, kf_h, _, _, _, cut_h = mcls._rec_plan(
+        2658, 14200.0, 0.5, 4.0, tuple(np.asarray(kgrid, np.float64).tolist()))
+    _, chi_arg, _, _ = mcls._los_inputs(po32, chi32, args["tau_stride"])
+    lat = mcls.rec_lattice(chi_arg, torch.as_tensor(kf_h, dtype=F32, device=dev),
+                           torch.as_tensor(cut_h, dtype=F32, device=dev),
+                           torch.as_tensor(ls_h, device=dev))
+    l0 = mcls.rec_series_limit(cut_h.astype(np.float32))
+    nodes = C * nkf * nt
+    per_live, per_series, per_sample, per_node = OPS["los_rec"]
+    moved = 4 * (C * 4 * len(kgrid) * nt + 3 * C * nt + 3 * C * nl * nkf)
+    log(f"  los_rec lattice {lat['lattice']}: live {lat['live']} "
+        f"({lat['live'] / lat['lattice']:.4f}), walked {lat['walked']} "
+        f"({lat['walked'] / lat['lattice']:.4f}); L0 {l0}; "
+        f"(node, sampled l) pairs {lat['sampled']}")
+    results["los_rec"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, lattice=lat, l0=l0,
+        bound_ms_whole_lattice=bound({"fp32": lat["lattice"] * 15}, moved)["bound_ms"],
+        **bound({"fp32": per_live * lat["live"] + per_series * nodes * (l0 - 2)
+                 + per_sample * lat["sampled"] + per_node * nodes}, moved))
     log(f"  los_rec kernel {ms:.1f} ms, plain {plain_ms:.1f} ms; the table "
         f"engine (K2a) at the same shape {results['los']['ms']:.1f} ms")
 
@@ -444,15 +496,18 @@ def phase2(dev, results):
         ms_full[dt], _ = timed(lambda: mten._evolve_t_cuda(qd, kd, 1, True), 2)
     log(f"  tensors@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms; "
         f"@8192 kernel f32 {ms_full[F32]:.1f} ms, f64 {ms_full[F64]:.1f} ms")
-    C, S = q32.shape[0], q32.shape[1]
     q1l, k1l = q32[:1].contiguous(), kt32[-1:].contiguous()
     mten._evolve_t_cuda(q1l, k1l, 1, True)
     serial_ms, _ = timed(lambda: mten._evolve_t_cuda(q1l, k1l, 1, True), 3)
-    log(f"  tensors@{K1_CMP_STEPS} one lane {serial_ms:.2f} ms (the serial floor)")
-    results["tensors"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              ms_8192_steps=ms_full[F32], serial_ms=serial_ms,
-                              **bound({"fp32": C * S * kt.shape[0] * OPS["tensors"]},
-                                      nbytes(q32, kt32, *o_k)))
+    log(f"  tensors@{K1_CMP_STEPS} one lane {serial_ms:.2f} ms (one dependency chain)")
+    q8192 = mten._stage_table(bg, tf, 1).float()
+    results["tensors"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_8192_steps=ms_full[F32],
+        bound_ms_8192_steps=bound({"fp32": k5_ops(q8192, kt32)}, 0)["bound_ms"],
+        serial_ms=serial_ms, **bound({"fp32": k5_ops(q32, kt32)},
+                                     nbytes(q32, kt32, *o_k)))
+    log(f"  tensors bound {results['tensors']['bound_ms']:.4f} ms, @8192 "
+        f"{results['tensors']['bound_ms_8192_steps']:.4f} ms")
 
     # ---- K6: tensor LOS, 8 chains x 65 l x 610 k x 8192 tau, on K5's
     # float32 output of the 8192-step solve

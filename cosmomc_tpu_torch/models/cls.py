@@ -42,7 +42,8 @@ from cosmomc_tpu_torch.models.primordial import PrimordialParams, scalar_power
 from cosmomc_tpu_torch.utils.interp import spline_eval, spline_fit
 
 L_BATCH = 4        # sampled l's padded to a multiple of this (K6: l's a thread)
-REC_MAX_NODES = 16 * 256   # strided tau nodes the recurrence kernel takes
+REC_THREADS = 256          # threads of a recurrence kernel block (8 warps)
+REC_MAX_NODES = 16 * REC_THREADS   # strided tau nodes the recurrence kernel takes
 
 
 class CMBSpectra(NamedTuple):
@@ -371,16 +372,85 @@ def _los_rec_plain(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
     return out
 
 
+def rec_nodes_per_thread(nt: int) -> int:
+    """NPT, the tau nodes a thread of csrc/los_recurrence.cu holds: warp
+    w of a block owns nodes [32 NPT w, 32 NPT (w + 1)), thread `lane` of it
+    nodes 32 NPT w + lane + 32 j for j < NPT."""
+    for npt in (2, 4, 8, 16):
+        if nt <= npt * REC_THREADS:
+            return npt
+    raise ValueError(f"{nt} tau nodes: the recurrence kernel takes at most "
+                     f"{REC_MAX_NODES} (raise tau_stride)")
+
+
+def rec_lattice(chi_arg: torch.Tensor, kf: torch.Tensor, cut: torch.Tensor,
+                ls: torch.Tensor = None) -> dict:
+    """The (chain, fine k, tau node, l) points of a recurrence LOS problem,
+    l = 2..lmax, counted from its inputs: `lattice` all of them, `live`
+    those with x = kf (tau0 - tau) > cut[l] (below the cut j_l is exactly
+    0), `walked` those csrc/los_recurrence.cu steps through (a warp walks
+    its real nodes up to the largest first dead l among them); given the
+    sampled l's `ls`, `sampled` the (node, sampled l) pairs where j_l or
+    j_{l-1} can be nonzero (l <= the node's first dead l)."""
+    C, nt = chi_arg.shape
+    lmax = cut.shape[0] - 1
+    span = 32 * rec_nodes_per_thread(nt)
+    nw = -(-nt // span)
+    c2 = cut[2:].contiguous()
+    real = torch.zeros(nw * span, dtype=torch.int64, device=kf.device)
+    real[:nt] = 1
+    real = real.view(nw, span).sum(-1)                      # real nodes a warp
+    live = walked = sampled = 0
+    for c in range(C):
+        x = (kf[:, None] * chi_arg[c][None, :]).contiguous()
+        n_live = torch.searchsorted(c2, x)                  # l >= 2 with cut[l] < x
+        live += int(n_live.sum())
+        if ls is not None:
+            sampled += int(torch.searchsorted(ls.to(n_live.dtype).contiguous(),
+                                              n_live + 2, right=True).sum())
+        lcut = torch.nn.functional.pad(n_live + 2, (0, nw * span - nt), value=2)
+        lend = lcut.view(-1, nw, span).amax(-1).clamp(max=lmax)
+        walked += int(((lend - 1) * real).sum())
+    out = dict(lattice=C * kf.shape[0] * nt * (lmax - 1), live=live, walked=walked)
+    if ls is not None:
+        out["sampled"] = sampled
+    return out
+
+
+def rec_series_limit(cut: np.ndarray) -> int:
+    """L0 of the recurrence kernel: the smallest l >= 2 from which, for
+    every l' in [l, lmax], x*x < l'+1 implies x <= cut[l'] for every x of
+    `cut`'s dtype (the product rounded in that dtype). From L0 on the
+    series value is one the Airy cut always zeroes, so the kernel drops the
+    series there; below it runs the full step. lmax + 1 if no l qualifies."""
+    dt = cut.dtype.type
+    lmax = len(cut) - 1
+    if lmax < 2:
+        return 2
+    thr = np.arange(3, lmax + 2).astype(cut.dtype)       # l + 1, l = 2..lmax
+    r = np.sqrt(thr)
+    cand = [r]
+    for _ in range(2):
+        cand = [np.nextafter(cand[0], dt(0))] + cand + [np.nextafter(cand[-1], dt(np.inf))]
+    cand = np.stack(cand)                                 # (5, lmax - 1)
+    # the largest x with fl(x*x) < l+1 lies within two ulps of sqrt(l+1)
+    xs = np.where(cand * cand < thr, cand, dt(-np.inf)).max(0)
+    bad = np.nonzero(xs > cut[2:])[0]
+    return int(bad[-1]) + 3 if len(bad) else 2
+
+
 def _los_rec_cuda(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
-    """csrc/los_recurrence.cu: one block per (chain, fine k); its 256
-    threads split the strided tau nodes and walk l = 2..lmax upward with
-    (j_{l-1}, j_l, p_l) in registers; at the sampled l only, the block
-    reduces over tau (warp shuffles, then shared memory in warp order).
+    """csrc/los_recurrence.cu: one block per (chain, fine k); each of its 8
+    warps owns a contiguous range of tau nodes and walks l = 2..lmax
+    upward with (j_{l-1}, j_l) in registers, stopping where every node of
+    the range is past its Airy cut; the series term only below L0
+    (`rec_series_limit`); at the sampled l each warp reduces over its tau
+    nodes by shuffles into its own shared-memory slot, summed in warp order
+    after the walk.
 
     Replaces cosmomc_tpu/models/cls.py:compute_cl_transfers_recurrence (the
-    lax.scan at cls.py:473). Bound: every (k, tau, l) point, 4608 x 2048 x
-    2657 ~ 2.5e10 per chain at ~20 flops: compute-bound, no table traffic.
-    No atomics."""
+    lax.scan at cls.py:473). Bound: operations on the live lattice, the
+    (k, tau, l) points above the cut (~5 flops each). No atomics."""
     del k_chunk
     C, _, nk, nt = src.shape
     nl, nkf = ls.shape[0], kf.shape[0]
@@ -394,12 +464,14 @@ def _los_rec_cuda(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
     kernels.check(ls, "ls", (nl,), torch.int32)
     lmax = int(ls[-1])
     kernels.check(cut, "cut", (lmax + 1,), dtype)
-    if nt > REC_MAX_NODES:
-        raise ValueError(f"{nt} tau nodes: the recurrence kernel takes at most "
-                         f"{REC_MAX_NODES} (raise tau_stride)")
+    cut_h = cut.cpu().numpy()
+    if (np.diff(cut_h[2:]) < 0).any():
+        raise ValueError("the Airy cut must not decrease in l (the kernel "
+                         "finds each node's first dead l by bisection)")
+    rec_nodes_per_thread(nt)   # raises past REC_MAX_NODES
     out = torch.empty(3, C, nl, nkf, dtype=dtype, device=src.device)
     kernels.launch("los_rec", dtype, src, idx, w, kf, chi_arg, wt, wl, ls, cut,
-                   out, C, nk, nt, nl, nkf)
+                   out, C, nk, nt, nl, nkf, lmax, rec_series_limit(cut_h))
     return out
 
 

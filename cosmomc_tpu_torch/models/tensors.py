@@ -241,22 +241,32 @@ def _evolve_t_plain(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
     return out
 
 
+#: qtab rows a shared-memory tile of csrc/tensors.cu holds: a step's 3
+#: substeps + 1 rows must fit one
+T_TILE_ROWS = {torch.float32: 128, torch.float64: 64}
+
+
 def _evolve_t_cuda(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
                    feedback: bool) -> torch.Tensor:
-    """csrc/tensors.cu: one thread per (chain, k) lane runs the whole tau
-    loop with the 45-variable state in registers.
+    """csrc/tensors.cu: one warp per (chain, k) lane, blocks of 8 lanes of
+    one chain; h, h' on every thread, Dt_l and Dn_l on thread l, Dp_l on
+    thread 17 + l, neighbours by warp shuffles; stage rows staged in shared
+    memory a tile of steps ahead; the source evaluation at tau_b reused as
+    the next step's first where the rows repeat.
 
     Replaces cosmomc_tpu/models/tensors.py:evolve_tensors (the lax.scan at
-    tensors.py:254 over make_tensor_rhs and rk4_step). Bound: 5 RHS
-    evaluations a step over ~8191 dependent steps, ~600 flops each:
-    latency-bound, 768 lanes (8 chains x 96 k) on ~6 SMs. Outputs go to
-    (plane, chain, step, k)."""
+    tensors.py:254 over make_tensor_rhs and rk4_step). Bound: 4 RHS
+    evaluations a step (~300 flops each) over ~8191 dependent steps: the
+    dependency chain of a lane. Outputs go to (plane, chain, step, k)."""
     C, S, R = qtab.shape[0], qtab.shape[1], qtab.shape[2]
     nk = k.shape[0]
     if R != 3 * substeps + 1:
         raise ValueError(f"stage table has {R} rows, not 3*{substeps}+1")
     kernels.check(qtab, "qtab", (C, S, R, NQT))
     kernels.check(k, "k", (nk,), qtab.dtype)
+    if R > T_TILE_ROWS[qtab.dtype]:
+        raise ValueError(f"{substeps} substeps: a step's {R} rows exceed the "
+                         f"kernel's tile of {T_TILE_ROWS[qtab.dtype]}")
     out = torch.empty(len(T_PLANES), C, S, nk, dtype=qtab.dtype,
                       device=qtab.device)
     kernels.launch("tensors", qtab.dtype, qtab, k, out, C, S, nk, substeps,

@@ -254,6 +254,92 @@ def test_tensor_kernels(dev, tables, dtype):
               1e-4, f)
 
 
+def _rec_args(dev, dtype, chains, nkf, nt, lmax, k_lo, x_lo, x_hi, seed=0):
+    """Arguments of _los_rec_cuda / _los_rec_plain, made from a seed: random
+    sources on 12 coarse k in [k_lo, 1], stencils onto nkf fine k, and
+    tau0 - tau falling along tau so that every x = kf (tau0 - tau) lies in
+    [x_lo, x_hi] (the chains' distances differ by up to 3%)."""
+    rng = np.random.default_rng(seed)
+    coarse = np.exp(np.linspace(np.log(k_lo), 0.0, 12))
+    kf = np.linspace(coarse[0], coarse[-1], nkf) if nkf > 1 else coarse[-1:]
+    idx, w = tcls._cubic_k_weights(coarse, kf)
+    chi = np.linspace(x_hi / kf[-1], x_lo / kf[0], nt)[None] \
+        * np.linspace(1.0, 0.97, chains)[:, None]
+    nu = np.arange(lmax + 1) + 0.5
+    cut = np.maximum(nu - 2.5 * np.cbrt(nu), 0.0)
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    return (f(rng.standard_normal((chains, 4, len(coarse), nt))),
+            torch.as_tensor(idx, dtype=torch.int32, device=dev), f(w), f(kf), f(chi),
+            f(rng.uniform(0.5, 1.5, (chains, nt))), f(rng.uniform(0.0, 1.0, (chains, nt))),
+            torch.as_tensor(tcls.default_l_samples(lmax), dtype=torch.int32, device=dev),
+            f(cut))
+
+
+@pytest.mark.parametrize("case", ["nt_ragged", "no_warp_stops", "every_warp_stops",
+                                  "one_k_one_chain"])
+def test_los_rec_kernel_walks(dev, case):
+    """K2b's warp walk against _los_rec_plain: 300 tau nodes (a warp of 44
+    nodes and 20 pads, three warps of pads); x above cut[lmax] everywhere
+    (no warp stops before lmax); x below cut[4] everywhere (every warp stops
+    by l = 4); one fine k of one chain."""
+    chains, nkf, nt, lmax, k_lo, x_lo, x_hi = {
+        "nt_ragged": (2, 24, 300, 400, 1e-2, 0.0, 600.0),
+        "no_warp_stops": (2, 16, 512, 60, 0.8, 80.0, 200.0),
+        "every_warp_stops": (2, 16, 700, 300, 0.8, 0.0, 0.3),
+        "one_k_one_chain": (1, 1, 2048, 500, 1e-2, 0.0, 900.0)}[case]
+    for dtype in (F64, F32):
+        args = _rec_args(dev, dtype, chains, nkf, nt, lmax, k_lo, x_lo, x_hi)
+        n0 = kernels.launches["los_rec"]
+        out_k = tcls._los_rec_cuda(*args, 0)
+        again = tcls._los_rec_cuda(*args, 0)
+        torch.cuda.synchronize()
+        assert kernels.launches["los_rec"] == n0 + 2
+        assert torch.equal(out_k, again), "repeatable bit for bit"
+        out_p = tcls._los_rec_plain(*args, 64)
+        out_r = None if dtype == F64 else tcls._los_rec_plain(
+            *[a.double() if a.is_floating_point() else a for a in args], 64)
+        for p, name in enumerate(("dT", "dE", "dP")):
+            check(out_k[p], out_p[p], None if out_r is None else out_r[p], dtype,
+                  1e-4, (case, name))
+
+
+def _tensor_tables(tables, substeps):
+    bg, tf, _, _, _, _ = tables
+    return tten._stage_table(bg, tf, substeps)
+
+
+@pytest.mark.parametrize("case", ["one_lane", "ragged_k", "substeps_2", "no_feedback",
+                                  "rows_differ"])
+def test_tensor_kernel_layouts(dev, tables, case):
+    """K5's warp layout against _evolve_t_plain: one (chain, k) lane; 13 k
+    (a last block of 5 warps); 2 substeps (7 rows a step); no anisotropic
+    stress; step-start rows that differ from the step before's last row
+    (no evaluation reused)."""
+    substeps = 2 if case == "substeps_2" else 1
+    q = _tensor_tables(tables, substeps)
+    kt = torch.as_tensor(tten.tensor_k_grid(nk=16), dtype=F64, device=dev)
+    fb = case != "no_feedback"
+    if case == "one_lane":
+        q, kt = q[:1], kt[-1:]
+    elif case == "ragged_k":
+        kt = kt[-13:]
+    elif case == "rows_differ":
+        q = q.clone()
+        q[:, :, 0, tten.QT_OPAC] *= 1.0 + 1e-6
+    assert case != "rows_differ" or not torch.equal(q[:, 1:, 0], q[:, :-1, -1])
+    for dtype in (F64, F32):
+        qd, kd = q.to(dtype).contiguous(), kt.to(dtype).contiguous()
+        n0 = kernels.launches["tensors"]
+        out_k = tten._evolve_t_cuda(qd, kd, substeps, fb)
+        torch.cuda.synchronize()
+        assert kernels.launches["tensors"] == n0 + 1
+        out_p = tten._evolve_t_plain(qd, kd, substeps, fb)
+        out_r = out_p if dtype == F64 else tten._evolve_t_plain(
+            qd.double(), kd.double(), substeps, fb)
+        for p, name in enumerate(tten.T_PLANES):
+            check(out_k[p], out_p[p], out_r[p], dtype, 1e-4, (case, name))
+
+
 def _lens_inputs(dev, lmax=800, chains=2):
     l = torch.arange(2, lmax + 1, dtype=F64, device=dev)
     damp = torch.exp(-(l / 1400.0) ** 2)
