@@ -27,6 +27,7 @@ is {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
 import json
+import math
 import os
 import re
 from concurrent.futures import ThreadPoolExecutor
@@ -96,25 +97,32 @@ OPS = {
     "los": (16, 43),
     # the least arithmetic that computes the function (models/cls.py:
     # _los_rec_plain, counted on the data phase 2 runs): per (chain, k,
-    # tau, l) point on the live lattice (x above the Airy cut; below it
-    # j_l is 0) the recurrence 3 and the cut's compare and select 2; per
-    # point below L0 (where x*x < l+1 can hold above the cut) the series
-    # term 3, its polynomial 5 and its select 2; per (node, sampled l)
-    # where j_l or j_{l-1} is nonzero the three sums 12 (regrouped onto
-    # four per-node coefficients); per (chain, k, tau) node the 4 x 4-point
-    # interpolation 28, the weights 4, x, 1/x, sin, cos, j_0, j_1 and the
-    # coefficients 18. (The plain version's own count, 15 per point on the
-    # whole lattice, is kept as `bound_ms_whole_lattice`.)
-    "los_rec": (5, 10, 12, 50),
+    # tau, l) point on the live lattice (x above the Airy cut) the
+    # recurrence 3: past a node's first dead l its j_l are 0 and need no
+    # work, so the cut's compare and select are not counted; per point below
+    # L0 (where x*x < l+1 can hold above the cut) the series term 3, its
+    # polynomial 5 and its select 2; per (node, sampled l) where j_l or
+    # j_{l-1} is nonzero the three sums 12 (regrouped onto four per-node
+    # coefficients); per (chain, k, tau) node the 4 x 4-point interpolation
+    # 28, the weights 4, x, 1/x, sin, cos, j_0, j_1 and the coefficients 18,
+    # and the bisection for its first dead l, a compare and a select per
+    # halving of l = 2..lmax (counted in phase 2). Two labelled
+    # second bounds: `bound_ms_with_cut_selects` counts the compare and
+    # select on every live point (5 a point), `bound_ms_whole_lattice` the
+    # plain version's 15 on every point
+    "los_rec": (3, 10, 12, 50),
     # per RHS evaluation re-read from models/tensors.py:_tensor_rhs (a
-    # divide counted as the product csrc/tensors.cu takes): Psi 13, the
-    # switches 3, the stress 11, h'' 4, the Dt ladder 121, Dp 64, Dn 85 =
-    # 300 where the row is not past the freeze (k tau >= 240), else h'' 8;
-    # per step 45 variables x 15 (RK4) + 10 (step, sources). Counted on the
-    # table phase 2 runs: 4 evaluations a released step where its first row
-    # repeats the row before (5 otherwise), the source evaluation alone
-    # where the lane is not released (the RK4 result is discarded)
-    "tensors": (300, 8, 45 * 15 + 10),
+    # divide counted as the product csrc/tensors.cu takes): Psi 13 (its six
+    # terms 11, the tight-coupling form 1, the select 1), the switches 3,
+    # the stress 11, h'' 4, the Dt ladder 121, Dp 64, Dn 85 = 301; on a
+    # tight-coupling row (QT_TC) the Dt and Dp ladders are frozen and pi_g
+    # is 0 (_tensor_rhs:161, 187-189): Psi 1, the switches 3, the stress 8,
+    # h'' 4, Dn 85 = 101; past the freeze (k tau >= 240) h'' 8; per step 45
+    # variables x 15 (RK4) + 10 (step, sources). Counted on the table phase
+    # 2 runs: 4 evaluations a released step where its first row repeats the
+    # row before (5 otherwise), the source evaluation alone where the lane
+    # is not released (the RK4 result is discarded)
+    "tensors": (301, 101, 8, 45 * 15 + 10),
     # per (chain, l, k, tau): two lerps, the three kernels, products, sums
     "tensor_los": 40,
 }
@@ -134,13 +142,16 @@ def lensing_ops(C, L, nth, nl_out):
 
 def k5_ops(qt, k):
     """FP32 operations of one K5 solve on the stage table qt (C, S, R, NQT)
-    and wavenumbers k, by OPS["tensors"] (the rows past the freeze, the
-    held steps and the repeated rows counted from the table)."""
+    and wavenumbers k, by OPS["tensors"] (the tight-coupling rows, the rows
+    past the freeze, the held steps and the repeated rows counted from the
+    table)."""
     from cosmomc_tpu_torch.models import tensors as mten
-    per_rhs, per_frozen, per_step = OPS["tensors"]
+    per_rhs, per_tc, per_frozen, per_step = OPS["tensors"]
     tau = qt[..., mten.QT_TAU]                                # (C, S, R)
     kk = k.to(qt.dtype)
-    rhs = torch.where(kk * tau[..., None] >= mten.RSA_KTAU_T, per_frozen, per_rhs)
+    tc = (qt[..., mten.QT_TC] > 0.5)[..., None]
+    rhs = torch.where(kk * tau[..., None] >= mten.RSA_KTAU_T, per_frozen,
+                      torch.where(tc, per_tc, per_rhs))
     R = qt.shape[2]
     repeats = torch.zeros(qt.shape[:2], dtype=torch.bool, device=qt.device)
     repeats[:, 1:] = (qt[:, 1:, 0] == qt[:, :-1, -1]).all(-1)
@@ -457,9 +468,12 @@ def phase2(dev, results):
     lat = mcls.rec_lattice(chi_arg, torch.as_tensor(kf_h, dtype=F32, device=dev),
                            torch.as_tensor(cut_h, dtype=F32, device=dev),
                            torch.as_tensor(ls_h, device=dev))
-    l0 = mcls.rec_series_limit(cut_h.astype(np.float32))
+    l0 = mcls.rec_l0(2658, F32)
     nodes = C * nkf * nt
     per_live, per_series, per_sample, per_node = OPS["los_rec"]
+    per_node += 2 * math.ceil(math.log2(len(cut_h) - 2))   # the bisection
+    rest = per_series * nodes * (l0 - 2) + per_sample * lat["sampled"] \
+        + per_node * nodes
     moved = 4 * (C * 4 * len(kgrid) * nt + 3 * C * nt + 3 * C * nl * nkf)
     log(f"  los_rec lattice {lat['lattice']}: live {lat['live']} "
         f"({lat['live'] / lat['lattice']:.4f}), walked {lat['walked']} "
@@ -467,11 +481,16 @@ def phase2(dev, results):
         f"(node, sampled l) pairs {lat['sampled']}")
     results["los_rec"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, lattice=lat, l0=l0,
+        bound_ms_with_cut_selects=bound({"fp32": 5 * lat["live"] + rest},
+                                        moved)["bound_ms"],
         bound_ms_whole_lattice=bound({"fp32": lat["lattice"] * 15}, moved)["bound_ms"],
-        **bound({"fp32": per_live * lat["live"] + per_series * nodes * (l0 - 2)
-                 + per_sample * lat["sampled"] + per_node * nodes}, moved))
-    log(f"  los_rec kernel {ms:.1f} ms, plain {plain_ms:.1f} ms; the table "
-        f"engine (K2a) at the same shape {results['los']['ms']:.1f} ms")
+        **bound({"fp32": per_live * lat["live"] + rest}, moved))
+    r = results["los_rec"]
+    log(f"  los_rec kernel {ms:.1f} ms, plain {plain_ms:.1f} ms; bound "
+        f"{r['bound_ms']:.3f} ms ({r['ops']['fp32']:.4e} ops), with the cut's "
+        f"selects {r['bound_ms_with_cut_selects']:.3f}, whole lattice "
+        f"{r['bound_ms_whole_lattice']:.3f}; the table engine (K2a) at the "
+        f"same shape {results['los']['ms']:.1f} ms")
 
     # ---- K5: tensor RK4, 8 chains x 96 k; held to its plain version on the
     # 2048-step grid (upcast float32 tables for the float64 check), timed at
@@ -507,7 +526,8 @@ def phase2(dev, results):
         serial_ms=serial_ms, **bound({"fp32": k5_ops(q32, kt32)},
                                      nbytes(q32, kt32, *o_k)))
     log(f"  tensors bound {results['tensors']['bound_ms']:.4f} ms, @8192 "
-        f"{results['tensors']['bound_ms_8192_steps']:.4f} ms")
+        f"{results['tensors']['bound_ms_8192_steps']:.4f} ms; tight-coupling "
+        f"rows @8192 {float((q8192[..., mten.QT_TC] > 0.5).float().mean()):.4f}")
 
     # ---- K6: tensor LOS, 8 chains x 65 l x 610 k x 8192 tau, on K5's
     # float32 output of the 8192-step solve

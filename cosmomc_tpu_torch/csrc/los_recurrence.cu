@@ -52,9 +52,19 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-// blocks an SM, which caps the registers a thread (85 in float32)
-template <typename T>
-constexpr int MIN_BLOCKS = sizeof(T) == 4 ? 3 : 2;
+// blocks an SM, which caps the registers a thread: three in float32 (85
+// registers) and two in float64 (128), fewer where that many blocks' shared
+// memory (at the main path's tables: lmax 2658, 109 sampled l; 1 KB
+// reserved a block) exceeds an SM's 228 KB. From NPT = 8 on a float64 block
+// holds ~123 KB, so one block an SM: a cap for two would only spill.
+template <typename T, int NPT>
+constexpr int min_blocks() {
+  constexpr int fit = int((size_t)228 * 1024 /
+                          (((size_t)5 * THREADS * NPT + 109 * NWARP * 3 + 2659) * sizeof(T) +
+                           109 * sizeof(int) + 1024));
+  constexpr int cap = sizeof(T) == 4 ? 3 : 2;
+  return fit < 1 ? 1 : (fit < cap ? fit : cap);
+}
 
 __device__ __forceinline__ float xsin(float x) { return sinf(x); }
 __device__ __forceinline__ double xsin(double x) { return sin(x); }
@@ -117,22 +127,21 @@ __device__ __forceinline__ void sample(const Nodes<T, NPT>& n, int l, const Coef
 }
 
 template <typename T, int NPT>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS<T>)
+__global__ void __launch_bounds__(THREADS, (min_blocks<T, NPT>()))
 los_rec_kernel(const T* __restrict__ src, const int* __restrict__ idx,
                const T* __restrict__ w, const T* __restrict__ kf,
                const T* __restrict__ chi, const T* __restrict__ wt,
                const T* __restrict__ wl, const int* __restrict__ ls,
                const T* __restrict__ cut, T* __restrict__ out, int C, int nk,
-               int nt, int nl, int nkf, int l0) {
+               int nt, int nl, int nkf, int lmax, int l0) {
   extern __shared__ __align__(32) unsigned char smem[];
   Coef<T>* coef_s = reinterpret_cast<Coef<T>*>(smem);    // [THREADS NPT]
   T* sl_s = reinterpret_cast<T*>(coef_s + THREADS * NPT);  // [THREADS NPT]
   T* slots = sl_s + THREADS * NPT;                         // [nl][NWARP][3]
   T* cut_s = slots + (size_t)nl * NWARP * 3;               // [lmax + 1]
-  int* ls_s = reinterpret_cast<int*>(cut_s + ls[nl - 1] + 1);   // [nl]
+  int* ls_s = reinterpret_cast<int*>(cut_s + lmax + 1);   // [nl]
   const int kk = blockIdx.x;
   const int c = blockIdx.y;
-  const int lmax = ls[nl - 1];
   for (int i = threadIdx.x; i < nl * NWARP * 3; i += THREADS) slots[i] = T(0);
   for (int i = threadIdx.x; i <= lmax; i += THREADS) cut_s[i] = cut[i];
   for (int i = threadIdx.x; i < nl; i += THREADS) ls_s[i] = ls[i];
@@ -303,7 +312,7 @@ int start(dim3 grid, cudaStream_t st, const void* src, const void* idx,
   los_rec_kernel<T, NPT><<<grid, THREADS, smem, st>>>(
       (const T*)src, (const int*)idx, (const T*)w, (const T*)kf, (const T*)chi,
       (const T*)wt, (const T*)wl, (const int*)ls, (const T*)cut, (T*)out, C, nk,
-      nt, nl, nkf, l0);
+      nt, nl, nkf, lmax, l0);
   return (int)cudaGetLastError();
 }
 

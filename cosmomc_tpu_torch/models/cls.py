@@ -311,9 +311,14 @@ def _rec_plan(lmax: int, tau0_hint: float, kmax_hint: float,
     dlnk = np.diff(np.log(kf))
     wk = np.concatenate([dlnk[:1] / 2, (dlnk[1:] + dlnk[:-1]) / 2, dlnk[-1:] / 2])
     idx, w = _cubic_k_weights(np.asarray(coarse_k), kf)
+    return ls, kf, wk, idx, w, airy_cut(lmax)
+
+
+def airy_cut(lmax: int) -> np.ndarray:
+    """cut[l] = max(nu - 2.5 nu^(1/3), 0), nu = l + 1/2, l = 0..lmax: where
+    x <= cut[l] the recurrence engine sets j_l(x) to 0."""
     nu = np.arange(lmax + 1) + 0.5
-    cut = np.maximum(nu - 2.5 * np.cbrt(nu), 0.0)
-    return ls, kf, wk, idx, w, cut
+    return np.maximum(nu - 2.5 * np.cbrt(nu), 0.0)
 
 
 def _los_rec_plain(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
@@ -439,21 +444,37 @@ def rec_series_limit(cut: np.ndarray) -> int:
     return int(bad[-1]) + 3 if len(bad) else 2
 
 
+@lru_cache(maxsize=8)
+def rec_l0(lmax: int, dtype: torch.dtype) -> int:
+    """L0 (`rec_series_limit`) of `airy_cut(lmax)` rounded to `dtype`,
+    after checking that the rounded cut does not decrease in l (the kernel
+    finds each node's first dead l by bisection of it)."""
+    cut = airy_cut(lmax).astype(np.float32 if dtype == torch.float32 else np.float64)
+    if (np.diff(cut[2:]) < 0).any():
+        raise ValueError(f"the Airy cut to l = {lmax} decreases in {dtype}")
+    return rec_series_limit(cut)
+
+
 def _los_rec_cuda(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
     """csrc/los_recurrence.cu: one block per (chain, fine k); each of its 8
     warps owns a contiguous range of tau nodes and walks l = 2..lmax
     upward with (j_{l-1}, j_l) in registers, stopping where every node of
-    the range is past its Airy cut; the series term only below L0
-    (`rec_series_limit`); at the sampled l each warp reduces over its tau
-    nodes by shuffles into its own shared-memory slot, summed in warp order
-    after the walk.
+    the range is past its Airy cut; the series term only below L0; at the
+    sampled l each warp reduces over its tau nodes by shuffles into its own
+    shared-memory slot, summed in warp order after the walk.
+
+    `cut` is `airy_cut(lmax)` in the sources' dtype, as `_rec_plan` builds
+    it, and ls[-1] is lmax: L0 and the check that the cut does not decrease
+    come from `rec_l0(lmax, dtype)`, made once on the host, not from the
+    tensor (no copy to the host a call).
 
     Replaces cosmomc_tpu/models/cls.py:compute_cl_transfers_recurrence (the
     lax.scan at cls.py:473). Bound: operations on the live lattice, the
-    (k, tau, l) points above the cut (~5 flops each). No atomics."""
+    (k, tau, l) points above the cut (3 flops each). No atomics."""
     del k_chunk
     C, _, nk, nt = src.shape
     nl, nkf = ls.shape[0], kf.shape[0]
+    lmax = cut.shape[0] - 1
     dtype = src.dtype
     kernels.check(src, "sources", (C, 4, nk, nt))
     kernels.check(idx, "k_idx", (nkf, 4), torch.int32)
@@ -462,16 +483,11 @@ def _los_rec_cuda(src, idx, w, kf, chi_arg, wt, wl, ls, cut, k_chunk: int):
     for name, t in (("chi", chi_arg), ("wt", wt), ("wl", wl)):
         kernels.check(t, name, (C, nt), dtype)
     kernels.check(ls, "ls", (nl,), torch.int32)
-    lmax = int(ls[-1])
     kernels.check(cut, "cut", (lmax + 1,), dtype)
-    cut_h = cut.cpu().numpy()
-    if (np.diff(cut_h[2:]) < 0).any():
-        raise ValueError("the Airy cut must not decrease in l (the kernel "
-                         "finds each node's first dead l by bisection)")
     rec_nodes_per_thread(nt)   # raises past REC_MAX_NODES
     out = torch.empty(3, C, nl, nkf, dtype=dtype, device=src.device)
     kernels.launch("los_rec", dtype, src, idx, w, kf, chi_arg, wt, wl, ls, cut,
-                   out, C, nk, nt, nl, nkf, lmax, rec_series_limit(cut_h))
+                   out, C, nk, nt, nl, nkf, lmax, rec_l0(lmax, dtype))
     return out
 
 

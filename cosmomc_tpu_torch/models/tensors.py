@@ -241,11 +241,6 @@ def _evolve_t_plain(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
     return out
 
 
-#: qtab rows a shared-memory tile of csrc/tensors.cu holds: a step's 3
-#: substeps + 1 rows must fit one
-T_TILE_ROWS = {torch.float32: 128, torch.float64: 64}
-
-
 def _evolve_t_cuda(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
                    feedback: bool) -> torch.Tensor:
     """csrc/tensors.cu: one warp per (chain, k) lane, blocks of 8 lanes of
@@ -264,9 +259,6 @@ def _evolve_t_cuda(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
         raise ValueError(f"stage table has {R} rows, not 3*{substeps}+1")
     kernels.check(qtab, "qtab", (C, S, R, NQT))
     kernels.check(k, "k", (nk,), qtab.dtype)
-    if R > T_TILE_ROWS[qtab.dtype]:
-        raise ValueError(f"{substeps} substeps: a step's {R} rows exceed the "
-                         f"kernel's tile of {T_TILE_ROWS[qtab.dtype]}")
     out = torch.empty(len(T_PLANES), C, S, nk, dtype=qtab.dtype,
                       device=qtab.device)
     kernels.launch("tensors", qtab.dtype, qtab, k, out, C, S, nk, substeps,

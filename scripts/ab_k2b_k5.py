@@ -4,7 +4,7 @@ of cosmomc_tpu_torch against their first versions, on one card, in turns
 (old, new, new, old), at the LCDM+r path's shapes.
 
     git archive 9ecfa03 cosmomc_tpu_torch/csrc | tar -x -C _scratch/parent
-    python3 scripts/ab_k2b_k5.py --parent _scratch/parent [--versions TREE ...]
+    python3 scripts/ab_k2b_k5.py --parent _scratch/parent
 
 The first versions are the ones where the 256 threads of a block split the
 strided tau nodes and walk every l (K2b) and one thread owns one (chain, k)
@@ -20,17 +20,18 @@ tau nodes (stride 4); K5 on the stage tables of 8 chains x 96 k on the
 holds K5 to its plain version), and one (chain, k) lane of the latter. Each
 time is the mean over --reps calls by CUDA events, wrapper included; the
 results of old and new are compared. Then torch.profiler gives the device
-time of each new kernel. --versions adds trees whose two sources declare
-this tree's entry points (CURRENT_ABI): intermediate versions (a source may
-equal this tree's), timed in the same turns (old, versions, new, new,
-versions reversed, old). Prints one JSON object as the last line.
+time of each new kernel, and nvidia-smi the SM clock while the new kernel
+runs alone (read every 0.1 s over CLOCK_SECONDS of calls). Prints one JSON
+object as the last line.
 """
 
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -54,6 +55,7 @@ C = 8
 LMAX = 2658
 BESTFIT = dict(ombh2=0.02237737, omch2=0.1201035, theta=1.0409020, tau=0.05430138)
 F32, F64 = torch.float32, torch.float64
+CLOCK_SECONDS = 1.5   # of new calls a kernel while the SM clock is read
 #: source -> (entry point, its parameters) of the first versions
 FIRST_ABI = {
     "los_recurrence.cu": ("NAME", "const void* src, const void* idx, const void* w, "
@@ -63,10 +65,29 @@ FIRST_ABI = {
     "tensors.cu": ("tensors_f32", "const void* qtab, const void* kvec, void* out, "
                    "int C, int S, int nk, int substeps, int feedback, void* stream"),
 }
-#: the same for this tree's sources (and --versions trees)
-CURRENT_ABI = dict(FIRST_ABI, **{
-    "los_recurrence.cu": ("NAME", FIRST_ABI["los_recurrence.cu"][1].replace(
-        "int nkf, void* stream", "int nkf, int lmax, int l0, void* stream"))})
+
+
+class SmClock:
+    """The SM clock (MHz), read by nvidia-smi every 0.1 s in a thread while
+    the block runs."""
+    def __enter__(self):
+        self.mhz, self.done = [], threading.Event()
+
+        def read():
+            while not self.done.is_set():
+                r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                    "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True)
+                if r.returncode == 0:
+                    self.mhz.append(float(r.stdout.split()[0]))
+                self.done.wait(0.1)
+        self.thread = threading.Thread(target=read)
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
 
 
 def inputs(dev):
@@ -109,15 +130,12 @@ def main():
     ap.add_argument("--parent", required=True,
                     help="an unpacked tree holding the first versions' "
                          "cosmomc_tpu_torch/csrc")
-    ap.add_argument("--versions", nargs="*", default=[],
-                    help="unpacked trees of intermediate versions (this tree's "
-                         "C entry points)")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("ab_k2b_k5: needs a CUDA device")
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     old_rec = build_parent(args.parent, "los_rec", "los_recurrence.cu", FIRST_ABI,
@@ -150,38 +168,13 @@ def main():
     def ten_new(q, k):
         return mten._evolve_t_cuda(q, k, 1, True)
 
-    def version(tree, i):
-        """The wrappers' launches on an intermediate version's kernels."""
-        lib_r = build_parent(tree, f"los_rec_v{i}", "los_recurrence.cu", CURRENT_ABI,
-                             "ab_k2b_k5", f"v{i}", same_ok=True).los_rec_f32
-        lib_t = build_parent(tree, f"tensors_v{i}", "tensors.cu", CURRENT_ABI,
-                             "ab_k2b_k5", f"v{i}", same_ok=True).tensors_f32
-
-        def rec(src, idx, w, kf, chi, wt, wl, ls, cut):
-            Cn, _, nk, nt = src.shape
-            out = torch.empty(3, Cn, ls.shape[0], kf.shape[0], dtype=src.dtype,
-                              device=dev)
-            kernels.call(lib_r, src, idx, w, kf, chi, wt, wl, ls, cut, out, Cn, nk,
-                         nt, ls.shape[0], kf.shape[0], int(ls[-1]),
-                         mcls.rec_series_limit(cut.cpu().numpy()))
-            return out
-
-        def ten(q, k):
-            out = torch.empty(len(mten.T_PLANES), q.shape[0], q.shape[1], k.shape[0],
-                              dtype=q.dtype, device=dev)
-            kernels.call(lib_t, q, k, out, q.shape[0], q.shape[1], k.shape[0], 1, True)
-            return out
-        return rec, ten
-    versions = [version(tree, i) for i, tree in enumerate(args.versions)]
-
     rec, qt, kt = inputs(dev)
     one = lambda t: t[:1].contiguous()
     cases = (
-        ("los_rec", rec_old, rec_new, [v[0] for v in versions], rec),
-        ("tensors_8192", ten_old, ten_new, [v[1] for v in versions],
-         (qt[mpert.N_STEP], kt)),
-        ("tensors_2048", ten_old, ten_new, [v[1] for v in versions], (qt[2048], kt)),
-        ("tensors_2048_one_lane", ten_old, ten_new, [v[1] for v in versions],
+        ("los_rec", rec_old, rec_new, rec),
+        ("tensors_8192", ten_old, ten_new, (qt[mpert.N_STEP], kt)),
+        ("tensors_2048", ten_old, ten_new, (qt[2048], kt)),
+        ("tensors_2048_one_lane", ten_old, ten_new,
          (one(qt[2048]), kt[-1:].contiguous())))
     # what the new kernels' data-dependent savings see in these inputs: the
     # (k, tau, l) points above the Airy cut and those K2b walks; the steps
@@ -191,7 +184,7 @@ def main():
     tau = q[..., mten.QT_TAU]
     lat = mcls.rec_lattice(rec[4], rec[3], rec[8])
     res = {"device": smi, "los_rec_lattice": lat,
-           "los_rec_l0": mcls.rec_series_limit(rec[8].cpu().numpy()),
+           "los_rec_l0": mcls.rec_l0(LMAX, F32),
            "tensors_steps_with_repeated_row": float(
                (q[:, 1:, 0] == q[:, :-1, -1]).all(-1).float().mean()),
            "tensors_frozen_stages": float(
@@ -199,24 +192,30 @@ def main():
            "tensors_held_steps": float(
                (kt * tau[:, :, -1, None] < mten.RELEASE_KTAU_T).float().mean())}
     print(json.dumps(res), flush=True)
-    for name, old, new, vers, inp in cases:
+    for name, old, new, inp in cases:
         err = rel_err(new(*inp), old(*inp))
-        ms = {}
-        vs = [(f"v{i}", fn) for i, fn in enumerate(vers)]
-        for label, fn in [("old", old)] + vs + [("new", new), ("new", new)] \
-                + vs[::-1] + [("old", old)]:
-            ms.setdefault(label, []).append(timed(lambda: fn(*inp), args.reps))
+        ms = {"old": [], "new": []}
+        for label, fn in (("old", old), ("new", new), ("new", new), ("old", old)):
+            ms[label].append(timed(lambda: fn(*inp), args.reps))
         res[name] = dict(old_ms=ms["old"], new_ms=ms["new"],
                          speedup=sum(ms["old"]) / sum(ms["new"]),
                          new_vs_old_rel_err=err, reps=args.reps)
-        for label, fn in vs:
-            res[name][f"{label}_ms"] = ms[label]
-            res[name][f"{label}_vs_old_rel_err"] = rel_err(fn(*inp), old(*inp))
         print(f"{name}: old {ms['old']} ms, new {ms['new']} ms, "
-              f"speed-up {res[name]['speedup']:.2f}x, new vs old rel err {err:.2e}"
-              + "".join(f", {label} {ms[label]} ms" for label, _ in vs), flush=True)
+              f"speed-up {res[name]['speedup']:.2f}x, new vs old rel err {err:.2e}",
+              flush=True)
+    for name, _, new, inp in cases:
+        new(*inp)
+        torch.cuda.synchronize()
+        calls = max(1, int(1e3 * CLOCK_SECONDS / min(res[name]["new_ms"])))
+        with SmClock() as clk:
+            t = timed(lambda: new(*inp), calls)
+        res[name]["sm_clock_mhz"] = dict(
+            median=statistics.median(clk.mhz), min=min(clk.mhz), max=max(clk.mhz),
+            reads=len(clk.mhz), calls=calls, ms_per_call=t)
+        print(f"{name} SM clock while the new kernel runs: "
+              + json.dumps(res[name]["sm_clock_mhz"]), flush=True)
     from torch.profiler import ProfilerActivity, profile
-    for name, _, new, _, inp in cases:
+    for name, _, new, inp in cases:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(5):
                 new(*inp)

@@ -63,16 +63,15 @@ FIRST_ABI = {
 
 
 def build_parent(parent: str, name: str, src: str, abi=None,
-                 who: str = "ab_k3_k2a", label: str = "first version",
-                 same_ok: bool = False) -> ctypes.CDLL:
+                 who: str = "ab_k3_k2a") -> ctypes.CDLL:
     """Compile the first version of csrc/<src> from the tree `parent`, after
-    checking that it is not this tree's source (unless `same_ok`) and
-    declares the entry point `abi[src]` (by default FIRST_ABI's)."""
+    checking that it is not this tree's source and declares the entry point
+    `abi[src]` (by default FIRST_ABI's)."""
     path = os.path.join(parent, "cosmomc_tpu_torch", "csrc", src)
     with open(path, "rb") as f:
         text = f.read()
     with open(os.path.join(kernels.CSRC, src), "rb") as f:
-        if f.read() == text and not same_ok:
+        if f.read() == text:
             sys.exit(f"{who}: {path} is this tree's {src}, not a first version")
     fn, params = (abi or FIRST_ABI)[src]
     m = re.search(rf'extern "C" int {fn}\(([^)]*)\)',
@@ -90,7 +89,7 @@ def build_parent(parent: str, name: str, src: str, abi=None,
         # the first version's registers and spills, as ptxas reports them
         for line in res.stderr.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"ptxas {src} ({label}): "
+                print(f"ptxas {src} (first version): "
                       + line.split("info    :")[-1].strip(), flush=True)
     return ctypes.CDLL(out)
 

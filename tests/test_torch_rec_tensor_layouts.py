@@ -52,11 +52,16 @@ def test_series_limit_from_host_table(dtype):
     """For every l >= L0 and every x on a dense grid of the dtype (all its
     values within 256 ulps of each sqrt(l+1), and 2e5 spread to
     sqrt(lmax+2)), x*x < l+1 (rounded in the dtype) implies x <= cut[l];
-    at L0 - 1 an x breaks it, so L0 is the least such l."""
+    at L0 - 1 an x breaks it, so L0 is the least such l. The kernel's
+    wrapper takes L0 from `rec_l0`, made once per (lmax, dtype) from the
+    cut `_rec_plan` builds, which does not decrease in l in the dtype."""
     lmax = 2658
+    assert np.array_equal(tcls.airy_cut(lmax), airy_cut(lmax))
     cut = airy_cut(lmax).astype(dtype)
+    assert (np.diff(cut[2:]) >= 0).all()
     L0 = tcls.rec_series_limit(cut)
     assert L0 == 8
+    assert tcls.rec_l0(lmax, torch.float32 if dtype == np.float32 else F64) == L0
     one = dtype(1)
     grid = [np.linspace(0.0, np.sqrt(lmax + 2.0), 200_000).astype(dtype)]
     for r in np.sqrt(np.arange(L0, 200).astype(dtype) + one):
