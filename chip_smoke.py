@@ -123,8 +123,16 @@ OPS = {
     # row before (5 otherwise), the source evaluation alone where the lane
     # is not released (the RK4 result is discarded)
     "tensors": (301, 101, 8, 45 * 15 + 10),
-    # per (chain, l, k, tau): two lerps, the three kernels, products, sums
-    "tensor_los": 40,
+    # the least arithmetic that computes the function (csrc/tensor_los.cu,
+    # where j'' is folded into the j and j' coefficients), counted on the
+    # live lattice of the data phase 2 runs (models/tensors.py:tlos_lattice:
+    # the points whose four table entries are not all 0): per live (chain,
+    # l, k, tau) point two lerps 6, the coefficient of j in E 2 and five
+    # multiply-adds 10; per (chain, k, tau) node the two source lerps and
+    # weights 8, x, the index and fraction 4, max(x, 1e-8), 1/x, 1/x^2 3,
+    # the six folded coefficients 10. A labelled second bound, `bound_ms_whole_lattice`,
+    # counts the plain version's 40 on every point of the whole lattice
+    "tensor_los": (18, 25),
 }
 
 
@@ -530,7 +538,8 @@ def phase2(dev, results):
         f"rows @8192 {float((q8192[..., mten.QT_TC] > 0.5).float().mean()):.4f}")
 
     # ---- K6: tensor LOS, 8 chains x 65 l x 610 k x 8192 tau, on K5's
-    # float32 output of the 8192-step solve
+    # float32 output of the 8192-step solve; the float64 check runs on those
+    # sources upcast
     log("K6 tensor_los: 8 chains, lmax 700, on K5's 8192-step sources")
     tf32 = tf._replace(**{f: getattr(tf, f).float() for f in tf._fields})
     bg32 = type(bg)(**{f: getattr(bg, f).float() for f in BG_FIELDS},
@@ -538,23 +547,48 @@ def phase2(dev, results):
     to32 = mten.evolve_tensors(bg32, tf32, tau0.float(), kt32)
     to_u = to32._replace(**{f: getattr(to32, f).double()
                             for f in ("tau", "k", "sT", "sP", "tau0")})
-    c64 = mten.compute_tensor_transfers(to_u)
+    kgrid_t = mten.tensor_k_grid()
+
+    def tlos(to):
+        return mten.compute_tensor_transfers(to, coarse_k=kgrid_t)
+    c64 = tlos(to_u)
     with plain_version(mten, "_tlos_cuda"):
-        r64 = mten.compute_tensor_transfers(to_u)
+        r64 = tlos(to_u)
     for f in ("dT", "dE", "dB"):
         check_f64("tensor_los." + f, getattr(c64, f), getattr(r64, f))
-    mten.compute_tensor_transfers(to32)
-    ms, ck = timed(lambda: mten.compute_tensor_transfers(to32), 3)
+    tlos(to32)
+    ms, ck = timed(lambda: tlos(to32), 5)
+    again = tlos(to32)
     with plain_version(mten, "_tlos_cuda"):
-        plain_ms, cp = timed(lambda: mten.compute_tensor_transfers(to32))
+        plain_ms, cp = timed(lambda: tlos(to32))
+    for f in ("dT", "dE", "dB"):
+        require(torch.equal(getattr(ck, f), getattr(again, f)),
+                f"tensor_los.{f} repeatable bit for bit")
     err = max(check_f32("tensor_los." + f, getattr(ck, f), getattr(cp, f),
                         getattr(r64, f), 1e-4) for f in ("dT", "dE", "dB"))
+    targs, _ = mten._tlos_inputs(to32, 700, 14700.0, 0.065, 4.0, kgrid_t)
+    alone_ms, _ = timed(lambda: mten._tlos_cuda(*targs), 5)
     C, nl, nkf = ck.dT.shape
-    results["tensor_los"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound(
-        {"fp32": C * nl * nkf * to32.tau.shape[-1] * OPS["tensor_los"]},
-        nbytes(to32.tau, to32.sT, to32.sP, ck.dT, ck.dE, ck.dB)))
-    log(f"  tensor_los kernel {ms:.2f} ms, plain {plain_ms:.1f} ms "
-        f"(both incl. the wrapper's stencil and weights)")
+    N = to32.tau.shape[-1]
+    tabs = mten._TLOS_BY_TABLE[id(targs[7])]
+    lat = mten.tlos_lattice(targs[5], targs[4], tabs["n0"], nl,
+                            targs[7].shape[1], targs[10])
+    per_live, per_node = OPS["tensor_los"]
+    moved = nbytes(to32.tau, to32.sT, to32.sP, targs[7], targs[8], ck.dT, ck.dE,
+                   ck.dB)
+    results["tensor_los"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, kernel_alone_ms=alone_ms,
+        lattice=lat, bound_ms_whole_lattice=bound(
+            {"fp32": 40 * lat["lattice"]}, moved)["bound_ms"],
+        **bound({"fp32": per_live * lat["live"] + per_node * C * nkf * N}, moved))
+    r = results["tensor_los"]
+    log(f"  tensor_los lattice {lat['lattice']}: live {lat['live']} "
+        f"({lat['live'] / lat['lattice']:.4f}), walked {lat['walked']} "
+        f"({lat['walked'] / lat['lattice']:.4f})")
+    log(f"  tensor_los kernel {ms:.3f} ms with the wrapper, {alone_ms:.3f} ms "
+        f"alone, plain {plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms "
+        f"({r['ops']['fp32']:.4e} ops), whole lattice at 40 a point "
+        f"{r['bound_ms_whole_lattice']:.4f} ms")
 
 
 def write_theory_cl(path, cls):

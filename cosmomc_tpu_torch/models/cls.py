@@ -41,7 +41,7 @@ from cosmomc_tpu_torch.models.perturbations import PerturbationOutput
 from cosmomc_tpu_torch.models.primordial import PrimordialParams, scalar_power
 from cosmomc_tpu_torch.utils.interp import spline_eval, spline_fit
 
-L_BATCH = 4        # sampled l's padded to a multiple of this (K6: l's a thread)
+L_BATCH = 4        # sampled l's of the table plan padded to a multiple of this
 REC_THREADS = 256          # threads of a recurrence kernel block (8 warps)
 REC_MAX_NODES = 16 * REC_THREADS   # strided tau nodes the recurrence kernel takes
 

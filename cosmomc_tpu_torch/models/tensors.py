@@ -28,6 +28,7 @@ CPU tensors take the plain versions; CUDA tensors launch the kernels.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import numpy as np
@@ -36,7 +37,7 @@ import torch
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models.background import BackgroundParams
 from cosmomc_tpu_torch.models.bessel import build_bessel_table, default_l_samples
-from cosmomc_tpu_torch.models.cls import L_BATCH, fine_k_grid
+from cosmomc_tpu_torch.models.cls import fine_k_grid
 from cosmomc_tpu_torch.models.perturbations import (TC_LAM_MAX, ThermoFuncs,
                                                     grho_terms)
 from cosmomc_tpu_torch.models.primordial import PrimordialParams, tensor_power
@@ -339,20 +340,138 @@ def _tlos_plain(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
     return out
 
 
+TLOS_KT = 32      # fine k a K6 work item (csrc/tensor_los.cu KT)
+TLOS_OCT = 8      # sampled l's an octet: one 128-byte table line (OCT)
+TLOS_GROUP = 3    # octets a K6 work item, all held by each lane (GROUP)
+TLOS_KW = 8       # fine k a warp (KQ x KLANE)
+
+
+def first_live_index(jl: np.ndarray, jlp: np.ndarray) -> np.ndarray:
+    """n0(l): per table row, the first index where j_l or j_l' is non-zero
+    (the row's width if none is). Below it both rows are exactly 0, so a
+    point with table index i, i + 1 < n0(l), adds exactly 0. Raises unless
+    n0 does not decrease from row to row: csrc/tensor_los.cu takes the
+    live l's of a node to be a prefix of the sorted l's."""
+    nz = (jl != 0) | (jlp != 0)
+    n0 = np.where(nz.any(1), nz.argmax(1), jl.shape[1]).astype(np.int32)
+    if (np.diff(n0) < 0).any():
+        raise ValueError("the first non-zero table index decreases in l")
+    return n0
+
+
+def pair_table(jl: np.ndarray, jlp: np.ndarray):
+    """The table csrc/tensor_los.cu reads: pairs[i, slot] = (j_l(x_i),
+    j_l'(x_i), j_l(x_{i+1}), j_l'(x_{i+1})), float32 (nx - 1, nslot, 4),
+    the rows padded with zeros to nslot, a multiple of TLOS_OCT (an octet
+    of l's at one index is one aligned 128-byte line); and n0 per slot
+    (`first_live_index`; nx for a pad, which is never live)."""
+    nl, nx = jl.shape
+    nslot = -(-nl // TLOS_OCT) * TLOS_OCT
+    pairs = np.zeros((nx - 1, nslot, 4), np.float32)
+    for j, (a, b) in enumerate(((jl, 0), (jlp, 0), (jl, 1), (jlp, 1))):
+        pairs[:, :nl, j] = a[:, b:nx - 1 + b].T
+    n0 = np.full(nslot, nx, np.int32)
+    n0[:nl] = first_live_index(jl, jlp)
+    return pairs, n0
+
+
+_TLOS_TABLES: dict = {}     # (l's, xmax, device) -> tables
+_TLOS_BY_TABLE: dict = {}   # id(the device jl table) -> tables
+
+
+def tlos_tables(ls: tuple, xmax: float, device) -> dict:
+    """The Bessel tables of one l set on a device, built on the host and
+    uploaded once per (l set, xmax, device): `jl`, `jlp` (float32 (nl, nx),
+    what the plain version reads), `pairs` and `n0` (`pair_table`, what the
+    kernel reads) and the grid step `dx`. `_tlos_cuda` finds the kernel's
+    tables from the `jl` it is given."""
+    key = (tuple(int(l) for l in ls), float(xmax), str(torch.device(device)))
+    tabs = _TLOS_TABLES.get(key)
+    if tabs is None:
+        tab = build_bessel_table(key[0], key[1])
+        pairs, n0 = pair_table(tab.jl, tab.jlp)
+        up = lambda a: torch.as_tensor(a, device=device)
+        tabs = dict(jl=up(tab.jl), jlp=up(tab.jlp), pairs=up(pairs), n0=up(n0),
+                    dx=tab.dx)
+        _TLOS_TABLES[key] = tabs
+        _TLOS_BY_TABLE[id(tabs["jl"])] = tabs
+    return tabs
+
+
+@lru_cache(maxsize=8)
+def _tlos_grid(lmax: int, tau0_hint: float, kmax_hint: float,
+               points_per_osc: float, coarse_k: tuple, device: str,
+               dtype: torch.dtype) -> dict:
+    """The sampled l's, the fine k grid, its dlnk weights and the ln-k
+    stencil from the coarse grid `coarse_k`, on a device, once."""
+    f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    kf = f(fine_k_grid(tau0_hint, kmax_hint, points_per_osc))
+    lnkf = torch.log(kf)
+    lo, hi, w = _k_stencil(torch.log(f(np.asarray(coarse_k))), lnkf)
+    dlnk = lnkf[1:] - lnkf[:-1]
+    wk = torch.cat([dlnk[:1] / 2, (dlnk[1:] + dlnk[:-1]) / 2, dlnk[-1:] / 2])
+    return dict(ls=f(default_l_samples(lmax)), kf=kf, wk=wk, lo=lo, hi=hi,
+                w=w.contiguous())
+
+
+def tlos_lattice(chi: torch.Tensor, kf: torch.Tensor, n0: torch.Tensor,
+                 nl: int, nx: int, inv_dx: float) -> dict:
+    """The (chain, l, k, tau) points of a tensor LOS problem, counted from
+    its inputs with the kernel's arithmetic (x = kf chi, i = clamp(int(x
+    inv_dx), 0, nx - 2)): `lattice` all of them; `live` those with i + 1 >=
+    n0(l) (elsewhere the point adds exactly 0); `walked` the points
+    csrc/tensor_los.cu computes: 64 for each of the item's octets (8 l's x
+    8 k, pads and k past the grid included) for each (chain, 8-k column of
+    a work item, group of octets, node) where the group's first l is live
+    at the column's largest k."""
+    C, N = chi.shape
+    nkf = kf.shape[0]
+    n0l = n0[:nl].contiguous()
+    noct = n0.shape[0] // TLOS_OCT
+    first = n0[::TLOS_OCT * TLOS_GROUP].contiguous()     # each group's first l
+    octs = torch.tensor([min(TLOS_GROUP, noct - g * TLOS_GROUP)
+                         for g in range(first.shape[0])], device=kf.device)
+    kw = TLOS_KW
+    kmax_w = kf[torch.clamp(torch.arange(kw - 1, nkf + kw - 1, kw,
+                                         device=kf.device), max=nkf - 1)]
+    live = walked = 0
+    for c in range(C):
+        def index(k):
+            x = k[:, None] * chi[c][None, :]
+            return (x * inv_dx).to(torch.int64).clamp(0, nx - 2).contiguous()
+        live += int(torch.searchsorted(n0l, index(kf) + 1, right=True).sum())
+        groups = torch.searchsorted(first, index(kmax_w) + 1, right=True)
+        walked += TLOS_OCT * kw * int(torch.cumsum(octs, 0)[groups - 1]
+                                      .masked_fill(groups == 0, 0).sum())
+    return dict(lattice=C * nl * nkf * N, live=live, walked=walked)
+
+
 def _tlos_cuda(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
                k_chunk: int = 64):
-    """csrc/tensor_los.cu: one thread per (chain, fine k, 4 sampled l)
-    reduces over every tau node, with the linear ln-k source interpolation,
-    the j_l/j_l' table gathers, j_l'' and the three radial windows fused.
+    """csrc/tensor_los.cu: a block per work item (chain, 32 fine k, a group
+    of 3 octets of sampled l's), low l's first; 8 lanes of one fine k hold
+    8 consecutive l's and read one 128-byte line of the packed table
+    (`pair_table`), each lane for one l of every octet of the group; per
+    tile of tau nodes the block writes one record per (k, tau) to shared
+    memory (table index and fraction, the sources interpolated in ln k and
+    folded into six coefficients with j_l''), and skips, with the same
+    bits, the nodes where every point a warp would compute is dead (i + 1 <
+    n0(l)). `jl_tab` and `jlp_tab` must be the tables of `tlos_tables`,
+    whose packed form and n0 the kernel reads (no table is uploaded here).
 
     Replaces cosmomc_tpu/models/tensors.py:compute_tensor_transfers (the
-    lax.map over l at tensors.py:352). Bound: 65 l x 610 k x 8192 tau per
-    chain (3.2e8 points), each two float32 table gathers (the 2.5 MB
-    tables stay in L2) and ~40 flops. No atomics."""
+    lax.map over l at tensors.py:352); the bound and the design are in the
+    source. Each output has one owner, summed over tau in order; no
+    atomics."""
     del k_chunk
+    tabs = _TLOS_BY_TABLE.get(id(jl_tab))
+    if tabs is None or tabs["jl"] is not jl_tab or tabs["jlp"] is not jlp_tab:
+        raise ValueError("jl_tab and jlp_tab must be the tables of tlos_tables(): "
+                         "the kernel reads their packed form")
     C, _, nk, N = src.shape
     nl, nx = jl_tab.shape
     nkf = kf.shape[0]
+    nslot = tabs["pairs"].shape[1]
     dtype = src.dtype
     kernels.check(src, "sources", (C, 2, nk, N))
     kernels.check(lo, "k_lo", (nkf,), torch.int32)
@@ -361,47 +480,57 @@ def _tlos_cuda(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
         kernels.check(t, name, (nkf,), dtype)
     for name, t in (("chi", chi), ("wt", wt)):
         kernels.check(t, name, (C, N), dtype)
-    kernels.check(jl_tab, "jl", (nl, nx), torch.float32)
-    kernels.check(jlp_tab, "jlp", (nl, nx), torch.float32)
+    kernels.check(tabs["pairs"], "pair table", (nx - 1, nslot, 4), torch.float32)
+    kernels.check(tabs["n0"], "n0", (nslot,), torch.int32)
     kernels.check(ls, "ls", (nl,), dtype)
-    if nl % L_BATCH:
-        raise ValueError(f"sampled l count {nl} not a multiple of {L_BATCH}")
     out = torch.empty(3, C, nl, nkf, dtype=dtype, device=src.device)
-    kernels.launch("tensor_los", dtype, src, lo, hi, w, kf, chi, wt, jl_tab,
-                   jlp_tab, ls, out, C, nk, N, nl, nx, nkf, float(inv_dx))
+    kernels.launch("tensor_los", dtype, src, lo, hi, w, kf, chi, wt,
+                   tabs["pairs"], tabs["n0"], ls, out, C, nk, N, nl, nslot, nx,
+                   nkf, float(inv_dx))
     return out
+
+
+def _tlos_inputs(to: TensorOutput, lmax: int, tau0_hint: float,
+                 kmax_hint: float, points_per_osc: float, coarse_k):
+    """The arguments of `_tlos_plain` / `_tlos_cuda` for the sources `to`,
+    and the grid (`_tlos_grid`). The tables, the fine grid and the stencil
+    are built once per grid and device and reused; `coarse_k` is the host
+    grid the sources were evolved on (to.k's values; without it they are
+    copied from to.k)."""
+    dtype, dev = to.sT.dtype, to.sT.device
+    if coarse_k is None:
+        coarse_k = to.k.detach().cpu().numpy()
+    grid = _tlos_grid(lmax, tau0_hint, kmax_hint, points_per_osc,
+                      tuple(np.asarray(coarse_k, np.float64).tolist()), str(dev),
+                      dtype)
+    tabs = tlos_tables(tuple(default_l_samples(lmax).tolist()),
+                       kmax_hint * tau0_hint * 1.02 + 10, dev)
+    taus = to.tau
+    dt = taus[:, 1:] - taus[:, :-1]
+    wt = torch.cat([dt[:, :1] / 2, (dt[:, 1:] + dt[:, :-1]) / 2, dt[:, -1:] / 2],
+                   -1)
+    src = torch.stack([to.sT, to.sP], 1).contiguous()
+    args = (src, grid["lo"], grid["hi"], grid["w"], grid["kf"],
+            (to.tau0[:, None] - taus).contiguous(), wt.contiguous(), tabs["jl"],
+            tabs["jlp"], grid["ls"],
+            float(torch.tensor(1.0 / tabs["dx"], dtype=dtype)))
+    return args, grid
 
 
 def compute_tensor_transfers(to: TensorOutput, lmax: int = 700,
                              tau0_hint: float = 14700.0,
                              kmax_hint: float = 0.065,
-                             points_per_osc: float = 4.0) -> TensorTransferCache:
-    """SLOW stage: tensor sources x Bessel (ZS97 window functions)."""
-    dtype, dev = to.sT.dtype, to.sT.device
-    ls = default_l_samples(lmax)
-    ls_pad = np.concatenate([ls, np.full((-len(ls)) % L_BATCH, ls[-1])])
-    tab = build_bessel_table(tuple(int(l) for l in ls_pad),
-                             kmax_hint * tau0_hint * 1.02 + 10)
-    f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
-    kf = f(fine_k_grid(tau0_hint, kmax_hint, points_per_osc))
-    lnkf = torch.log(kf)
-    lo, hi, w = _k_stencil(torch.log(to.k), lnkf)
-    taus = to.tau
-    dt = taus[:, 1:] - taus[:, :-1]
-    wt = torch.cat([dt[:, :1] / 2, (dt[:, 1:] + dt[:, :-1]) / 2, dt[:, -1:] / 2],
-                   -1)
-    dlnk = lnkf[1:] - lnkf[:-1]
-    wk = torch.cat([dlnk[:1] / 2, (dlnk[1:] + dlnk[:-1]) / 2, dlnk[-1:] / 2])
-    jl = torch.as_tensor(tab.jl, dtype=torch.float32, device=dev)
-    jlp = torch.as_tensor(tab.jlp, dtype=torch.float32, device=dev)
-    src = torch.stack([to.sT, to.sP], 1).contiguous()
-    los = _tlos_plain if dev.type == "cpu" else _tlos_cuda
-    out = los(src, lo, hi, w.contiguous(), kf, (to.tau0[:, None] - taus)
-              .contiguous(), wt.contiguous(), jl, jlp, f(ls_pad),
-              float(torch.tensor(1.0 / tab.dx, dtype=dtype)))
-    nl = len(ls)
-    return TensorTransferCache(f(ls), kf, wk, out[0, :, :nl], out[1, :, :nl],
-                               out[2, :, :nl])
+                             points_per_osc: float = 4.0,
+                             coarse_k=None) -> TensorTransferCache:
+    """SLOW stage: tensor sources x Bessel (ZS97 window functions).
+    `coarse_k` is the host grid the sources were evolved on (to.k's
+    values); without it they are copied from to.k."""
+    args, grid = _tlos_inputs(to, lmax, tau0_hint, kmax_hint, points_per_osc,
+                              coarse_k)
+    los = _tlos_plain if to.sT.device.type == "cpu" else _tlos_cuda
+    out = los(*args)
+    return TensorTransferCache(grid["ls"], grid["kf"], grid["wk"], out[0], out[1],
+                               out[2])
 
 
 def tensor_cls_from_transfers(cache: TensorTransferCache, pp: PrimordialParams,

@@ -220,8 +220,10 @@ class CMBPosterior:
                   tau_stride=self.los_tau_stride)
         tt_cache = None
         if self.compute_tensors:
-            to = evolve_tensors(bg, tf, po.tau0, tensor_k_grid())
-            tt_cache = compute_tensor_transfers(to, lmax=min(700, self.lmax))
+            kt = tensor_k_grid()
+            to = evolve_tensors(bg, tf, po.tau0, kt)
+            tt_cache = compute_tensor_transfers(to, lmax=min(700, self.lmax),
+                                                coarse_k=kt)
         tabs = compute_thermo_tables(bg, th, yhe)
         der = thermo_derived(bg, tabs)
         bf = bgm.background_functions(bg)

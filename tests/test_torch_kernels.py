@@ -254,6 +254,62 @@ def test_tensor_kernels(dev, tables, dtype):
               1e-4, f)
 
 
+def _tlos_args(dev, dtype, chains, nkf, nt, ls, kmax, seed=0):
+    """Arguments of _tlos_cuda / _tlos_plain, made from a seed: random
+    sources on 10 coarse k, nkf fine k in [1e-3, kmax], tau0 - tau falling
+    from 15000 to 0 (the chains' distances differ by up to 3%), the tables
+    of `ls` from tlos_tables."""
+    rng = np.random.default_rng(seed)
+    coarse = np.exp(np.linspace(np.log(5e-4), np.log(1.5 * kmax), 10))
+    kf = np.linspace(1e-3, kmax, nkf)
+    chi = np.linspace(15000.0, 0.0, nt)[None] * np.linspace(1.0, 0.97, chains)[:, None]
+    tabs = tten.tlos_tables(tuple(ls), kmax * 15000.0 * 1.02 + 10, dev)
+    f = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
+    lo, hi, w = tten._k_stencil(torch.log(f(coarse)), torch.log(f(kf)))
+    return (f(rng.standard_normal((chains, 2, len(coarse), nt))), lo, hi,
+            w.contiguous(), f(kf), f(chi), f(rng.uniform(0.5, 1.5, (chains, nt))),
+            tabs["jl"], tabs["jlp"], f(np.asarray(ls, np.float64)),
+            float(torch.tensor(1.0 / tabs["dx"], dtype=dtype))), tabs
+
+
+@pytest.mark.parametrize("case", ["ragged_k", "one_chain", "part_group", "dead_tiles",
+                                  "none_dead"])
+def test_tensor_los_kernel_layouts(dev, case):
+    """K6 against _tlos_plain: 45 fine k (an item of 32 and a ragged one of
+    13) and 46 l (two octet groups, the second part-filled); one chain; 12
+    l (two octets of one group, the second part-filled); l = 300..500 at x
+    below ~300 (whole tiles and items dead); l = 2..9 (no point dead)."""
+    chains, nkf, nt, ls, kmax = {
+        "ragged_k": (2, 45, 300, tcls.default_l_samples(300), 0.02),
+        "one_chain": (1, 64, 200, tcls.default_l_samples(100), 0.03),
+        "part_group": (3, 40, 250, [2, 3, 5, 8, 12, 20, 40, 80, 150, 250, 400, 700], 0.03),
+        "dead_tiles": (2, 70, 400, [300, 350, 400, 450, 500], 0.02),
+        "none_dead": (2, 33, 300, list(range(2, 10)), 0.02)}[case]
+    for dtype in (F64, F32):
+        args, tabs = _tlos_args(dev, dtype, chains, nkf, nt, ls, kmax)
+        lat = tten.tlos_lattice(args[5], args[4], tabs["n0"], len(ls),
+                                args[7].shape[1], args[10])
+        if case == "dead_tiles":
+            assert lat["live"] < lat["lattice"] // 4
+        if case == "none_dead":
+            assert lat["live"] == lat["lattice"]
+        n0 = kernels.launches["tensor_los"]
+        out_k = tten._tlos_cuda(*args)
+        again = tten._tlos_cuda(*args)
+        torch.cuda.synchronize()
+        assert kernels.launches["tensor_los"] == n0 + 2
+        assert torch.equal(out_k, again), "repeatable bit for bit"
+        out_p = tten._tlos_plain(*args)
+        out_r = None if dtype == F64 else tten._tlos_plain(
+            *[a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+              for a in args])
+        for p, name in enumerate(("dT", "dE", "dB")):
+            check(out_k[p], out_p[p], None if out_r is None else out_r[p], dtype,
+                  1e-4, (case, name))
+    with pytest.raises(ValueError):
+        tten._tlos_cuda(*args[:7], args[7].clone(), *args[8:])
+
+
 def _rec_args(dev, dtype, chains, nkf, nt, lmax, k_lo, x_lo, x_hi, seed=0):
     """Arguments of _los_rec_cuda / _los_rec_plain, made from a seed: random
     sources on 12 coarse k in [k_lo, 1], stencils onto nkf fine k, and
