@@ -19,6 +19,15 @@ slow step.
 Phase 4 runs the LCDM+r path the same way (compute_tensors=True, r
 semi-slow, recurrence LOS engine, halofit lensing), its fiducial written at
 the best fit with r = 0.1, and checks the tensor-only spectrum there.
+Phase 5 runs the flagship at phase 3's width under SamplingRun, the run
+loop users call: plik_lite + a synthetic DR12-shaped BAO set written from
+the port's theory at the best fit + the tau prior, 8 chains, four 16-step
+segments from the runner's own schedules, chain files and checkpoints;
+then a second run resumes from the checkpoint and must restore the state,
+the caches and the generator bit for bit and take the same next segment.
+Phase 6 samples the background configuration (BAO + SN + H0 on synthetic
+DR12, 6dF and 1048-SN Pantheon-format sets) with MetropolisSampler under
+SamplingRun, 256 chains, until R-1 < 0.01.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -26,6 +35,7 @@ agree, or when a phase's output is wrong. The last line of standard output
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -45,6 +55,11 @@ BESTFIT = dict(ombh2=0.02237737, omch2=0.1201035, theta=1.0409020,
 NCHAINS = 8
 SEG_STEPS = 16
 K1_CMP_STEPS = 2048      # K1 and K5 are held to their plain versions here
+#: phase 6 (the background configuration): chains (the JAX recipe's
+#: >= 256), SNe (Pantheon's count), segment length, and a step budget that
+#: keeps the phase near a minute on an H100 (it converged after 2816 steps,
+#: in 28-32 s, on an NVIDIA H100 80GB HBM3 at 700 W)
+BG_NCHAINS, BG_NSN, BG_SEG_STEPS, BG_MAX_STEPS = 256, 1048, 64, 150 * 64
 MUK2 = 2.7255e6 ** 2
 F32, F64 = torch.float32, torch.float64
 
@@ -63,10 +78,13 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "tensor_los": ("cosmomc_tpu_torch/csrc/tensor_los.cu",
                    "cosmomc_tpu/models/tensors.py:352"),
 }
-#: the kernels each main path must launch
+#: the kernels each main path must launch (phase 5 "runner" is the
+#: flagship under SamplingRun; phase 6 "background" launches none)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
-                           "tensors", "tensor_los")}
+                           "tensors", "tensor_los"),
+                "runner": ("recfast", "boltzmann", "los", "lensing"),
+                "background": ()}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -659,6 +677,8 @@ def drive_path(dev, tmp, label, cfg):
         t0 = time.time()
         slow = p0.stage_slow(full)
         cls[dt] = p0.stage_semi(full, slow)["cls"][0]
+        if dt == F64:
+            fid_theory = p0.assemble_theory(slow, dict(cls=None))
         torch.cuda.synchronize()
         log(f"C_l at best fit ({str(dt)[6:]}) {time.time() - t0:.2f} s")
         if p0.compute_tensors:
@@ -764,7 +784,288 @@ def drive_path(dev, tmp, label, cfg):
             "segment output shape")
     require(bool(torch.isfinite(out.derived).all()), "finite derived")
     require(not bool(out.error.any()), "no error points")
+    return launches, per_segment, dict(ds=ds, theory=fid_theory)
+
+
+def leaves(x, path="state"):
+    """(path, tensor) for every tensor in a cache: tensors, dicts, tuples,
+    NamedTuples and dataclasses of them."""
+    if torch.is_tensor(x):
+        yield path, x
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            yield from leaves(v, f"{path}.{k}")
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        for k in x._fields:
+            yield from leaves(getattr(x, k), f"{path}.{k}")
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            yield from leaves(v, f"{path}[{i}]")
+    elif dataclasses.is_dataclass(x):
+        for f in dataclasses.fields(x):
+            yield from leaves(getattr(x, f.name), f"{path}.{f.name}")
+
+
+def drive_runner(dev, tmp, fid):
+    """Phase 5: the flagship at phase 3's width with plik_lite + synthetic
+    DR12-shaped BAO + the tau prior, under SamplingRun: 8 chains, 4
+    segments of 16 steps from the runner's own schedules, burn-in after one
+    accept a block, chain files, R-1, and a checkpoint every 2 segments.
+    Eight chains are far from converged after a few segments (R-1 ~ 60),
+    so the proposal is learned whatever R-1 (max_r_propose_update, the
+    reference's MPI_Max_R_ProposeUpdate, is a user setting): the learned
+    covariance is then pushed into the staged state and checkpointed.
+    A second run resumes from the checkpoint: its state, caches,
+    covariance and generator must equal the first run's bit for bit, and
+    one more segment on the same schedule must take the same steps in
+    both. Returns the launch counts of the run and per segment."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.io.chains import load_chains
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.likelihoods.synthetic import write_dr12_bao
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.sampling.runner import RunConfig, SamplingRun
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    sync = torch.cuda.synchronize
+    d = os.path.join(tmp, "dr12")
+    bao0 = BAOLikelihood(write_dr12_bao(d), device=dev, dtype=F64)
+    dr12 = write_dr12_bao(d, bao0.theory_vector(fid["theory"])[0].cpu().numpy())
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(fid["ds"], name="plik_lite", device=dev,
+                                 dtype=F32))
+    likes.add(BAOLikelihood(dr12, device=dev, dtype=F32))
+    par = ThetaParameterization()
+    space = par.default_space()
+    space.get("tau").prior_mean = 0.0544
+    space.get("tau").prior_std = 0.0073
+    post = CMBPosterior(par, space, likes, bbn_table=synthetic_bbn_table(),
+                        device=dev, dtype=F32)
+    at_bf = torch.as_tensor(bestfit_vector(post)[None], dtype=F32, device=dev)
+    mll_bf, _ = post.logpost()(at_bf)
+    log(f"phase 5: -logL at the best fit (plik_lite + DR12-shaped BAO + tau "
+        f"prior) {float(mll_bf[0]):.6f}")
+    require(float(mll_bf[0]) < 1.0, "fiducial + BAO -logL near 0 at their point")
+    w = np.array([p.propose_width for p in post.space.varying])
+
+    def make_sampler(seed):
+        prop = post.make_proposal(oversample_fast=4)
+        prop.set_covariance(np.diag(w ** 2))
+        return StagedMetropolisSampler(prop, post, seed=seed)
+
+    cfg = RunConfig(nchains=NCHAINS, segment_steps=SEG_STEPS,
+                    max_steps=4 * SEG_STEPS, burn_accepts_per_block=1,
+                    stats_thin=1, r_stop=0.0, max_r_propose_update=np.inf,
+                    checkpoint_freq_segments=2, seed=0)
+    P0 = start_points(post, np.random.default_rng(0), F64).cpu().numpy()
+    root = os.path.join(tmp, "chains", "flagship")
+    s1 = make_sampler(0)
+    bare, real_segment = [], s1.run_segment
+
+    def timed_segment(*a, **k):
+        sync()
+        t0 = time.time()
+        out = real_segment(*a, **k)
+        sync()
+        bare.append(time.time() - t0)
+        return out
+    s1.run_segment = timed_segment
+
+    sync()
+    kernels.reset_launches()
+    t0 = time.time()
+    run1 = SamplingRun(s1, cfg, P0, chain_root=root, feedback=1,
+                       paramnames=post.paramnames(), space=post.space)
+    sync()
+    t_init = time.time() - t0
+    at_init = dict(kernels.launches)
+    res = run1.run()
+    sync()
+    launches = dict(kernels.launches)
+    s1.run_segment = real_segment
+    nseg = len(bare)
+    per_segment = {n: (launches[n] - at_init[n]) / nseg for n in launches}
+    host = res.wall_s - sum(bare)
+    log(f"runner: init {t_init:.3f} s; {nseg} segments in {res.wall_s:.3f} s, "
+        f"{res.wall_s / nseg:.3f} s a segment under the runner; bare "
+        f"run_segment {np.mean(bare):.3f} s a segment (min {min(bare):.3f}, "
+        f"max {max(bare):.3f}); host time the runner adds {host:.3f} s, "
+        f"{host / nseg:.4f} s a segment ({host / res.wall_s:.1%})")
+    log(f"runner: steps {res.steps}, burn-in at {res.burned_in_at}, R-1 "
+        f"{res.r_minus_1:.4f}, acceptance {res.accept_rate:.3f}, "
+        f"slow/semi/fast steps {run1.class_steps.tolist()}, "
+        f"{res.steps * cfg.nchains / res.wall_s:.2f} chain steps/s")
+    log("launches in the runner's run: " + json.dumps(launches)
+        + "; per segment: " + json.dumps(per_segment))
+    learned = not np.array_equal(s1.proposal.covariance, np.diag(w ** 2))
+    log(f"proposal learned from the chains: {learned}")
+    require(learned, "the runner learned the proposal covariance")
+    for n in KERNELS:
+        if n in PATH_KERNELS["runner"]:
+            require(launches[n] > 0, f"{n} launched under the runner")
+        else:
+            require(launches[n] == 0, f"{n} not launched under the runner")
+    mll = run1.state.mloglike
+    require(bool(torch.isfinite(mll).all()) and bool((mll < 1e29).all()),
+            "finite -logL under the runner")
+    for ext in (".paramnames", ".ranges", ".converge_stat", ".chk.npz"):
+        require(os.path.isfile(root + ext), f"runner wrote {ext}")
+    require(res.burned_in_at > 0, "burn-in reached")
+    chains = load_chains(root, cfg.nchains)
+    written = res.steps - res.burned_in_at + cfg.segment_steps
+    require(int(chains["weights"].sum()) == written * cfg.nchains,
+            "chain weights sum to the written steps x chains")
+    require(chains["samples"].shape[1] == post.space.num_varying
+            + post.num_derived, "chain file columns")
+
+    # resume a second run from the checkpoint, with a fresh sampler
+    s2 = make_sampler(1)
+    run2 = SamplingRun(s2, cfg, P0, chain_root=root, feedback=0)
+    require(run2.resume(), "resume finds the checkpoint")
+    run2.writer.close(flush_pending=False)
+    a, b = run1.state, run2.state
+    for f in ("P", "mloglike", "derived", "num_accept", "mapping"):
+        require(torch.equal(getattr(a, f), getattr(b, f)), f"resumed {f}")
+    require((run2.steps_done, run2.burned_in_at)
+            == (run1.steps_done, run1.burned_in_at), "resumed step counts")
+    require(np.array_equal(s2.proposal.covariance, s1.proposal.covariance),
+            "resumed proposal covariance")
+    require(torch.equal(s2.generator.get_state(), s1.generator.get_state()),
+            "resumed generator state")
+    carried = dict(leaves((a.slow, a.semi)))
+    rebuilt = dict(leaves((b.slow, b.semi)))
+    require(carried.keys() == rebuilt.keys(), "rebuilt caches' layout")
+    diffs = {k: float((carried[k].double() - rebuilt[k].double()).abs().max())
+             if carried[k].numel() else 0.0 for k in carried
+             if not torch.equal(carried[k], rebuilt[k])}
+    worst = max(diffs.items(), key=lambda kv: kv[1]) if diffs else ("-", 0.0)
+    log(f"caches rebuilt by state_from_arrays: {len(carried)} tensors, "
+        f"{len(diffs)} differ from the carried ones; largest difference "
+        f"{worst[1]:.3e} in {worst[0]}")
+    require(not diffs, "rebuilt caches equal the carried ones bit for bit")
+    sched = s1.proposal.make_schedule(cfg.segment_steps,
+                                      np.random.default_rng(7))
+    _, o1 = s1.run_segment(a, sched)
+    _, o2 = s2.run_segment(b, sched)
+    require(torch.equal(o1.accept, o2.accept) and torch.equal(o1.P, o2.P),
+            "the next segment after resume equals the uninterrupted one")
+    log("resume: state, caches, covariance and generator restored bit for "
+        f"bit; the next segment takes the same {int(o1.accept.sum())} accepts")
     return launches, per_segment
+
+
+def drive_background(dev, tmp):
+    """Phase 6: bench.py:bench_background's posterior (BackgroundParameterization:
+    omegam, H0, ombh2 with its BBN prior; synthetic DR12-shaped BAO, 6dF,
+    a Pantheon-format set of BG_NSN SNe with a mag covmat, and HST at the
+    truth's H0, all written from the port's float64 theory at
+    BACKGROUND_TRUTH without scatter), float32, BG_NCHAINS chains under
+    MetropolisSampler and SamplingRun until R-1 < 0.01. Returns the run's
+    launch counts. Runs on the CPU too (`dev` the CPU device)."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.io.chains import load_chains
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
+    from cosmomc_tpu_torch.likelihoods.sn import SNLikelihood
+    from cosmomc_tpu_torch.models import background as bgm
+    from cosmomc_tpu_torch.models.theory import compute_background_theory
+    from cosmomc_tpu_torch.params.parameterizations import \
+        BackgroundParameterization
+    from cosmomc_tpu_torch.pipeline import BackgroundPosterior
+    from cosmomc_tpu_torch.sampling.metropolis import MetropolisSampler
+    from cosmomc_tpu_torch.sampling.runner import RunConfig, SamplingRun
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    par = BackgroundParameterization()
+    full = np.array([p.center for p in par.default_space().params])
+    for k, v in sd.BACKGROUND_TRUTH.items():
+        full[par.names.index(k)] = v
+    th = compute_background_theory(par.to_background(
+        torch.as_tensor(full[None], dtype=F64, device=dev)))
+    t0 = time.time()
+    d = os.path.join(tmp, "background")
+    tv = BAOLikelihood(sd.write_dr12_bao(d), device=dev).theory_vector(th)
+    dr12 = sd.write_dr12_bao(d, tv[0].cpu().numpy())
+    tv = BAOLikelihood(sd.write_6df_bao(d), device=dev).theory_vector(th)
+    sixdf = sd.write_6df_bao(d, float(tv[0, 0]))
+    cols = sd.pantheon_columns(BG_NSN, seed=0)
+    mu = SNLikelihood(sd.write_pantheon(d, cols), device=dev)._mu_model(th)
+    sn = sd.write_pantheon(d, cols, mu[0].cpu().numpy() + sd.SN_MB_OFFSET,
+                           covmats={"mag": sd.sn_covmat(cols["zcmb"])})
+    hst_h0 = float(11425.8 / bgm.angular_diameter_distance(th.bf, 0.04)[0])
+    log(f"phase 6: synthetic DR12, 6dF, {BG_NSN} SNe (mag covmat) and HST "
+        f"(H0 {hst_h0:.4f}) written at {sd.BACKGROUND_TRUTH} in "
+        f"{time.time() - t0:.1f} s")
+
+    def posterior(dtype):
+        likes = LikelihoodList()
+        likes.add(BAOLikelihood(dr12, device=dev, dtype=dtype))
+        likes.add(BAOLikelihood(sixdf, device=dev, dtype=dtype))
+        likes.add(SNLikelihood(sn, device=dev, dtype=dtype))
+        likes.add(HSTLikelihood(H0=hst_h0, H0_err=1.66))
+        return BackgroundPosterior(par, par.default_space(), likes,
+                                   device=dev, dtype=dtype)
+    post = posterior(F32)
+    names = [p.name for p in post.space.varying]
+    require(names == ["omegam", "H0", "ombh2"], "background sampled names")
+    nchains = BG_NCHAINS
+    start = post.start_positions(np.random.default_rng(0), nchains)
+    m32 = post.logpost()(torch.as_tensor(start, dtype=F32, device=dev))[0]
+    m64 = posterior(F64).logpost()(torch.as_tensor(start, dtype=F64,
+                                                   device=dev))[0]
+    dm = (m32.double() - m64).abs()
+    log(f"background -logL at the {nchains} start points: float32 - float64 "
+        f"max {float(dm.max()):.4f}, rms {float(dm.pow(2).mean().sqrt()):.4f} "
+        f"(float64 values {float(m64.min()):.2f}..{float(m64.max()):.2f})")
+    prop = post.make_proposal()
+    prop.set_covariance(np.diag([p.propose_width ** 2
+                                 for p in post.space.varying]))
+    sampler = MetropolisSampler(prop, post.logpost(),
+                                num_derived=post.num_derived, device=dev,
+                                dtype=F32)
+    cfg = RunConfig(nchains=nchains, segment_steps=BG_SEG_STEPS,
+                    max_steps=BG_MAX_STEPS, r_stop=0.01,
+                    burn_accepts_per_block=30, stats_thin=1, seed=1)
+    root = os.path.join(tmp, "chains", "background")
+    sync()
+    kernels.reset_launches()
+    t0 = time.time()
+    run = SamplingRun(sampler, cfg, start, chain_root=root, feedback=0,
+                      paramnames=post.paramnames(), space=post.space)
+    sync()
+    t_init = time.time() - t0
+    res = run.run()
+    sync()
+    launches = dict(kernels.launches)
+    log(f"background: {res.stopped_on} at R-1 = {res.r_minus_1:.5f} after "
+        f"{res.steps} steps x {nchains} chains; wall-clock to R-1 < 0.01 "
+        f"{res.wall_s:.3f} s (init {t_init:.3f} s more); burn-in at "
+        f"{res.burned_in_at}; acceptance {res.accept_rate:.3f}; "
+        f"{res.steps * nchains / res.wall_s:.1f} chain steps/s")
+    require(not any(launches.values()),
+            "the background configuration launches no kernel")
+    require(res.stopped_on == "converged", "background R-1 < 0.01")
+    chains = load_chains(root, nchains)
+    written = res.steps - res.burned_in_at + cfg.segment_steps
+    require(bool((chains["weights"] >= 1).all())
+            and int(chains["weights"].sum()) == written * nchains,
+            "background chain weights sum to the written steps x chains")
+    require(chains["samples"].shape[1] == 3 + post.num_derived,
+            "background chain file columns")
+    sig = np.sqrt(np.diag(res.cov))
+    for i, name in enumerate(names):
+        pull = (res.means[i] - sd.BACKGROUND_TRUTH[name]) / sig[i]
+        log(f"  {name}: pooled mean {res.means[i]:.6g} +- {sig[i]:.4g} "
+            f"(truth {sd.BACKGROUND_TRUTH[name]}, {pull:+.2f} sigma)")
+        if name in ("omegam", "H0"):
+            require(abs(pull) < 3.0, f"{name} within 3 sigma of the truth")
+    return launches
 
 
 def main() -> int:
@@ -819,8 +1120,19 @@ def main() -> int:
                 (4, "lcdm_r", dict(compute_tensors=True,
                                    los_method="recurrence"))):
             t0 = time.time()
-            launches[label], segment[label] = drive_path(dev, tmp, label, cfg)
+            launches[label], segment[label], fid = drive_path(dev, tmp, label,
+                                                              cfg)
+            if label == "flagship":
+                flagship_fid = fid
             log(f"phase {phase} done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["runner"], segment["runner"] = drive_runner(dev, tmp,
+                                                             flagship_fid)
+        log(f"phase 5 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["background"] = drive_background(dev, tmp)
+        segment["background"] = dict(launches["background"])
+        log(f"phase 6 done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():

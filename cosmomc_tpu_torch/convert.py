@@ -20,6 +20,8 @@ from cosmomc_tpu_torch.models.perturbations import (PerturbationOutput,
                                                     ThermoFuncs)
 from cosmomc_tpu_torch.models.recfast import ThermoHistory
 from cosmomc_tpu_torch.models.tensors import TensorOutput, TensorTransferCache
+from cosmomc_tpu_torch.models.theory import BackgroundTheory
+from cosmomc_tpu_torch.sampling.metropolis import ChainState
 from cosmomc_tpu_torch.sampling.staged import StagedChainState
 
 
@@ -114,6 +116,13 @@ def background_functions(bf, device=None, dtype=torch.float64
         _batched(bf.dchi_grid, 1, device, dtype))
 
 
+def background_theory(th, device=None, dtype=torch.float64) -> BackgroundTheory:
+    """A JAX BackgroundTheory (one cosmology or a vmapped batch)."""
+    return BackgroundTheory(background_params(th.bg, device, dtype),
+                            background_functions(th.bf, device, dtype),
+                            _batched(th.rs_drag, 0, device, dtype))
+
+
 def proposal_mapping(mapping, device=None) -> torch.Tensor:
     """The (n, n) proposal mapping, float32 as both packages keep it."""
     return tensor(mapping, device, torch.float32)
@@ -147,3 +156,13 @@ def staged_chain_state(st, device=None, dtype=torch.float64) -> StagedChainState
         tensor(st.num_accept, device, torch.int32),
         proposal_mapping(st.mapping, device),
         _slow_cache(st.slow, device, dtype), semi)
+
+
+def chain_state(st, device=None, dtype=torch.float64) -> ChainState:
+    """A JAX ChainState (chains batched) -> the port's; the key stays
+    behind (the port's randomness is the sampler's generator)."""
+    return ChainState(tensor(st.P, device, dtype),
+                      tensor(st.mloglike, device, dtype),
+                      tensor(st.derived, device, dtype),
+                      tensor(st.num_accept, device, torch.int32),
+                      proposal_mapping(st.mapping, device))

@@ -150,33 +150,66 @@ def background_functions(bg: BackgroundParams, zmax: float = Z_GRID_MAX,
 
 
 def comoving_radial_distance(bf: BackgroundFunctions, z) -> torch.Tensor:
-    """chi(z) in Mpc per chain: z is a float or a (C,) tensor -> (C,)."""
+    """chi(z) in Mpc per chain: z is a float, a (C,) tensor (one redshift a
+    chain) or a (C, M) tensor (M redshifts a chain); the result has z's
+    shape, (C,) for a float."""
     ref = bf.chi_grid
-    z = torch.as_tensor(z, dtype=ref.dtype, device=ref.device).expand(
-        ref.shape[0])
-    lz = torch.log1p(z)
+    z = torch.as_tensor(z, dtype=ref.dtype, device=ref.device)
+    if z.dim() == 0:
+        z = z.expand(ref.shape[0])
+    lz = torch.log1p(z).reshape(ref.shape[0], -1)
     n = ref.shape[-1]
     dx = bf.lz_grid[1] - bf.lz_grid[0]
     t = lz / dx
     i = torch.floor(t).to(torch.int64).clamp(0, n - 2)
     f = (t - i.to(t.dtype)).clamp(0.0, 1.0)
-    g = lambda tab, j: tab.gather(-1, j[:, None])[:, 0]
-    c0, c1 = g(bf.chi_grid, i), g(bf.chi_grid, i + 1)
-    d0, d1 = g(bf.dchi_grid, i) * dx, g(bf.dchi_grid, i + 1) * dx
+    c0, c1 = bf.chi_grid.gather(-1, i), bf.chi_grid.gather(-1, i + 1)
+    d0, d1 = bf.dchi_grid.gather(-1, i) * dx, bf.dchi_grid.gather(-1, i + 1) * dx
     f2 = f * f
     f3 = f2 * f
-    return ((2 * f3 - 3 * f2 + 1) * c0 + (f3 - 2 * f2 + f) * d0
-            + (-2 * f3 + 3 * f2) * c1 + (f3 - f2) * d1)
+    chi = ((2 * f3 - 3 * f2 + 1) * c0 + (f3 - 2 * f2 + f) * d0
+           + (-2 * f3 + 3 * f2) * c1 + (f3 - f2) * d1)
+    return chi.reshape(z.shape)
 
 
 def rofchi(omkh2: torch.Tensor, chi: torch.Tensor) -> torch.Tensor:
-    """Curvature-corrected transverse distance f_K(chi) (modules.f90 rofChi)."""
+    """Curvature-corrected transverse distance f_K(chi) (modules.f90 rofChi);
+    omkh2 is (C,), chi (C,) or (C, M)."""
+    omkh2 = col(omkh2, chi)
     flat = omkh2.abs() < 1e-9
     safe = torch.where(flat, 1.0, omkh2.abs())
     sqrtk = torch.sqrt(safe) * H100_MPC
     x = chi * sqrtk
     return torch.where(flat, chi, torch.where(omkh2 > 0, torch.sinh(x) / sqrtk,
                                               torch.sin(x) / sqrtk))
+
+
+def _redshifts(bf: BackgroundFunctions, z) -> torch.Tensor:
+    """z as a tensor on the tables' device: a float becomes (C,)."""
+    ref = bf.chi_grid
+    z = torch.as_tensor(z, dtype=ref.dtype, device=ref.device)
+    return z.expand(ref.shape[0]) if z.dim() == 0 else z
+
+
+def angular_diameter_distance(bf: BackgroundFunctions, z) -> torch.Tensor:
+    """D_A(z) in Mpc (modules.f90 AngularDiameterDistance); z as in
+    `comoving_radial_distance`."""
+    z = _redshifts(bf, z)
+    return rofchi(bf.curvature_k, comoving_radial_distance(bf, z)) / (1.0 + z)
+
+
+def luminosity_distance(bf: BackgroundFunctions, z) -> torch.Tensor:
+    z = _redshifts(bf, z)
+    return angular_diameter_distance(bf, z) * (1.0 + z) ** 2
+
+
+def bao_d_v(bf: BackgroundFunctions, z) -> torch.Tensor:
+    """D_V(z) = [(1+z)^2 D_A^2 c z / H]^(1/3) (modules.f90 BAO_D_v)."""
+    z = _redshifts(bf, z)
+    da = angular_diameter_distance(bf, z)
+    zc = z.reshape(z.shape[0], -1)
+    hz = hubble_mpc(bf.bg, 1.0 / (1.0 + zc)).reshape(z.shape)   # H/c, 1/Mpc
+    return ((1.0 + z) ** 2 * da ** 2 * z / hz) ** (1.0 / 3.0)
 
 
 # ---------------------------------------------------------------------------
@@ -259,3 +292,27 @@ def h0_from_theta(theta_target: torch.Tensor, make_bg, lo: float = 20.0,
         f = cosmomc_theta(make_bg(h)) * 100.0 - theta_target.detach()
         (f_h0,) = torch.autograd.grad(f.sum(), h)
     return (mid - f.detach() / f_h0).detach()
+
+
+# ---------------------------------------------------------------------------
+# Drag epoch for background-only runs (no thermal history)
+# ---------------------------------------------------------------------------
+
+def z_drag_eh(bg: BackgroundParams) -> torch.Tensor:
+    """Eisenstein & Hu 1998 Eq. (4) drag redshift fit."""
+    ombh2 = bg.ombh2
+    omh2 = bg.ombh2 + bg.omch2 + bg.omnuh2
+    b1 = 0.313 * omh2 ** (-0.419) * (1.0 + 0.607 * omh2 ** 0.674)
+    b2 = 0.238 * omh2 ** 0.223
+    return (1291.0 * omh2 ** 0.251 / (1.0 + 0.659 * omh2 ** 0.828)
+            * (1.0 + b1 * ombh2 ** b2))
+
+
+def r_drag_approx(bg: BackgroundParams) -> torch.Tensor:
+    """Drag-epoch sound horizon from the Aubourg+2015 fit (1411.1074 Eq. 16),
+    used where no thermal history is computed."""
+    om_b = bg.ombh2
+    om_cb = bg.ombh2 + bg.omch2
+    om_nu = bg.omnuh2
+    return (55.154 * torch.exp(-72.3 * (om_nu + 0.0006) ** 2)
+            / (om_cb ** 0.25351 * om_b ** 0.12807))

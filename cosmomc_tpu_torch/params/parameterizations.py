@@ -1,9 +1,12 @@
 """Parameterizations: sampled vector -> physical BackgroundParams.
 
-Port of the theta parameterization of cosmomc_tpu/params/parameterizations.py
-(source/CosmologyParameterizations.f90 TP_ParamArrayToTheoryParams):
-ombh2, omch2, 100theta_MC, tau, omk, mnu, w, wa, nnu, alpha1, with H0
-solved from theta by bisection. Batched: the full vector is (C, n).
+Port of two parameterizations of cosmomc_tpu/params/parameterizations.py
+(source/CosmologyParameterizations.f90), batched: the full vector is (C, n).
+
+  - theta (TP_ParamArrayToTheoryParams): ombh2, omch2, 100theta_MC, tau,
+    omk, mnu, w, wa, nnu, alpha1, with H0 solved from theta by bisection;
+  - background (:350-414): omegam, H0, omk, mnu, w, wa, nnu and an
+    explicit ombh2 (for the drag sound horizon), omch2 derived.
 """
 
 from __future__ import annotations
@@ -20,6 +23,55 @@ def mnu_to_omnuh2(mnu, nnu=3.046):
     return mnu / const.neutrino_mass_fac * (3.046 / 3.0) ** 0.75
 
 
+def _apply_ini(specs, ini, sp: ParameterSpace) -> ParameterSpace:
+    """Add `specs` to `sp`, each overridden by its ``param[name]`` ini line
+    (one number fixes it; centre, min, max, start and propose widths vary
+    it)."""
+    for p in specs:
+        if ini is not None and f"param[{p.name}]" in ini:
+            parts = [float(x) for x in ini.string(f"param[{p.name}]").split()]
+            if len(parts) == 1:
+                p = Param(p.name, parts[0], parts[0], parts[0], 0, 0,
+                          p.label, p.speed)
+            else:
+                p = Param(p.name, *parts[:5], label=p.label, speed=p.speed)
+        sp.add(p)
+    return sp
+
+
+class BackgroundParameterization:
+    """Sampled: omegam, H0, omk, mnu, w, wa, nnu [+ ombh2, by default with
+    the Cooke+18 BBN prior]. The reference folds all matter but neutrinos
+    into the baryons; ombh2 is explicit here because the drag sound horizon
+    needs the baryon fraction."""
+
+    names = ["omegam", "H0", "omk", "mnu", "w", "wa", "nnu", "ombh2"]
+
+    def default_space(self, ini=None) -> ParameterSpace:
+        return _apply_ini([
+            Param("omegam", 0.3, 0.1, 0.7, 0.02, 0.02, r"\Omega_m", Speed.SLOW),
+            Param("H0", 70.0, 40.0, 100.0, 2.0, 2.0, "H_0", Speed.SLOW),
+            Param("omk", 0.0, 0.0, 0.0, 0, 0, r"\Omega_K", Speed.SLOW),
+            Param("mnu", 0.06, 0.06, 0.06, 0, 0, r"\Sigma m_\nu", Speed.SLOW),
+            Param("w", -1.0, -1.0, -1.0, 0, 0, "w", Speed.SLOW),
+            Param("wa", 0.0, 0.0, 0.0, 0, 0, "w_a", Speed.SLOW),
+            Param("nnu", 3.046, 3.046, 3.046, 0, 0, "N_{eff}", Speed.SLOW),
+            Param("ombh2", 0.02236, 0.019, 0.026, 0.0005, 0.0005,
+                  r"\Omega_b h^2", Speed.SLOW, prior_mean=0.02236,
+                  prior_std=0.00036),
+        ], ini, ParameterSpace())
+
+    def to_background(self, full_P: torch.Tensor) -> BackgroundParams:
+        """full_P (C, n) in `names` order -> BackgroundParams of (C,) fields."""
+        omegam, H0, omk, mnu, w, wa, nnu, ombh2 = full_P[:, :8].unbind(-1)
+        omnuh2 = mnu_to_omnuh2(mnu, nnu)
+        omch2 = omegam * (H0 / 100.0) ** 2 - omnuh2 - ombh2
+        return BackgroundParams(ombh2=ombh2, omch2=omch2, H0=H0, omk=omk,
+                                omnuh2=omnuh2, nnu=nnu, w=w, wa=wa,
+                                tcmb=torch.full_like(ombh2, const.COBE_CMBTemp),
+                                num_massive_nu=1)
+
+
 class ThetaParameterization:
     """Sampled: ombh2, omch2, 100theta_MC, [tau], omk, mnu, w, wa, nnu,
     alpha1; H0 in [h0_min, h0_max] from theta_MC."""
@@ -33,8 +85,7 @@ class ThetaParameterization:
         self.bisect_iters = bisect_iters
 
     def default_space(self, ini=None) -> ParameterSpace:
-        sp = ParameterSpace()
-        specs = [
+        return _apply_ini([
             Param("ombh2", 0.0221, 0.005, 0.1, 0.0001, 0.0001,
                   r"\Omega_b h^2", Speed.SLOW),
             Param("omch2", 0.12, 0.001, 0.99, 0.001, 0.0005,
@@ -48,17 +99,7 @@ class ThetaParameterization:
             Param("wa", 0.0, 0.0, 0.0, 0, 0, "w_a", Speed.SLOW),
             Param("nnu", 3.046, 3.046, 3.046, 0, 0, "N_{eff}", Speed.SLOW),
             Param("alpha1", 0.0, 0.0, 0.0, 0, 0, r"\alpha_{-1}", Speed.SLOW),
-        ]
-        for p in specs:
-            if ini is not None and f"param[{p.name}]" in ini:
-                parts = [float(x) for x in ini.string(f"param[{p.name}]").split()]
-                if len(parts) == 1:
-                    p = Param(p.name, parts[0], parts[0], parts[0], 0, 0,
-                              p.label, p.speed)
-                else:
-                    p = Param(p.name, *parts[:5], label=p.label, speed=p.speed)
-            sp.add(p)
-        return sp
+        ], ini, ParameterSpace())
 
     def to_background(self, full_P: torch.Tensor) -> BackgroundParams:
         """full_P (C, n) in `names` order -> BackgroundParams of (C,) fields."""

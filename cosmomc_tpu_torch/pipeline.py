@@ -1,8 +1,12 @@
 """Posterior assembly: parameterization + theory + likelihoods -> logpost.
 
-Port of cosmomc_tpu/pipeline.py:CMBPosterior (GeneralSetup.f90 TSetup +
-calclike.f90), batched over chains: every stage takes the (C, n) full
-parameter vectors of C chains and returns per-chain tensors.
+Port of cosmomc_tpu/pipeline.py (GeneralSetup.f90 TSetup + calclike.f90),
+batched over chains: every function takes the (C, n) parameter vectors of
+C chains and returns per-chain tensors.
+
+`BackgroundPosterior` is the background-only configuration (BAO, SN, H0):
+distance tables and the fitted drag sound horizon, no kernel.
+`CMBPosterior` runs in three stages:
 
   stage_slow   thermal history (K4, once), Boltzmann transfers (K1), the
                halofit lensing-source ratio, the line-of-sight Delta_l(k)
@@ -13,8 +17,9 @@ parameter vectors of C chains and returns per-chain tensors.
                TT/TE/EE/BB) and lensing (K3);
   stage_fast   likelihoods and the derived-parameter list.
 
-Covered: the flagship configuration (theta LCDM, halofit lensing) and
-LCDM+r (`compute_tensors=True`, r semi-slow, nt = -r/8), without BAO.
+Covered: the flagship configuration (theta LCDM, halofit lensing, with
+BAO in the likelihood list) and LCDM+r (`compute_tensors=True`, r
+semi-slow, nt = -r/8).
 Matter power, the high-l template splice, `use_cmb=False` and sampled
 mnu/w/wa/alpha1 raise NotImplementedError. The BBN table is always passed
 in. `los_method="auto"` means the table engine on every device.
@@ -23,7 +28,7 @@ in. `los_method="auto"` means the table engine on every device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +49,10 @@ from cosmomc_tpu_torch.models.reionization import zre_from_tau
 from cosmomc_tpu_torch.models.tensors import (compute_tensor_transfers,
                                               evolve_tensors, tensor_k_grid,
                                               tensor_cls_from_transfers)
-from cosmomc_tpu_torch.models.theory import CMBTheoryProducts
+from cosmomc_tpu_torch.models.theory import (BACKGROUND_DERIVED_NAMES,
+                                             CMBTheoryProducts,
+                                             background_derived,
+                                             compute_background_theory)
 from cosmomc_tpu_torch.models.thermo import compute_thermo_tables, thermo_derived
 from cosmomc_tpu_torch.params.space import Param, ParameterSpace, Speed
 from cosmomc_tpu_torch.sampling.metropolis import make_bounded_posterior
@@ -77,6 +85,105 @@ CMB_DERIVED_NAMES = [
 
 #: parameters whose sampling needs a sector this slice does not have
 _UNPORTED_SAMPLED = ("mnu", "w", "wa", "alpha1")
+
+
+def _make_proposal(space: ParameterSpace, oversample_fast: int,
+                   propose_scale: float) -> BlockedProposal:
+    """Speed blocks, slow first; blocks of speed SLOW and SEMISLOW count as
+    slow for the schedule."""
+    blocks = space.speed_blocks()
+    n_slow_blocks = max(1, sum(1 for b in blocks if b and
+                               space.varying[b[0]].speed <= 1))
+    return BlockedProposal(blocks, slow_block_max=n_slow_blocks,
+                           oversample_fast=oversample_fast,
+                           propose_scale=propose_scale)
+
+
+def _start_positions(space: ParameterSpace, rng: np.random.Generator,
+                     nchains: int) -> np.ndarray:
+    """Gaussian around each centre with its start width, clipped to its
+    bounds (BaseParameters.f90:85-105)."""
+    var = space.varying
+    out = np.empty((nchains, len(var)))
+    for i, p in enumerate(var):
+        vals = rng.normal(p.center, max(p.start_width, 1e-12), nchains)
+        out[:, i] = np.clip(vals, p.min, p.max)
+    return out
+
+
+@dataclass
+class BackgroundPosterior:
+    """Background-only posterior (BASELINE config 1: BAO + SN + H0)."""
+    parameterization: object          # has .to_background(full_P)
+    space: ParameterSpace
+    likes: LikelihoodList
+    fixed_rs: Optional[float] = None
+    #: "cuda" (the default) or "cpu"; without a card only "cpu" is accepted
+    device: object = "cuda"
+    dtype: torch.dtype = torch.float64
+
+    def __post_init__(self):
+        self.device = kernels.entry_device(self.device, "BackgroundPosterior")
+        self.slices = self.likes.add_nuisance_to_space(self.space)
+        self.varying_idx = self.space.varying_indices
+        self._full_template = np.array([p.center for p in self.space.params])
+        # derived values that are also sampled (H0, omegam) are dropped
+        sampled = {p.name for p in self.space.params}
+        self._derived_keep = [i for i, (n, _) in
+                              enumerate(BACKGROUND_DERIVED_NAMES)
+                              if n not in sampled]
+        self.derived_names = [BACKGROUND_DERIVED_NAMES[i]
+                              for i in self._derived_keep]
+        self.num_derived = len(self.derived_names)
+
+    def embed_full(self, varying: torch.Tensor) -> torch.Tensor:
+        """(C, n_varying) -> (C, n_full) with the fixed values filled in."""
+        full = torch.as_tensor(self._full_template, dtype=varying.dtype,
+                               device=varying.device).repeat(varying.shape[0], 1)
+        full[:, torch.as_tensor(self.varying_idx, dtype=torch.int64,
+                                device=varying.device)] = varying
+        return full
+
+    def compute_theory(self, P: torch.Tensor):
+        bg = self.parameterization.to_background(self.embed_full(P))
+        return compute_background_theory(bg, self.fixed_rs)
+
+    def raw_logpost(self) -> Callable:
+        """(C, n) -> (chi2/2 (C,), derived (C, nd)), before bounds and priors."""
+        def fn(P):
+            th = self.compute_theory(P)
+            total, _per = self.likes.total_log_like(th, P, self.slices)
+            return total, background_derived(th)[:, self._derived_keep]
+        return fn
+
+    def logpost(self) -> Callable:
+        arr = self.space.device_arrays(self.device, self.dtype)
+        return make_bounded_posterior(self.raw_logpost(), arr["lo"], arr["hi"],
+                                      prior_arrays=arr,
+                                      num_derived=self.num_derived)
+
+    def per_likelihood(self, P_varying) -> Dict[str, float]:
+        """chi^2/2 of each likelihood at one point (the action=4 table,
+        GeneralSetup.f90:165-172)."""
+        P = torch.as_tensor(np.asarray(P_varying, np.float64)[None],
+                            dtype=self.dtype, device=self.device)
+        _, per = self.likes.total_log_like(self.compute_theory(P), P,
+                                           self.slices)
+        return {like.name: float(v) for like, v in
+                zip(self.likes.likes, per[0].double().cpu())}
+
+    def paramnames(self) -> ParamNames:
+        pn = self.space.param_names()
+        for name, label in self.derived_names:
+            pn.add(ParamInfo(name, label, derived=True))
+        return pn
+
+    def make_proposal(self, oversample_fast: int = 1,
+                      propose_scale: float = 2.4) -> BlockedProposal:
+        return _make_proposal(self.space, oversample_fast, propose_scale)
+
+    def start_positions(self, rng: np.random.Generator, nchains: int) -> np.ndarray:
+        return _start_positions(self.space, rng, nchains)
 
 
 def _ztag(z: float) -> str:
@@ -347,17 +454,7 @@ class CMBPosterior:
 
     def make_proposal(self, oversample_fast: int = 1,
                       propose_scale: float = 2.4) -> BlockedProposal:
-        blocks = self.space.speed_blocks()
-        n_slow_blocks = max(1, sum(1 for b in blocks if b and
-                                   self.space.varying[b[0]].speed <= 1))
-        return BlockedProposal(blocks, slow_block_max=n_slow_blocks,
-                               oversample_fast=oversample_fast,
-                               propose_scale=propose_scale)
+        return _make_proposal(self.space, oversample_fast, propose_scale)
 
     def start_positions(self, rng: np.random.Generator, nchains: int) -> np.ndarray:
-        var = self.space.varying
-        out = np.empty((nchains, len(var)))
-        for i, p in enumerate(var):
-            vals = rng.normal(p.center, max(p.start_width, 1e-12), nchains)
-            out[:, i] = np.clip(vals, p.min, p.max)
-        return out
+        return _start_positions(self.space, rng, nchains)

@@ -27,12 +27,13 @@ import numpy as np
 import torch
 
 from cosmomc_tpu_torch.params.space import Speed
-from cosmomc_tpu_torch.sampling.metropolis import (LOG_ZERO, SegmentOutput,
+from cosmomc_tpu_torch.sampling.metropolis import (LOG_ZERO, SegmentDraws,
+                                                   SegmentOutput, accept_step,
+                                                   draw_segment,
                                                    mask_posterior,
                                                    prior_and_bounds)
 from cosmomc_tpu_torch.sampling.proposal import (BlockedProposal,
-                                                 ProposalSchedule,
-                                                 propose_radius)
+                                                 ProposalSchedule)
 
 # step classes (what to recompute)
 CLS_SLOW, CLS_SEMI, CLS_FAST = 0, 1, 2
@@ -49,13 +50,6 @@ class StagedChainState(NamedTuple):
     mapping: torch.Tensor      # (n, n) proposal mapping
     slow: Any                  # per-chain slow-stage cache
     semi: Any                  # per-chain semi-stage cache
-
-
-class SegmentDraws(NamedTuple):
-    """Every random number one segment uses."""
-    deltas: torch.Tensor       # (S, C, n) unit-radius proposal directions
-    radius: torch.Tensor       # (S, C) radius-mixture draws
-    u_accept: torch.Tensor     # (S, C) Exp(1) acceptance draws
 
 
 def select_chains(acc: torch.Tensor, new, old):
@@ -127,22 +121,25 @@ class StagedMetropolisSampler:
                                             device=self.device),
                                 self._mapping(), slow, semi)
 
+    def state_from_arrays(self, P, mloglike, derived, num_accept
+                          ) -> StagedChainState:
+        """A whole state from checkpointed arrays: the caches are rebuilt
+        at P by `init_state`, then the checkpointed -logL, derived values
+        and accept counts and the current mapping are put back."""
+        st = self.init_state(P)
+        t = lambda x, dt: torch.as_tensor(x, dtype=dt, device=self.device)
+        return st._replace(mloglike=t(mloglike, self.dtype),
+                           derived=t(derived, self.dtype),
+                           num_accept=t(num_accept, torch.int32),
+                           mapping=self._mapping())
+
     # ---------- randomness ----------
 
     def draw_segment(self, schedule: ProposalSchedule, nchains: int,
                      mapping: torch.Tensor) -> SegmentDraws:
         """Directions, radii and acceptance draws for one segment."""
-        g = self.generator
-        deltas = self.proposal.segment_deltas(g, nchains, schedule, mapping,
-                                              self.dtype)
-        m2 = torch.as_tensor(self.proposal.schedule_radius_dims(schedule),
-                             device=self.device)
-        radius = torch.stack([propose_radius(g, m2[t], nchains, self.dtype,
-                                             self.device)
-                              for t in range(len(schedule.block))])
-        u = torch.empty(len(schedule.block), nchains, dtype=self.dtype,
-                        device=self.device).exponential_(generator=g)
-        return SegmentDraws(deltas, radius, u)
+        return draw_segment(self.proposal, self.generator, schedule, nchains,
+                            mapping, self.dtype)
 
     # ---------- one step ----------
 
@@ -163,8 +160,7 @@ class StagedMetropolisSampler:
         prior, inb = prior_and_bounds(trial, self._prior_arrays)
         mll_t, der_t, err = mask_posterior(mll_t, der_t, prior, inb,
                                            trial.dtype)
-        dl = (mll_t - state.mloglike) / self.temperature
-        acc = (mll_t < LOG_ZERO * 0.1) & ((mll_t < state.mloglike) | (u > dl))
+        acc = accept_step(mll_t, state.mloglike, u, self.temperature)
         P = torch.where(acc[:, None], trial, state.P)
         mll = torch.where(acc, mll_t, state.mloglike)
         der = torch.where(acc[:, None], der_t, state.derived)
