@@ -28,6 +28,15 @@ the caches and the generator bit for bit and take the same next segment.
 Phase 6 samples the background configuration (BAO + SN + H0 on synthetic
 DR12, 6dF and 1048-SN Pantheon-format sets) with MetropolisSampler under
 SamplingRun, 256 chains, until R-1 < 0.01.
+Phase 2 also holds K1 on the matter grid (216 k to 8/Mpc, one chain) to
+its plain version and float32 to float64 at the 6144 steps of the matter
+transfers (sigma8, f sigma8 within 0.5%).
+Phase 7 runs the flagship with matter power (K1 twice a slow step):
+sigma8 and f sigma8 at the best fit against CAMB, and one staged segment
+with plik_lite + a DR12 set with f_sigma8 rows + the tau prior.
+Phase 8 runs the astro LSS-only configuration (use_cmb=False: K4 and K1
+only) with synthetic LRG DR4-format, WiggleZ-format and DR12 f_sigma8 sets
+under SamplingRun, 32 chains, then resumes it bit for bit.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -60,8 +69,27 @@ K1_CMP_STEPS = 2048      # K1 and K5 are held to their plain versions here
 #: keeps the phase near a minute on an H100 (it converged after 2816 steps,
 #: in 28-32 s, on an NVIDIA H100 80GB HBM3 at 700 W)
 BG_NCHAINS, BG_NSN, BG_SEG_STEPS, BG_MAX_STEPS = 256, 1048, 64, 150 * 64
+#: phase 8 (the astro configuration): chains and 16-step segments
+ASTRO_NCHAINS, ASTRO_SEGMENTS = 32, 4
 MUK2 = 2.7255e6 ** 2
 F32, F64 = torch.float32, torch.float64
+#: CAMB at the Planck 2018 best fit, with tests/test_matterpower.py's 2.5%
+#: tolerance (:22-26, :40-51): sigma8(0), and f sigma8 at the DR12 redshifts
+CAMB_SIGMA8, CAMB_TOL = 0.8119545, 0.025
+CAMB_FSIGMA8 = {0.38: 0.4779339, 0.51: 0.4760216, 0.61: 0.4706936}
+#: float32 sigma8(z) and f sigma8(z) against float64, at the full 6144 steps
+SIGMA8_F32_TOL = 5e-3
+#: CMBPosterior's default matter-power redshifts
+Z_PK = (0.0, 0.2, 0.38, 0.51, 0.61, 1.0, 2.0)
+#: step counts tried in turn for holding K1 to its plain version on the
+#: matter grid: the first at which every lane of the float32 and float64
+#: kernels stays finite and bounded. An unstable RK4 lane grows without
+#: bound (the plain version in float64 on the CPU, 2048 steps: the k =
+#: 8/Mpc lane reaches |delta_m| ~ 3e17, where 3072 steps keep every lane
+#: below ~1e5); `MATTER_BOUNDED` bounds |delta_m| before the curvature
+#: normalisation
+MATTER_CMP_STEPS = (K1_CMP_STEPS, 3072, 4096, 6144)
+MATTER_BOUNDED = 1e8
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
@@ -79,12 +107,16 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                    "cosmomc_tpu/models/tensors.py:352"),
 }
 #: the kernels each main path must launch (phase 5 "runner" is the
-#: flagship under SamplingRun; phase 6 "background" launches none)
+#: flagship under SamplingRun; phase 6 "background" launches none; phase 7
+#: "flagship_mp" is the flagship with matter power, K1 twice a slow step;
+#: phase 8 "astro" the LSS-only configuration)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
                 "runner": ("recfast", "boltzmann", "los", "lensing"),
-                "background": ()}
+                "background": (),
+                "flagship_mp": ("recfast", "boltzmann", "los", "lensing"),
+                "astro": ("recfast", "boltzmann")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -281,7 +313,38 @@ def start_points(post, rng, dtype):
     P0 += 0.3 * sig * rng.standard_normal(P0.shape)
     lo = np.array([p.min for p in post.space.varying])
     hi = np.array([p.max for p in post.space.varying])
-    return torch.as_tensor(np.clip(P0, lo, hi), dtype=dtype, device="cuda")
+    return torch.as_tensor(np.clip(P0, lo, hi), dtype=dtype, device=post.device)
+
+
+def k1_ops(qt, nk):
+    """FP32 operations of one K1 solve on the stage table qt (C, S, 3, NQ)
+    for nk wavenumbers, by OPS["boltzmann"]: 5 RHS a step, 4 where the
+    step's first row repeats the row before."""
+    per_rhs, per_step = OPS["boltzmann"]
+    repeats = (qt[:, 1:, 0] == qt[:, :-1, 2]).all(-1).sum(-1)
+    return int(((5 * qt.shape[1] - repeats) * per_rhs
+                + qt.shape[1] * per_step).sum()) * nk
+
+
+def k1_against_plain(name, q, k, rnu):
+    """K1 against its plain version on the float32 stage table q: float64
+    (the table upcast; that one plain run is also the float32 reference)
+    and float32 (kernel timed over 3 launches, plain once). Returns the
+    float32 |kernel - plain| maximum, both times and the float32 inputs and
+    kernel output."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    q32, k32, rnu32 = q.float(), k.float(), rnu.float()
+    up = (q32.double(), k32.double(), rnu32.double(), mpert.RSA_KTAU)
+    o_r = mpert._evolve_plain(*up)
+    check_f64(name, mpert._evolve_cuda(*up), o_r)
+    mpert._evolve_cuda(q32, k32, rnu32, mpert.RSA_KTAU)
+    ms, o_k = timed(lambda: mpert._evolve_cuda(q32, k32, rnu32,
+                                               mpert.RSA_KTAU), reps=3)
+    plain_ms, o_p = timed(lambda: mpert._evolve_plain(q32, k32, rnu32,
+                                                      mpert.RSA_KTAU))
+    err = max(check_f32(f"{name}.{n}", o_k[i], o_p[i], o_r[i], 1e-3)
+              for i, n in enumerate(mpert.PLANES))
+    return err, ms, plain_ms, (q32, k32, rnu32, o_k)
 
 
 def phase2(dev, results):
@@ -316,15 +379,16 @@ def phase2(dev, results):
     Nnow = mrec.const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
     zt64 = mrec._z_tables(bg, mrec.z_grid(mrec.N_Z, dev, F64), fHe,
                           Nnow).contiguous()
+    # one plain float64 run, on the float32 tables upcast, serves the
+    # float64 check and the float32 reference
     zt32, f32 = zt64.float(), fHe.float()
-    k64 = mrec._scan_cuda(zt64, fHe)
-    p64 = mrec._scan_plain(zt64, fHe)
-    for a, b, n in zip(k64, p64, ("xe", "tm")):
+    r64 = mrec._scan_plain(zt32.double(), f32.double())
+    for a, b, n in zip(mrec._scan_cuda(zt32.double(), f32.double()), r64,
+                       ("xe", "tm")):
         check_f64("recfast." + n, a, b)
     mrec._scan_cuda(zt32, f32)
     ms, k32 = timed(lambda: mrec._scan_cuda(zt32, f32), reps=10)
     plain_ms, p32 = timed(lambda: mrec._scan_plain(zt32, f32))
-    r64 = mrec._scan_plain(zt32.double(), f32.double())
     err = max(check_f32("recfast." + n, a, b, c, 1e-4)
               for a, b, c, n in zip(k32, p32, r64, ("xe", "tm")))
     C, _, N = zt32.shape
@@ -349,31 +413,12 @@ def phase2(dev, results):
     k = torch.as_tensor(kgrid, dtype=F64, device=dev)
     log(f"K1 boltzmann: 8 chains x {len(kgrid)} k; compare at {K1_CMP_STEPS} steps")
     tf1, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=K1_CMP_STEPS)
-    q1 = mpert._stage_tables(bg, tf1)
     rnu = mpert._r_nu(bg).contiguous()
-    check_f64("boltzmann", mpert._evolve_cuda(q1, k, rnu, mpert.RSA_KTAU),
-              mpert._evolve_plain(q1, k, rnu, mpert.RSA_KTAU))
-    q32, k32_, rnu32 = q1.float(), k.float(), rnu.float()
-    mpert._evolve_cuda(q32, k32_, rnu32, mpert.RSA_KTAU)
-    ms, o_k = timed(lambda: mpert._evolve_cuda(q32, k32_, rnu32,
-                                               mpert.RSA_KTAU), reps=3)
-    plain_ms, o_p = timed(lambda: mpert._evolve_plain(q32, k32_, rnu32,
-                                                      mpert.RSA_KTAU))
-    o_r = mpert._evolve_plain(q32.double(), k32_.double(), rnu32.double(),
-                              mpert.RSA_KTAU)
-    err = max(check_f32("boltzmann." + n, o_k[i], o_p[i], o_r[i], 1e-3)
-              for i, n in enumerate(mpert.PLANES))
+    err, ms, plain_ms, (q32, k32_, rnu32, o_k) = k1_against_plain(
+        "boltzmann", mpert._stage_tables(bg, tf1), k, rnu)
     log(f"  boltzmann@{K1_CMP_STEPS} kernel {ms:.2f} ms, plain {plain_ms:.1f} ms")
-    C, S = q32.shape[0], q32.shape[1]
-    per_rhs, per_step = OPS["boltzmann"]
-
-    def k1_ops(qt):
-        """FP32 operations of one solve: 5 RHS a step, 4 where the step's
-        first row repeats the row before."""
-        repeats = (qt[:, 1:, 0] == qt[:, :-1, 2]).all(-1).sum(-1)
-        return int(((5 * qt.shape[1] - repeats) * per_rhs
-                    + qt.shape[1] * per_step).sum()) * k.shape[0]
-    k1_bound = bound({"fp32": k1_ops(q32)}, nbytes(q32, k32_, rnu32, o_k))
+    k1_bound = bound({"fp32": k1_ops(q32, k.shape[0])},
+                     nbytes(q32, k32_, rnu32, o_k))
     q1l, k1l, r1l = q32[:1].contiguous(), k32_[-1:].contiguous(), rnu32[:1].contiguous()
     mpert._evolve_cuda(q1l, k1l, r1l, mpert.RSA_KTAU)
     serial_ms, _ = timed(lambda: mpert._evolve_cuda(q1l, k1l, r1l, mpert.RSA_KTAU), 3)
@@ -386,7 +431,7 @@ def phase2(dev, results):
         mpert._evolve_cuda(qd, kd, rd, mpert.RSA_KTAU)
         ms_full[dt], _ = timed(lambda: mpert._evolve_cuda(qd, kd, rd,
                                                           mpert.RSA_KTAU), 5)
-    full_bound = bound({"fp32": k1_ops(q.float())}, 0)["bound_ms"]
+    full_bound = bound({"fp32": k1_ops(q.float(), k.shape[0])}, 0)["bound_ms"]
     log(f"  boltzmann@8192 kernel f32 {ms_full[F32]:.2f} ms (bound "
         f"{full_bound:.3f} ms), f64 {ms_full[F64]:.2f} ms")
     results["boltzmann"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -609,6 +654,112 @@ def phase2(dev, results):
         f"{r['bound_ms_whole_lattice']:.4f} ms")
 
 
+def phase2_matter(dev, results):
+    """K1 on the matter grid (matter_k_grid(): 216 k to 8/Mpc), one chain
+    at the best fit: against its plain version at the first bounded step
+    count of MATTER_CMP_STEPS, timed and bounded at that count and at the
+    6144 steps of compute_matter_transfers, and float32 against float64
+    through compute_matter_transfers / matter_power_from_transfers at 6144
+    steps (every lane finite; sigma8(z), f sigma8(z) within 0.5%)."""
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+    from cosmomc_tpu_torch.models.primordial import PrimordialParams
+    from cosmomc_tpu_torch.models.recfast import compute_thermo
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+
+    par = ThetaParameterization()
+    space = par.default_space()
+    full = np.array([[BESTFIT.get(p.name, p.center) for p in space.params]])
+    tab = synthetic_bbn_table()
+    kgrid = mpw.matter_k_grid()
+    kmax = float(kgrid[-1])
+
+    def inputs(dt):
+        P = torch.as_tensor(full, dtype=dt, device=dev)
+        bg = par.to_background(P)
+        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, tab.to(dev, dt))
+        return (bg, yhe, compute_thermo(bg, yhe),
+                zre_from_tau(bg, P[:, space.index("tau")], yhe))
+    bg, yhe, th, zre = inputs(F64)
+    k = torch.as_tensor(kgrid, dtype=F64, device=dev)
+    rnu = mpert._r_nu(bg).contiguous()
+    nk = len(kgrid)
+    log(f"K1 boltzmann on the matter grid: 1 chain x {nk} k to {kmax:.4g}/Mpc")
+    i_dm = mpert.PLANES.index("dm")
+    for n in MATTER_CMP_STEPS:
+        tf_n, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=n, kmax=kmax)
+        q = mpert._stage_tables(bg, tf_n)
+        big = {}
+        for dt in (F32, F64):
+            o = mpert._evolve_cuda(q.to(dt), k.to(dt), rnu.to(dt), mpert.RSA_KTAU)
+            big[dt] = (float(o[i_dm].abs().max()) if bool(torch.isfinite(o).all())
+                       else math.inf)
+        log(f"  {n} steps: max |delta_m| (before normalisation) float32 "
+            f"{big[F32]:.4g}, float64 {big[F64]:.4g}")
+        if max(big.values()) < MATTER_BOUNDED:
+            break
+    else:
+        require(False, "K1 bounded on the matter grid at some step count")
+    log(f"  held to its plain version at {n} steps")
+    err, ms, plain_ms, (q32, k32, rnu32, o_k) = k1_against_plain(
+        "boltzmann.matter", q, k, rnu)
+    cmp_bound = bound({"fp32": k1_ops(q32, nk)}, nbytes(q32, k32, rnu32, o_k))
+    # at the 6144 steps compute_matter_transfers runs
+    tf, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=6144, kmax=kmax)
+    q = mpert._stage_tables(bg, tf)
+    ms_full = {}
+    for dt in (F32, F64):
+        qd, kd, rd = q.to(dt), k.to(dt), rnu.to(dt)
+        mpert._evolve_cuda(qd, kd, rd, mpert.RSA_KTAU)
+        ms_full[dt], out = timed(lambda: mpert._evolve_cuda(qd, kd, rd,
+                                                            mpert.RSA_KTAU), 5)
+        if dt == F32:
+            full_bound = bound({"fp32": k1_ops(qd, nk)}, nbytes(qd, kd, rd, out))
+    # float32 against float64 through the matter-power path, 6144 steps
+    sig, mem = {}, {}
+    for dt in (F32, F64):
+        bg_d, yhe_d, th_d, zre_d = inputs(dt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mt = mpw.compute_matter_transfers(bg_d, th_d, zre_d, yhe_d, Z_PK)
+        torch.cuda.synchronize()
+        mem[dt] = torch.cuda.max_memory_allocated() - base
+        for f in ("delta_m_z", "weyl_z", "v_z"):
+            require(bool(torch.isfinite(getattr(mt, f)).all()),
+                    f"matter grid {f} finite in every lane ({str(dt)[6:]})")
+        one = bg_d.H0.new_ones(1)
+        pp = PrimordialParams.make(logA=one * BESTFIT["logA"],
+                                   ns=one * BESTFIT["ns"])
+        mp = mpw.matter_power_from_transfers(bg_d, pp, mt)
+        sig[dt] = (mp.sigma8_z[0].double(), mp.fsigma8_z[0].double())
+    e8 = float((sig[F32][0] / sig[F64][0] - 1).abs().max())
+    efs8 = float((sig[F32][1] / sig[F64][1] - 1).abs().max())
+    log(f"  sigma8(z) at z {Z_PK}: float32 "
+        + " ".join(f"{v:.6f}" for v in sig[F32][0].tolist()) + "; float64 "
+        + " ".join(f"{v:.6f}" for v in sig[F64][0].tolist()))
+    log(f"  f sigma8(z): float32 " + " ".join(f"{v:.6f}" for v in sig[F32][1].tolist())
+        + "; float64 " + " ".join(f"{v:.6f}" for v in sig[F64][1].tolist()))
+    log(f"  float32 vs float64 at 6144 steps: sigma8 max rel {e8:.3e}, "
+        f"f sigma8 max rel {efs8:.3e} (tol {SIGMA8_F32_TOL})")
+    require(e8 < SIGMA8_F32_TOL and efs8 < SIGMA8_F32_TOL,
+            "float32 sigma8 and f sigma8 within 0.5% of float64")
+    log(f"  boltzmann.matter@{n} kernel {ms:.2f} ms (bound {cmp_bound['bound_ms']:.4f} ms), "
+        f"plain {plain_ms:.1f} ms; @6144 kernel f32 {ms_full[F32]:.2f} ms (bound "
+        f"{full_bound['bound_ms']:.4f} ms, {full_bound['bound_by']}), f64 "
+        f"{ms_full[F64]:.2f} ms; compute_matter_transfers peak memory a chain "
+        f"{mem[F32] / 2**20:.1f} MiB (float32), {mem[F64] / 2**20:.1f} MiB (float64)")
+    results["boltzmann"]["matter_grid"] = dict(
+        nk=nk, kmax=kmax, compare_steps=n, max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=cmp_bound["bound_ms"],
+        bound_by=cmp_bound["bound_by"], ms_6144_steps=ms_full[F32],
+        ms_6144_steps_f64=ms_full[F64], bound_ms_6144_steps=full_bound["bound_ms"],
+        max_memory_allocated_per_chain={"float32": mem[F32], "float64": mem[F64]},
+        sigma8_f32_vs_f64=e8, fsigma8_f32_vs_f64=efs8)
+
+
 def write_theory_cl(path, cls):
     """CosmoMC theory_cl columns: L TT TE EE BB PP from a (4, 4, lmax+1)
     stack (l(l+1)C_l/2pi muK^2)."""
@@ -637,6 +788,26 @@ def tensor_anchors(post, full, slow, dtype):
     require(4e-3 < bb[ipk] < 1.1e-2, "tensor BB bump height")
     require(35.0 < tt[ls == 10][0] < 65.0, "tensor TT plateau at l=10")
     return torch.as_tensor(bb)
+
+
+def instrument_stages(post):
+    """Wrap post.stage_slow/semi/fast to count their calls and sum their
+    wall time (synchronised); returns the two dicts they fill."""
+    stage_s = {"slow": 0.0, "semi": 0.0, "fast": 0.0}
+    calls = {"slow": 0, "semi": 0, "fast": 0}
+    for name in stage_s:
+        real = getattr(post, f"stage_{name}")
+
+        def wrapped(*a, _real=real, _name=name):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = _real(*a)
+            torch.cuda.synchronize()
+            stage_s[_name] += time.time() - t0
+            calls[_name] += 1
+            return out
+        setattr(post, f"stage_{name}", wrapped)
+    return stage_s, calls
 
 
 def drive_path(dev, tmp, label, cfg):
@@ -736,20 +907,7 @@ def drive_path(dev, tmp, label, cfg):
                 and sampler.block_class[r_block[0]] == 1
                 and bool((step_classes == 1).any()),
                 "r sampled in the semi block, with semi steps in the segment")
-    stage_s = {"slow": 0.0, "semi": 0.0, "fast": 0.0}
-    calls = {"slow": 0, "semi": 0, "fast": 0}
-    for name in stage_s:
-        real = getattr(post, f"stage_{name}")
-
-        def wrapped(*a, _real=real, _name=name):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out = _real(*a)
-            torch.cuda.synchronize()
-            stage_s[_name] += time.time() - t0
-            calls[_name] += 1
-            return out
-        setattr(post, f"stage_{name}", wrapped)
+    stage_s, calls = instrument_stages(post)
 
     kernels.reset_launches()
     t0 = time.time()
@@ -922,8 +1080,17 @@ def drive_runner(dev, tmp, fid):
     require(chains["samples"].shape[1] == post.space.num_varying
             + post.num_derived, "chain file columns")
 
-    # resume a second run from the checkpoint, with a fresh sampler
-    s2 = make_sampler(1)
+    check_resume(run1, s1, make_sampler(1), cfg, P0, root)
+    return launches, per_segment
+
+
+def check_resume(run1, s1, s2, cfg, P0, root):
+    """A second run with the fresh sampler s2 resumes from run1's
+    checkpoint: its state, its caches (rebuilt by state_from_arrays), the
+    proposal covariance and the generator must equal run1's bit for bit,
+    and one more segment on one schedule must take the same steps in
+    both."""
+    from cosmomc_tpu_torch.sampling.runner import SamplingRun
     run2 = SamplingRun(s2, cfg, P0, chain_root=root, feedback=0)
     require(run2.resume(), "resume finds the checkpoint")
     run2.writer.close(flush_pending=False)
@@ -955,7 +1122,6 @@ def drive_runner(dev, tmp, fid):
             "the next segment after resume equals the uninterrupted one")
     log("resume: state, caches, covariance and generator restored bit for "
         f"bit; the next segment takes the same {int(o1.accept.sum())} accepts")
-    return launches, per_segment
 
 
 def drive_background(dev, tmp):
@@ -1068,6 +1234,264 @@ def drive_background(dev, tmp):
     return launches
 
 
+def drive_matter_power(dev, tmp, fid):
+    """Phase 7: the flagship with matter power (CMBPosterior(matter_power=
+    True), full width, float32, 8 chains): the slow stage's time with and
+    without matter power, sigma8(0) and f sigma8 at 0.38, 0.51, 0.61 at the
+    best fit against CAMB (2.5%), then plik_lite + a synthetic DR12 set with
+    f_sigma8 rows (written from the port's float64 theory at the best fit)
+    + the tau prior under StagedMetropolisSampler: init and one 16-step
+    segment with one slow step, which must launch K4 once, K1 twice and K2a
+    once a slow step and K3 once a semi step. Returns the launch counts."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.likelihoods.synthetic import write_dr12_bao
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    par = ThetaParameterization()
+    table = synthetic_bbn_table()
+    sync = torch.cuda.synchronize
+
+    def posterior(likes, dtype, matter_power=True):
+        space = par.default_space()
+        space.get("tau").prior_mean = 0.0544
+        space.get("tau").prior_std = 0.0073
+        return CMBPosterior(par, space, likes, bbn_table=table, device=dev,
+                            dtype=dtype, matter_power=matter_power)
+
+    def at_bestfit(post, dtype, n=1):
+        return torch.as_tensor(np.tile(bestfit_vector(post), (n, 1)),
+                               dtype=dtype, device=dev)
+
+    # 1. the slow stage with and without matter power, 8 chains, float32
+    slow_s, mem = {}, {}
+    for on in (False, True):
+        post = posterior(LikelihoodList(), F32, on)
+        full = post.embed_full(at_bestfit(post, F32, NCHAINS))
+        post.stage_slow(full)
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.time()
+        for _ in range(2):
+            post.stage_slow(full)
+        sync()
+        slow_s[on] = (time.time() - t0) / 2
+        mem[on] = (torch.cuda.max_memory_allocated() - base) / NCHAINS
+    log(f"phase 7: slow stage, {NCHAINS} chains, float32: {slow_s[False]:.3f} s "
+        f"a call without matter power, {slow_s[True]:.3f} s with it; peak "
+        f"memory a chain {mem[False] / 2**20:.1f} MiB, "
+        f"{mem[True] / 2**20:.1f} MiB")
+
+    # 2. sigma8 and f sigma8 at the best fit against CAMB
+    s8 = {}
+    for dt in (F32, F64):
+        post = posterior(LikelihoodList(), dt)
+        full = post.embed_full(at_bestfit(post, dt, NCHAINS if dt == F32 else 1))
+        slow = post.stage_slow(full)
+        theory = post.assemble_theory(slow, post.stage_semi(full, slow))
+        require(bool(torch.isfinite(theory.sigma8_z).all()
+                     and torch.isfinite(theory.fsigma8_z).all()),
+                f"finite sigma8 tables ({str(dt)[6:]})")
+        s8[dt] = [float(theory.sigma8_z[0, 0])] + [
+            float(theory.fsigma8_at(z)[0]) for z in CAMB_FSIGMA8]
+        if dt == F64:
+            theory64 = theory
+    ref = [CAMB_SIGMA8] + list(CAMB_FSIGMA8.values())
+    names = ["sigma8(0)"] + [f"fsigma8({z})" for z in CAMB_FSIGMA8]
+    for dt in (F32, F64):
+        log(f"  {str(dt)[6:]}: " + ", ".join(
+            f"{n} {v:.6f} ({v / r - 1:+.4%} vs CAMB {r})"
+            for n, v, r in zip(names, s8[dt], ref)))
+    for v, r, n in zip(s8[F32], ref, names):
+        require(abs(v / r - 1) < CAMB_TOL, f"float32 {n} within 2.5% of CAMB")
+    require(max(abs(a / b - 1) for a, b in zip(s8[F32], s8[F64]))
+            < SIGMA8_F32_TOL, "float32 sigma8 and f sigma8 within 0.5% of float64")
+
+    # 3. plik_lite + DR12 with f_sigma8 rows + tau prior, one staged segment
+    d = os.path.join(tmp, "dr12_fs8")
+    bao0 = BAOLikelihood(write_dr12_bao(d, fsigma8=True), device=dev, dtype=F64)
+    ds = write_dr12_bao(d, bao0.theory_vector(theory64)[0].cpu().numpy(),
+                        fsigma8=True)
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(fid["ds"], name="plik_lite", device=dev,
+                                 dtype=F32))
+    likes.add(BAOLikelihood(ds, device=dev, dtype=F32))
+    post = posterior(likes, F32)
+    mll_bf, der_bf = post.logpost()(at_bestfit(post, F32))
+    dn = [n for n, _ in post.derived_names]
+    mp_names = ["sigma8", "S8", "fsigma8z038", "fsigma8z051", "fsigma8z061"]
+    log(f"  -logL at the best fit (plik_lite + DR12 with f_sigma8 + tau "
+        f"prior) {float(mll_bf[0]):.6f}; derived " + ", ".join(
+            f"{n}={float(der_bf[0, dn.index(n)]):.6f}" for n in mp_names))
+    require(float(mll_bf[0]) < 1.0, "fiducial + f_sigma8 BAO -logL near 0")
+    prop = post.make_proposal(oversample_fast=4)
+    w = np.array([p.propose_width for p in post.space.varying])
+    prop.set_covariance(np.diag(w ** 2))
+    sampler = StagedMetropolisSampler(prop, post, seed=0)
+    expensive = [b for b, c in enumerate(sampler.block_class) if c == 0]
+    rng = np.random.default_rng(0)
+    P0 = start_points(post, rng, F32)
+    sched = prop.make_schedule(SEG_STEPS, rng, slow_every=SEG_STEPS,
+                               expensive_blocks=expensive)
+    stage_s, calls = instrument_stages(post)
+    kernels.reset_launches()
+    t0 = time.time()
+    state = sampler.init_state(P0)
+    sync()
+    t_init = time.time() - t0
+    at_init = dict(kernels.launches)
+    t0 = time.time()
+    state, out = sampler.run_segment(state, sched)
+    sync()
+    t_seg = time.time() - t0
+    launches = dict(kernels.launches)
+    per_segment = {n: launches[n] - at_init[n] for n in launches}
+    log(f"  init {t_init:.2f} s, segment {t_seg:.2f} s "
+        f"({SEG_STEPS * NCHAINS / t_seg:.2f} chain steps/s); stage wall time: "
+        + ", ".join(f"{n} {stage_s[n]:.3f} s / {calls[n]} calls" for n in stage_s))
+    log("  launches in the main-path run: " + json.dumps(launches)
+        + "; in the segment alone: " + json.dumps(per_segment))
+    want = {"recfast": calls["slow"], "boltzmann": 2 * calls["slow"],
+            "los": calls["slow"], "lensing": calls["semi"]}
+    for n in KERNELS:
+        require(launches[n] == want.get(n, 0),
+                f"{n} launched {want.get(n, 0)} times on the flagship_mp path")
+    mll = state.mloglike
+    require(bool(torch.isfinite(mll).all()) and bool((mll < 1e29).all()),
+            "finite -logL with matter power")
+    idx = [dn.index(n) for n in mp_names]
+    require(bool(torch.isfinite(out.derived[..., idx]).all()),
+            "sigma8, S8 and fsigma8z* finite in the segment's derived values")
+    require(not bool(out.error.any()), "no error points")
+    return launches, per_segment
+
+
+def drive_astro(dev, tmp):
+    """Phase 8: the astro LSS-only configuration (AstroParameterization,
+    CMBPosterior(use_cmb=False, matter_power=True), float32): a synthetic
+    LRG DR4-format P(k) set (no Q model), a WiggleZ-format bin at z = 0.6
+    with the GiggleZ correction and a DR12 set with f_sigma8 rows, each
+    written from the port's float64 theory at the parameterization's
+    centres; -logL there is the LRG set's 1/2 ln(P C^-1 P) alone.
+    ASTRO_NCHAINS chains under SamplingRun, ASTRO_SEGMENTS segments of 16
+    steps, a checkpoint every 2, then a resume that must restore the state
+    and the caches (matter transfers and P(k, z) tables included) bit for
+    bit. Only K4 and K1 may launch. Returns the launch counts."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.mpk import MPKLikelihood, WiggleZLikelihood
+    from cosmomc_tpu_torch.models import background as bgm
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import AstroParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.sampling.runner import RunConfig, SamplingRun
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    par = AstroParameterization()
+    table = synthetic_bbn_table()
+    sync = torch.cuda.synchronize
+
+    def posterior(likes, dtype):
+        return CMBPosterior(par, par.default_space(), likes, bbn_table=table,
+                            use_cmb=False, matter_power=True, device=dev,
+                            dtype=dtype)
+    p64 = posterior(LikelihoodList(), F64)
+    truth = np.array([p.center for p in p64.space.varying])
+    full = p64.embed_full(torch.as_tensor(truth[None], dtype=F64, device=dev))
+    slow = p64.stage_slow(full)
+    th = p64.assemble_theory(slow, p64.stage_semi(full, slow))
+    dv_fid = lambda z: float(th.bg.H0[0] * bgm.bao_d_v(th.bf, z)[0])
+    d = os.path.join(tmp, "astro")
+    lrg_layout, lrg_keys = sd.lrg_layout(0), dict(DV_fid=dv_fid(sd.LRG_Z),
+                                                   Q_marge="F")
+    lrg0 = MPKLikelihood(sd.write_lrg_mpk(d, lrg_layout, settings=lrg_keys),
+                         device=dev)
+    lrg = sd.write_lrg_mpk(d, lrg_layout, sd.mpk_bandpowers(lrg0, th), lrg_keys)
+    wz_layout = sd.wigglez_layout(0)
+    wz0 = WiggleZLikelihood(sd.write_wigglez(d, wz_layout, 0.6,
+                                             DV_fid=dv_fid(0.6)), device=dev)
+    wz = sd.write_wigglez(d, wz_layout, 0.6, sd.mpk_bandpowers(wz0, th),
+                          dv_fid(0.6))
+    bao0 = BAOLikelihood(sd.write_dr12_bao(d, fsigma8=True), device=dev,
+                         dtype=F64)
+    dr12 = sd.write_dr12_bao(d, bao0.theory_vector(th)[0].cpu().numpy(),
+                             fsigma8=True)
+    likes = LikelihoodList()
+    likes.add(BAOLikelihood(dr12, device=dev, dtype=F32))
+    likes.add(MPKLikelihood(lrg, device=dev, dtype=F32))
+    likes.add(WiggleZLikelihood(wz, device=dev, dtype=F32))
+    post = posterior(likes, F32)
+    names = [p.name for p in post.space.varying]
+    require(names == ["omegam", "omegab", "H0", "logA", "ns"],
+            "astro sampled names")
+    lrg_like = likes.likes[1]
+    norm = 0.5 * math.log(lrg_like.P_data @ lrg_like.invcov @ lrg_like.P_data)
+    mll = float(post.logpost()(torch.as_tensor(truth[None], dtype=F32,
+                                               device=dev))[0][0])
+    log(f"phase 8: astro -logL at the truth {mll:.6f}; the LRG set's "
+        f"1/2 ln(P C^-1 P) {norm:.6f}; sigma8(0) {float(th.sigma8_z[0, 0]):.6f} "
+        f"(float64)")
+    require(abs(mll - norm) < 1.0, "astro -logL at the truth near its "
+            "normalisation alone")
+
+    w = np.array([p.propose_width for p in post.space.varying])
+
+    def make_sampler(seed):
+        prop = post.make_proposal()
+        prop.set_covariance(np.diag(w ** 2))
+        return StagedMetropolisSampler(prop, post, seed=seed)
+    cfg = RunConfig(nchains=ASTRO_NCHAINS, segment_steps=SEG_STEPS,
+                    max_steps=ASTRO_SEGMENTS * SEG_STEPS,
+                    burn_accepts_per_block=1, stats_thin=1, r_stop=0.0,
+                    max_r_propose_update=np.inf, checkpoint_freq_segments=2,
+                    seed=0)
+    lo = np.array([p.min for p in post.space.varying])
+    hi = np.array([p.max for p in post.space.varying])
+    P0 = np.clip(truth + 0.3 * w * np.random.default_rng(0).standard_normal(
+        (ASTRO_NCHAINS, len(w))), lo, hi)
+    root = os.path.join(tmp, "chains", "astro")
+    s1 = make_sampler(0)
+    sync()
+    kernels.reset_launches()
+    t0 = time.time()
+    run1 = SamplingRun(s1, cfg, P0, chain_root=root, feedback=0,
+                       paramnames=post.paramnames(), space=post.space)
+    sync()
+    t_init = time.time() - t0
+    at_init = dict(kernels.launches)
+    res = run1.run()
+    sync()
+    launches = dict(kernels.launches)
+    per_segment = {n: (launches[n] - at_init[n]) / ASTRO_SEGMENTS
+                   for n in launches}
+    log(f"astro: init {t_init:.3f} s; {res.steps} steps x {ASTRO_NCHAINS} "
+        f"chains in {res.wall_s:.3f} s ({res.wall_s / ASTRO_SEGMENTS:.3f} s a "
+        f"segment, {res.steps * ASTRO_NCHAINS / res.wall_s:.1f} chain steps/s); "
+        f"burn-in at {res.burned_in_at}; acceptance {res.accept_rate:.3f}; "
+        f"slow/semi/fast steps {run1.class_steps.tolist()}")
+    log("launches in the astro run: " + json.dumps(launches)
+        + "; per segment: " + json.dumps(per_segment))
+    for n in KERNELS:
+        if n in PATH_KERNELS["astro"]:
+            require(launches[n] > 0, f"{n} launched on the astro path")
+        else:
+            require(launches[n] == 0, f"{n} not launched on the astro path")
+    mll = run1.state.mloglike
+    require(bool(torch.isfinite(mll).all()) and bool((mll < 1e29).all()),
+            "finite astro -logL")
+    require(res.steps == cfg.max_steps, "astro ran its segments")
+    check_resume(run1, s1, make_sampler(1), cfg, P0, root)
+    return launches, per_segment
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1112,6 +1536,7 @@ def main() -> int:
     results = {}
     t0 = time.time()
     phase2(dev, results)
+    phase2_matter(dev, results)
     log(f"phase 2 done in {time.time() - t0:.1f} s")
     launches, segment = {}, {}
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE)) as tmp:
@@ -1133,6 +1558,13 @@ def main() -> int:
         launches["background"] = drive_background(dev, tmp)
         segment["background"] = dict(launches["background"])
         log(f"phase 6 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["flagship_mp"], segment["flagship_mp"] = drive_matter_power(
+            dev, tmp, flagship_fid)
+        log(f"phase 7 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["astro"], segment["astro"] = drive_astro(dev, tmp)
+        log(f"phase 8 done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -16,6 +16,7 @@ from cosmomc_tpu_torch.models.background import (BG_FIELDS, BackgroundFunctions,
                                                  BackgroundParams)
 from cosmomc_tpu_torch.models.bbn import BBNTable
 from cosmomc_tpu_torch.models.cls import ClTransferCache
+from cosmomc_tpu_torch.models.matterpower import MatterPower, MatterTransfers
 from cosmomc_tpu_torch.models.perturbations import (PerturbationOutput,
                                                     ThermoFuncs)
 from cosmomc_tpu_torch.models.recfast import ThermoHistory
@@ -76,10 +77,15 @@ def perturbation_output(po, device=None, dtype=torch.float64
         weyl_z=b(po.weyl_z, 2), aH_z=b(po.aH_z, 1))
 
 
+def _shared(x, device, dtype) -> torch.Tensor:
+    """A grid shared by all chains, without a chains axis if it has one."""
+    a = np.asarray(x)
+    return tensor(a if a.ndim == 1 else a[0], device, dtype)
+
+
 def cl_transfer_cache(clt, device=None, dtype=torch.float64) -> ClTransferCache:
     """Shared grids (ls, kf, wk) lose a chains axis if they carry one."""
-    shared = lambda x: tensor(np.asarray(x) if np.asarray(x).ndim == 1
-                              else np.asarray(x)[0], device, dtype)
+    shared = lambda x: _shared(x, device, dtype)
     return ClTransferCache(shared(clt.ls), shared(clt.kf), shared(clt.wk),
                            *[_batched(getattr(clt, f), 2, device, dtype)
                              for f in ("dT", "dE", "dP")])
@@ -98,19 +104,33 @@ def tensor_output(to, device=None, dtype=torch.float64) -> TensorOutput:
 def tensor_transfer_cache(tc, device=None, dtype=torch.float64
                           ) -> TensorTransferCache:
     """Shared grids (ls, kf, wk) lose a chains axis if they carry one."""
-    shared = lambda x: tensor(np.asarray(x) if np.asarray(x).ndim == 1
-                              else np.asarray(x)[0], device, dtype)
+    shared = lambda x: _shared(x, device, dtype)
     return TensorTransferCache(shared(tc.ls), shared(tc.kf), shared(tc.wk),
                                *[_batched(getattr(tc, f), 2, device, dtype)
                                  for f in ("dT", "dE", "dB")])
 
 
+def matter_transfers(mt, device=None, dtype=torch.float64) -> MatterTransfers:
+    """JAX MatterTransfers ((nz, nk) tables) -> the port's (C, nz, nk)."""
+    b = lambda x, nd: _batched(x, nd, device, dtype)
+    return MatterTransfers(_shared(mt.k, device, dtype),
+                           _shared(mt.z, device, dtype), b(mt.delta_m_z, 2),
+                           b(mt.weyl_z, 2), b(mt.v_z, 2), b(mt.h, 0))
+
+
+def matter_power(mp, device=None, dtype=torch.float64) -> MatterPower:
+    """JAX MatterPower ((nz, nk) tables, (nz,) sigma8) -> the port's."""
+    b = lambda x, nd: _batched(x, nd, device, dtype)
+    return MatterPower(_shared(mp.k, device, dtype), _shared(mp.z, device, dtype),
+                       b(mp.lnP, 2), b(mp.lnP_nl, 2), b(mp.lnP_weyl, 2),
+                       b(mp.sigma8_z, 1), b(mp.fsigma8_z, 1), b(mp.h, 0))
+
+
 def background_functions(bf, device=None, dtype=torch.float64
                          ) -> BackgroundFunctions:
-    lz = np.asarray(bf.lz_grid)
     return BackgroundFunctions(
         background_params(bf.bg, device, dtype),
-        tensor(lz if lz.ndim == 1 else lz[0], device, dtype),
+        _shared(bf.lz_grid, device, dtype),
         _batched(bf.chi_grid, 1, device, dtype),
         _batched(bf.curvature_k, 0, device, dtype),
         _batched(bf.dchi_grid, 1, device, dtype))
@@ -141,6 +161,8 @@ def _slow_cache(slow: dict, device, dtype) -> dict:
             out[k] = cl_transfer_cache(v, device, dtype)
         elif k == "tt_cache":
             out[k] = tensor_transfer_cache(v, device, dtype)
+        elif k == "mt":
+            out[k] = matter_transfers(v, device, dtype)
         else:
             out[k] = tensor(v, device, dtype)
     return out
@@ -148,8 +170,9 @@ def _slow_cache(slow: dict, device, dtype) -> dict:
 
 def staged_chain_state(st, device=None, dtype=torch.float64) -> StagedChainState:
     """A JAX StagedChainState (chains already batched) -> the port's."""
-    semi = {k: tensor(v, device, dtype) for k, v in st.semi.items()
-            if v is not None}
+    semi = {k: None if v is None else
+            matter_power(v, device, dtype) if k == "mp" else
+            tensor(v, device, dtype) for k, v in st.semi.items()}
     return StagedChainState(
         tensor(st.P, device, dtype), tensor(st.mloglike, device, dtype),
         tensor(st.derived, device, dtype),

@@ -11,8 +11,9 @@ and theory (BAO_LnLike, bao.f90:264-306): DV/rs, H(z)[km/s/Mpc] rs
 f sigma8(z) and the Eisenstein A(z); r_s is the drag sound horizon times
 the dataset's `rs_rescale`. Batched over chains: every candidate quantity
 is computed at every z for all chains, and each row's type picks its own
-with one gather built at load time. f_sigma8 rows raise until the matter
-power is ported.
+with one gather built at load time. f_sigma8 rows read the theory's
+f sigma8(z) table (a posterior with matter power), a background-only
+theory raises for them.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ from cosmomc_tpu_torch.params.space import Speed
 
 TYPES = ["Az", "DV_over_rs", "rs_over_DV", "DA_over_rs", "F_AP", "f_sigma8",
          "bao_Hz_rs", "bao_Hz_rs_103", "dilation", "DM_over_rs"]
-#: the types computed from the background, in the order of `_candidates`
+#: the types computed from the background, in the order of `_candidates`,
+#: then f_sigma8 (from the matter power)
 _BG_TYPES = ["DV_over_rs", "bao_Hz_rs", "bao_Hz_rs_103", "rs_over_DV",
              "DA_over_rs", "DM_over_rs", "F_AP", "Az"]
+_CANDIDATES = _BG_TYPES + ["f_sigma8"]
 C_KMS = const.c / 1e3
 
 
@@ -106,7 +109,7 @@ class BAOLikelihood(Likelihood):
         self._z, self._obs, self._icov = t(self.z), t(self.obs), t(icov)
         # row j takes candidate _pick[j]
         self._pick = torch.as_tensor(
-            [_BG_TYPES.index(x) if x in _BG_TYPES else 0 for x in types],
+            [_CANDIDATES.index(x) if x in _CANDIDATES else 0 for x in types],
             device=device)
 
     def _candidates(self, theory, rs: torch.Tensor) -> torch.Tensor:
@@ -130,10 +133,10 @@ class BAOLikelihood(Likelihood):
         """(C, nz) predictions matching self.types (bao.f90:278-300)."""
         if "dilation" in self.types:
             raise ValueError(f"{self.name}: dilation rows have no theory")
-        if "f_sigma8" in self.types:
-            theory.fsigma8_at(self._z)      # raises: no matter power yet
         rs = theory.rs_drag * self.rs_rescale
         q = self._candidates(theory, rs)
+        if "f_sigma8" in self.types:
+            q = torch.cat([q, theory.fsigma8_at(self._z)[:, None]], 1)
         return q.gather(1, self._pick.expand(q.shape[0], 1, -1))[:, 0]
 
     def log_like(self, theory, nuisance: torch.Tensor) -> torch.Tensor:

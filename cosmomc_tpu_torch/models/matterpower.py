@@ -1,27 +1,45 @@
-"""HALOFIT (Takahashi 2012) and the nonlinear lensing-source ratio.
+"""Matter power P(k, z), sigma8(z), f sigma8(z), sigma_R, and the HALOFIT
+(Takahashi 2012) nonlinear correction.
 
-Port of the halofit subset of cosmomc_tpu/models/matterpower.py
-(camb/halofit_ppf.f90 halofit_takahashi; cmbmain.f90 MakeNonlinearSources
-with NonLinear_Lens): the multiplier sqrt(P_NL/P_lin)(k, z) that the CMB
-pipeline applies to the lensing-potential source before the line-of-sight
-integral. Batched over chains: background fields are (C,), transfers
-(C, nz, nk). The sigma^2(R) = 1 scale is found by a fixed 48-step
-bisection in ln R on (C, nz) tensors, as the H0 and z_re bisections are.
-No kernel: the work is ~48 trapezoid sums over ~270 k per (chain, z).
+Port of cosmomc_tpu/models/matterpower.py (camb/modules.f90 Transfer
+module, camb/halofit_ppf.f90, source/CosmoTheory.f90 TCosmoTheoryPK),
+batched over chains: background fields are (C,), transfers and tables
+(C, nz, nk), sigma8(z) and f sigma8(z) (C, nz); the k and z grids are
+shared by every chain.
 
-Linear P(k,z), sigma8 and the matter-power tables (the rest of the JAX
-module) are not ported yet.
+  - `compute_matter_transfers` (slow stage): Boltzmann evolution (kernel
+    K1) on the wide matter k grid to 8/Mpc, from a recombination history
+    and reionization redshift computed once by the caller;
+  - `matter_power_from_transfers` (semi-slow stage): primordial power on
+    the cached transfers -> linear and halofit ln P, the Weyl power,
+    sigma8(z) and f sigma8(z) = sigma^2_vd / sigma_dd;
+  - `power_at`: bilinear in (ln k, z), log-linear past the table to
+    EXTRAP_KMAX; `sigma_r`: the tophat sigma(R);
+  - `lensing_nl_ratio`: sqrt(P_NL/P_lin)(k, z) on the CMB source k grid.
+
+No kernel of its own beyond K1: the sigma^2(R) = 1 scale of halofit is
+found by a fixed 48-step bisection in ln R on (C, nz) tensors, as the H0
+and z_re bisections are, and the rest is trapezoid sums over ~220 k.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from cosmomc_tpu_torch.models.background import BackgroundParams
-from cosmomc_tpu_torch.models.perturbations import grho_terms
+from cosmomc_tpu_torch.models.perturbations import (build_thermo_funcs,
+                                                    evolve_perturbations,
+                                                    grho_terms)
 from cosmomc_tpu_torch.models.primordial import PrimordialParams, scalar_power
+from cosmomc_tpu_torch.models.recfast import ThermoHistory
 from cosmomc_tpu_torch.utils.interp import trapezoid
+
+#: log-linear extrapolation above the computed kmax reaches this k (1/Mpc)
+#: (CosmoTheory.f90:20 extrap_kmax)
+EXTRAP_KMAX = 700.0
 
 #: redshift nodes for the CMB-lensing nonlinear scaling (dense at low z
 #: where the halofit boost grows; ratio -> 1 above z ~ 10)
@@ -37,6 +55,124 @@ def _power_from_transfer(pp: PrimordialParams, k: torch.Tensor,
     pr = pr.reshape(pr.shape[:1] + (1,) * (transfer.dim() - 2) + pr.shape[1:])
     return (2.0 * torch.pi ** 2) / k ** 3 * pr * transfer ** 2
 
+
+def matter_k_grid(kmax: float = 8.0, kmin: float = 1e-4,
+                  nk_log_lo: int = 40, nk_lin: int = 120,
+                  nk_log_hi: int = 56, k_lin_lo: float = 0.012,
+                  k_lin_hi: float = 0.35) -> np.ndarray:
+    """k grid (1/Mpc) for the matter transfers (host numpy): log through
+    horizon scales, linear through the BAO wiggles (~8 points a period),
+    log to kmax."""
+    lo = np.exp(np.linspace(np.log(kmin), np.log(k_lin_lo), nk_log_lo,
+                            endpoint=False))
+    mid = np.linspace(k_lin_lo, k_lin_hi, nk_lin, endpoint=False)
+    hi = np.exp(np.linspace(np.log(k_lin_hi), np.log(kmax), nk_log_hi))
+    return np.concatenate([lo, mid, hi])
+
+
+class MatterTransfers(NamedTuple):
+    """Primordial-power-independent matter transfers: the slow-stage cache
+    of `matter_power_from_transfers`. z ascending, k in 1/Mpc."""
+    k: torch.Tensor          # (nk,) shared
+    z: torch.Tensor          # (nz,) shared
+    delta_m_z: torch.Tensor  # (C, nz, nk) matter transfer per unit curvature
+    weyl_z: torch.Tensor     # (C, nz, nk)
+    v_z: torch.Tensor        # (C, nz, nk) velocity transfer d delta / d ln a
+    h: torch.Tensor          # (C,)
+
+
+class MatterPower(NamedTuple):
+    """P(k, z) tables: z ascending, k ascending (1/Mpc), P in Mpc^3."""
+    k: torch.Tensor          # (nk,) shared
+    z: torch.Tensor          # (nz,) shared
+    lnP: torch.Tensor        # (C, nz, nk) linear ln P_m
+    lnP_nl: torch.Tensor     # (C, nz, nk) halofit ln P_m
+    lnP_weyl: torch.Tensor   # (C, nz, nk) ln P of k^2 (phi + psi)/2
+    sigma8_z: torch.Tensor   # (C, nz)
+    fsigma8_z: torch.Tensor  # (C, nz) sigma^2_vd / sigma_dd at R = 8/h Mpc
+    h: torch.Tensor          # (C,)
+
+
+def _sigma_tophat(k: torch.Tensor, delta2: torch.Tensor,
+                  R: torch.Tensor) -> torch.Tensor:
+    """sigma^2(R) = int dln k Delta^2(k) W^2(kR) with the tophat window;
+    delta2 (..., nk), R broadcastable to delta2's leading axes."""
+    x = k * torch.as_tensor(R, dtype=delta2.dtype, device=delta2.device)[..., None]
+    # the stable small-x form of 3 j1(x)/x
+    w = torch.where(x < 1e-3, 1.0 - x ** 2 / 10.0,
+                    3.0 * (torch.sin(x) - x * torch.cos(x))
+                    / torch.clamp(x, min=1e-30) ** 3)
+    return trapezoid(delta2 * w ** 2, torch.log(k))
+
+
+def compute_matter_transfers(bg: BackgroundParams, th: ThermoHistory,
+                             zre: torch.Tensor, yhe: torch.Tensor,
+                             z_outputs: Sequence[float] = (0.0,),
+                             k: Optional[np.ndarray] = None,
+                             n_step: int = 6144, massive_nu: bool = False,
+                             de_perts: bool = False) -> MatterTransfers:
+    """Slow stage: Boltzmann evolution (K1) on the wide matter k grid, from
+    the recombination history `th` and reionization redshift `zre` the
+    caller computed once per slow step."""
+    zs = tuple(float(z) for z in z_outputs)
+    if list(zs) != sorted(zs):
+        raise ValueError("z_outputs must be ascending")
+    if k is None:
+        k = matter_k_grid()
+    tf, tau0 = build_thermo_funcs(bg, yhe, th, zre, n_step=n_step,
+                                  kmax=float(np.max(k)))
+    kt = torch.as_tensor(np.asarray(k), dtype=tf.tau.dtype, device=tf.tau.device)
+    po = evolve_perturbations(bg, tf, tau0, kt, zs, massive_nu=massive_nu,
+                              de_perts=de_perts)
+    v_z = po.ddelta_m_z / po.aH_z[:, :, None]
+    return MatterTransfers(po.k, torch.tensor(zs, dtype=po.k.dtype,
+                                              device=po.k.device),
+                           po.delta_m_z, po.weyl_z, v_z, bg.H0 / 100.0)
+
+
+def compute_matter_power(bg: BackgroundParams, pp: PrimordialParams,
+                         th: ThermoHistory, zre: torch.Tensor,
+                         yhe: torch.Tensor,
+                         z_outputs: Sequence[float] = (0.0,),
+                         k: Optional[np.ndarray] = None, n_step: int = 6144,
+                         nonlinear: bool = True, massive_nu: bool = False,
+                         de_perts: bool = False) -> MatterPower:
+    """Transfers on the wide k grid -> linear P(k, z) -> sigma8 and
+    f sigma8 -> halofit; z_outputs ascending."""
+    mt = compute_matter_transfers(bg, th, zre, yhe, z_outputs, k, n_step,
+                                  massive_nu=massive_nu, de_perts=de_perts)
+    return matter_power_from_transfers(bg, pp, mt, nonlinear=nonlinear)
+
+
+def matter_power_from_transfers(bg: BackgroundParams, pp: PrimordialParams,
+                                mt: MatterTransfers,
+                                nonlinear: bool = True) -> MatterPower:
+    """Semi-slow stage: primordial power on the cached transfers -> P(k, z),
+    sigma8(z), f sigma8(z) (CAMB Transfer_GetSigmaVdelta8, the velocity
+    d delta / d ln a cached by the slow stage), halofit."""
+    k = mt.k
+    h = bg.H0 / 100.0
+    P = _power_from_transfer(pp, k, mt.delta_m_z)              # (C, nz, nk)
+    lnP = torch.log(torch.clamp(P, min=1e-300))
+    # Weyl: P of k^2 (phi + psi)/2 (the reference's MPK_WEYL convention,
+    # Calculator_CAMB.f90:465-545)
+    lnPw = torch.log(torch.clamp(_power_from_transfer(pp, k, k ** 2 * mt.weyl_z),
+                                 min=1e-300))
+    R8 = (8.0 / h)[:, None]
+    d2 = k ** 3 / (2.0 * torch.pi ** 2) * P
+    sigma8 = torch.sqrt(_sigma_tophat(k, d2, R8))
+    Pvd = (2.0 * torch.pi ** 2) / k ** 3 * scalar_power(pp, k)[:, None] \
+        * mt.delta_m_z * mt.v_z
+    sig2_vd = _sigma_tophat(k, k ** 3 / (2.0 * torch.pi ** 2) * Pvd, R8)
+    z = mt.z.to(lnP.dtype)
+    lnP_nl = halofit_takahashi(bg, k, lnP, z) if nonlinear else lnP
+    return MatterPower(k, z, lnP, lnP_nl, lnPw, sigma8, sig2_vd / sigma8, h)
+
+
+# ---------------------------------------------------------------------------
+# HALOFIT (Takahashi et al. 2012, arXiv:1208.2701): the reference's default
+# nonlinear model (halofit_ppf.f90:56)
+# ---------------------------------------------------------------------------
 
 def _gauss_sigma2(lnk: torch.Tensor, d2: torch.Tensor, lnR: torch.Tensor):
     """sigma^2(R) with the Gaussian window exp(-k^2 R^2) and its first two
@@ -145,3 +281,66 @@ def lensing_nl_ratio(bg: BackgroundParams, pp_fid: PrimordialParams,
     lnP_nl = halofit_takahashi(bg, k_all, lnP_all, z)
     nk = k_coarse.shape[0]
     return torch.exp(0.5 * (lnP_nl[..., :nk] - lnP_all[..., :nk]))
+
+
+# ---------------------------------------------------------------------------
+# Evaluation (the reference's TCosmoTheoryPK.PowerAt, CosmoTheory.f90:56-77,
+# with log-linear high-k extrapolation :103-132)
+# ---------------------------------------------------------------------------
+
+def _per_chain_queries(x, ref: torch.Tensor) -> torch.Tensor:
+    """A query (float, (n,) or (C, n)) as a (1 or C, n) tensor."""
+    x = torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    return x.reshape((1,) * (2 - x.dim()) + x.shape) if x.dim() < 2 else x
+
+
+def power_at(mp: MatterPower, kq, zq, nonlinear: bool = False,
+             weyl: bool = False) -> torch.Tensor:
+    """P(kq, zq) in Mpc^3 by bilinear interpolation in (ln k, z), log-linear
+    in ln k past the table (to EXTRAP_KMAX). kq (1/Mpc) and zq are floats,
+    (n,) tensors asked of every chain, or (C, n) tensors; the result is
+    (C, n)."""
+    tab = mp.lnP_weyl if weyl else (mp.lnP_nl if nonlinear else mp.lnP)
+    C, nz, nk = tab.shape
+    lnk = torch.log(mp.k)
+    kq = _per_chain_queries(kq, tab)
+    zq = _per_chain_queries(zq, tab)
+    shape = torch.broadcast_shapes(kq.shape, zq.shape, (C, 1))
+    lnkq = torch.log(kq).expand(shape)
+    zq = zq.expand(shape)
+    # clamp into the table and keep the overshoot for the extrapolation
+    over = torch.clamp(lnkq - lnk[-1], min=0.0)
+    lnkq = torch.clamp(lnkq, lnk[0], lnk[-1])
+    if nz == 1:
+        iz = torch.zeros(shape, dtype=torch.int64, device=tab.device)
+        tz = torch.zeros_like(zq)
+    else:
+        iz = (torch.searchsorted(mp.z, zq.contiguous(), right=True) - 1
+              ).clamp(0, nz - 2)
+        z0 = mp.z[iz]
+        dz = torch.clamp(mp.z[iz + 1] - z0, min=1e-10)
+        tz = torch.clamp((zq - z0) / dz, 0.0, 1.0)
+    # jnp.interp in ln k on the two z rows of each query
+    ik = torch.searchsorted(lnk, lnkq.contiguous(), right=True).clamp(1, nk - 1)
+    row = (torch.arange(C, device=tab.device)[:, None] * nz + iz) * nk
+    flat = tab.reshape(-1)
+    frac = (lnkq - lnk[ik - 1]) / (lnk[ik] - lnk[ik - 1])
+
+    def at(r):
+        lo = flat[r + ik - 1]
+        return lo + frac * (flat[r + ik] - lo)
+    slope = ((tab[..., -1] - tab[..., -2]) / (lnk[-1] - lnk[-2])).reshape(-1)
+    srow = torch.arange(C, device=tab.device)[:, None] * nz + iz
+    if nz == 1:
+        v, sl = at(row), slope[srow]
+    else:
+        v = at(row) * (1.0 - tz) + at(row + nk) * tz
+        sl = slope[srow] * (1.0 - tz) + slope[srow + 1] * tz
+    return torch.exp(v + sl * over)
+
+
+def sigma_r(mp: MatterPower, R, z_index: int = 0) -> torch.Tensor:
+    """sigma(R) (tophat, R in Mpc: a float or (C,)) at table redshift
+    `z_index`: (C,)."""
+    d2 = mp.k ** 3 / (2.0 * torch.pi ** 2) * torch.exp(mp.lnP[:, z_index])
+    return torch.sqrt(_sigma_tophat(mp.k, d2, R))

@@ -3,8 +3,9 @@ cosmomc_tpu/models/theory.py): NamedTuples of per-chain tensors in place of
 the TCosmoTheoryPredictions pytrees.
 
 `BackgroundTheory` is what a background-only posterior computes (distance
-tables and the drag sound horizon); `CMBTheoryProducts` adds the C_l.
-Neither carries matter power yet, so `fsigma8_at` raises."""
+tables and the drag sound horizon); `CMBTheoryProducts` adds the C_l and,
+when the posterior computes matter power, sigma8(z) and f sigma8(z) on the
+z_pk table and the P(k, z) tables themselves."""
 
 from __future__ import annotations
 
@@ -15,12 +16,7 @@ import torch
 from cosmomc_tpu_torch.models import background as bgm
 from cosmomc_tpu_torch.models.background import (BackgroundFunctions,
                                                  BackgroundParams)
-
-
-def _no_matter_power(z):
-    raise NotImplementedError(
-        "f_sigma8 needs the full matter power, which is not ported yet "
-        "(ROADMAP queue 1, step 14); drop the f_sigma8 dataset rows")
+from cosmomc_tpu_torch.utils.interp import interp
 
 
 class BackgroundTheory(NamedTuple):
@@ -29,7 +25,18 @@ class BackgroundTheory(NamedTuple):
     rs_drag: torch.Tensor                 # (C,)
 
     def fsigma8_at(self, z):
-        _no_matter_power(z)
+        raise ValueError(
+            "this run's theory stage computes no matter power: f_sigma8 "
+            "measurement rows need CMBTheoryProducts (use a posterior with "
+            "matter_power enabled, or drop the f_sigma8 dataset rows)")
+
+
+def _at_z(z_pk: torch.Tensor, table: torch.Tensor, z) -> torch.Tensor:
+    """Linear interpolation of a (C, nz) table in z: a float gives (C,), a
+    (n,) tensor (C, n)."""
+    zq = torch.as_tensor(z, dtype=table.dtype, device=table.device)
+    out = interp(zq.reshape(1, -1).expand(table.shape[0], -1), z_pk, table)
+    return out[:, 0] if zq.dim() == 0 else out
 
 
 class CMBTheoryProducts(NamedTuple):
@@ -38,9 +45,26 @@ class CMBTheoryProducts(NamedTuple):
     rs_drag: torch.Tensor                 # (C,)
     #: (C, 4, 4, lmax+1) TEBP stack, l(l+1)C_l/2pi muK^2; PP [l(l+1)]^2 C/2pi
     cls: Optional[torch.Tensor] = None
+    #: matter-power summaries on z_pk (nz,) ascending, each (C, nz), or None
+    z_pk: Optional[torch.Tensor] = None
+    sigma8_z: Optional[torch.Tensor] = None
+    fsigma8_z: Optional[torch.Tensor] = None
+    #: the P(k, z) tables (models/matterpower.MatterPower) for likelihoods
+    #: that integrate over the power spectrum (MPK)
+    mp: Optional[object] = None
 
-    def fsigma8_at(self, z):
-        _no_matter_power(z)
+    def fsigma8_at(self, z) -> torch.Tensor:
+        """f sigma8(z) from the table (bao.f90:264-306 f_sigma8 rows)."""
+        if self.fsigma8_z is None:
+            raise ValueError(
+                "f_sigma8 requested but matter power was not computed; "
+                "enable matter_power on the posterior")
+        return _at_z(self.z_pk, self.fsigma8_z, z)
+
+    def sigma8_at(self, z) -> torch.Tensor:
+        if self.sigma8_z is None:
+            raise ValueError("sigma8 requested but matter power not computed")
+        return _at_z(self.z_pk, self.sigma8_z, z)
 
 
 def compute_background_theory(bg: BackgroundParams,

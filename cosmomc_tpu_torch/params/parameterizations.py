@@ -1,12 +1,14 @@
 """Parameterizations: sampled vector -> physical BackgroundParams.
 
-Port of two parameterizations of cosmomc_tpu/params/parameterizations.py
+Port of three parameterizations of cosmomc_tpu/params/parameterizations.py
 (source/CosmologyParameterizations.f90), batched: the full vector is (C, n).
 
   - theta (TP_ParamArrayToTheoryParams): ombh2, omch2, 100theta_MC, tau,
     omk, mnu, w, wa, nnu, alpha1, with H0 solved from theta by bisection;
   - background (:350-414): omegam, H0, omk, mnu, w, wa, nnu and an
-    explicit ombh2 (for the drag sound horizon), omch2 derived.
+    explicit ombh2 (for the drag sound horizon), omch2 derived;
+  - astro (AP_ParamArrayToTheoryParams, :448-500): omegam, omegab, H0,
+    omk, mnu, w, wa, nnu and a fixed tau, for LSS-only runs.
 """
 
 from __future__ import annotations
@@ -66,6 +68,42 @@ class BackgroundParameterization:
         omegam, H0, omk, mnu, w, wa, nnu, ombh2 = full_P[:, :8].unbind(-1)
         omnuh2 = mnu_to_omnuh2(mnu, nnu)
         omch2 = omegam * (H0 / 100.0) ** 2 - omnuh2 - ombh2
+        return BackgroundParams(ombh2=ombh2, omch2=omch2, H0=H0, omk=omk,
+                                omnuh2=omnuh2, nnu=nnu, w=w, wa=wa,
+                                tcmb=torch.full_like(ombh2, const.COBE_CMBTemp),
+                                num_massive_nu=1)
+
+
+class AstroParameterization:
+    """Sampled: omegam, omegab, H0, omk, mnu, w, wa, nnu: the reference's
+    `astro` parameterization for LSS-only runs. As in the JAX package, the
+    pipeline adds the primordial block as (logA, ns), and tau is a fixed
+    parameter so that the thermal history is defined (the reference zeroes
+    it; astro runs use no CMB likelihood)."""
+
+    names = ["omegam", "omegab", "H0", "omk", "mnu", "w", "wa", "nnu", "tau"]
+
+    def default_space(self, ini=None) -> ParameterSpace:
+        return _apply_ini([
+            Param("omegam", 0.3, 0.1, 0.7, 0.02, 0.02, r"\Omega_m", Speed.SLOW),
+            Param("omegab", 0.0462, 0.03, 0.07, 0.002, 0.002,
+                  r"\Omega_b", Speed.SLOW),
+            Param("H0", 70.0, 40.0, 100.0, 2.0, 2.0, "H_0", Speed.SLOW),
+            Param("omk", 0.0, 0.0, 0.0, 0, 0, r"\Omega_K", Speed.SLOW),
+            Param("mnu", 0.06, 0.06, 0.06, 0, 0, r"\Sigma m_\nu", Speed.SLOW),
+            Param("w", -1.0, -1.0, -1.0, 0, 0, "w", Speed.SLOW),
+            Param("wa", 0.0, 0.0, 0.0, 0, 0, "w_a", Speed.SLOW),
+            Param("nnu", 3.046, 3.046, 3.046, 0, 0, "N_{eff}", Speed.SLOW),
+            Param("tau", 0.055, 0.055, 0.055, 0, 0, r"\tau", Speed.SLOW),
+        ], ini, ParameterSpace())
+
+    def to_background(self, full_P: torch.Tensor) -> BackgroundParams:
+        """full_P (C, n) in `names` order -> BackgroundParams of (C,) fields."""
+        omegam, omegab, H0, omk, mnu, w, wa, nnu = full_P[:, :8].unbind(-1)
+        h2 = (H0 / 100.0) ** 2
+        omnuh2 = mnu_to_omnuh2(mnu, nnu)
+        ombh2 = omegab * h2
+        omch2 = omegam * h2 - ombh2 - omnuh2
         return BackgroundParams(ombh2=ombh2, omch2=omch2, H0=H0, omk=omk,
                                 omnuh2=omnuh2, nnu=nnu, w=w, wa=wa,
                                 tcmb=torch.full_like(ombh2, const.COBE_CMBTemp),

@@ -11,18 +11,21 @@ distance tables and the fitted drag sound horizon, no kernel.
   stage_slow   thermal history (K4, once), Boltzmann transfers (K1), the
                halofit lensing-source ratio, the line-of-sight Delta_l(k)
                (K2a table engine or K2b recurrence), with compute_tensors the
-               tensor evolution (K5) and tensor Delta_l(k) (K6), background
-               tables and the slow derived scalars;
+               tensor evolution (K5) and tensor Delta_l(k) (K6), with
+               matter_power the matter transfers (K1 on the wide matter k
+               grid), background tables and the slow derived scalars;
   stage_semi   primordial power on the cached transfers (plus the tensor
-               TT/TE/EE/BB) and lensing (K3);
+               TT/TE/EE/BB), lensing (K3), and with matter_power P(k, z),
+               sigma8(z) and f sigma8(z);
   stage_fast   likelihoods and the derived-parameter list.
 
 Covered: the flagship configuration (theta LCDM, halofit lensing, with
-BAO in the likelihood list) and LCDM+r (`compute_tensors=True`, r
-semi-slow, nt = -r/8).
-Matter power, the high-l template splice, `use_cmb=False` and sampled
-mnu/w/wa/alpha1 raise NotImplementedError. The BBN table is always passed
-in. `los_method="auto"` means the table engine on every device.
+BAO in the likelihood list), LCDM+r (`compute_tensors=True`, r
+semi-slow, nt = -r/8), matter power with the sigma8 derived values, and
+LSS-only runs (`use_cmb=False`: no source evolution, LOS or lensing).
+The high-l template splice and sampled mnu/w/wa/alpha1 raise
+NotImplementedError. The BBN table is always passed in.
+`los_method="auto"` means the table engine on every device.
 """
 
 from __future__ import annotations
@@ -42,7 +45,10 @@ from cosmomc_tpu_torch.models.cls import (cls_from_cl_transfers,
                                           compute_cl_transfers_recurrence)
 from cosmomc_tpu_torch.models.cmb import compute_transfers, source_k_grid
 from cosmomc_tpu_torch.models.lensing import lens_cls
-from cosmomc_tpu_torch.models.matterpower import LENS_NL_Z, lensing_nl_ratio
+from cosmomc_tpu_torch.models.matterpower import (LENS_NL_Z,
+                                                  compute_matter_transfers,
+                                                  lensing_nl_ratio,
+                                                  matter_power_from_transfers)
 from cosmomc_tpu_torch.models.primordial import PrimordialParams
 from cosmomc_tpu_torch.models.recfast import compute_thermo
 from cosmomc_tpu_torch.models.reionization import zre_from_tau
@@ -81,6 +87,13 @@ CMB_DERIVED_NAMES = [
     ("zeq", r"z_{\rm{eq}}"), ("keq", r"k_{\rm{eq}}"),
     ("thetaeq", r"100\theta_{\rm{eq}}"),
     ("thetarseq", r"100\theta_{\rm{s,eq}}"),
+]
+
+CMB_DERIVED_MP_NAMES = [
+    ("sigma8", r"\sigma_8"), ("S8", "S_8"),
+    ("s8omegamp5", r"\sigma_8 \Omega_m^{0.5}"),
+    ("s8omegamp25", r"\sigma_8 \Omega_m^{0.25}"),
+    ("s8h5", r"\sigma_8/h^{0.5}"),
 ]
 
 #: parameters whose sampling needs a sector this slice does not have
@@ -196,7 +209,9 @@ def _unported(what: str):
 
 @dataclass
 class CMBPosterior:
-    """Theta-parameterized LCDM -> Boltzmann C_l -> CMB likelihoods.
+    """Theta-parameterized LCDM -> Boltzmann C_l -> CMB likelihoods (or,
+    with `use_cmb=False` and the astro parameterization, background +
+    thermal history + matter power for LSS-only runs).
 
     Sampled blocks: SLOW ombh2, omch2, theta, tau; SEMISLOW logA, ns (and r
     with compute_tensors); FAST likelihood nuisance. YHe follows BBN
@@ -211,6 +226,10 @@ class CMBPosterior:
     lmax_computed: int = 0
     highl_template: str = ""
     matter_power: bool = False
+    #: the matter-power table's redshifts (extended to the likelihoods'
+    #: required_zmax)
+    z_pk: Tuple[float, ...] = (0.0, 0.2, 0.38, 0.51, 0.61, 1.0, 2.0)
+    #: background/LSS derived-output redshifts
     z_outputs: Tuple[float, ...] = (0.38, 0.51, 0.61)
     n_step_boltzmann: int = 0
     source_nk: Optional[Tuple[int, int]] = None
@@ -232,8 +251,6 @@ class CMBPosterior:
         if self.bbn_table is None:
             raise ValueError("CMBPosterior needs bbn_table= (load_bbn_table(path) "
                              "or synthetic_bbn_table())")
-        if not self.use_cmb:
-            _unported("use_cmb=False")
         if self.los_method not in ("table", "auto", "recurrence"):
             raise ValueError(f"unknown los_method {self.los_method!r}")
         for p in PRIMORDIAL_PARAMS:
@@ -255,6 +272,9 @@ class CMBPosterior:
         self._fid_logA = float(self.space.get("logA").center)
         self._fid_ns = float(self.space.get("ns").center)
         self.bbn_table = self.bbn_table.to(self.device, self.dtype)
+        # the likelihoods' requirements, before the derived names are fixed
+        # (a matter_power auto-enable keeps sigma8 among them)
+        zmax_req = 0.0
         for like in self.likes.likes:
             need = getattr(like, "required_lmax", lambda: 0)()
             if need > self.lmax:
@@ -263,8 +283,12 @@ class CMBPosterior:
                 self.matter_power = True
             if getattr(like, "required_kmax", 0.0) > self.kmax:
                 self.kmax = float(like.required_kmax)
-        if self.matter_power:
-            _unported("matter_power")
+            zmax_req = max(zmax_req, getattr(like, "required_zmax", 0.0))
+        if zmax_req > max(self.z_pk):
+            # a log(1+z) grid to the union max
+            extra = np.expm1(np.linspace(
+                np.log1p(max(self.z_pk)), np.log1p(zmax_req * 1.02), 24))[1:]
+            self.z_pk = tuple(self.z_pk) + tuple(float(z) for z in extra)
         if self.lmax_computed >= self.lmax:
             self.lmax_computed = 0
         if self.lmax_computed or self.highl_template:
@@ -286,6 +310,12 @@ class CMBPosterior:
             t = _ztag(z)
             all_derived += [(f"Hubble{t}", f"H({z:g})"),
                             (f"DM{t}", f"D_{{\\rm{{M}}}}({z:g})")]
+        if self.matter_power:
+            all_derived += list(CMB_DERIVED_MP_NAMES)
+            for z in self.z_outputs:
+                t = _ztag(z)
+                all_derived += [(f"fsigma8z{t}", f"f\\sigma_8({z:g})"),
+                                (f"sigma8z{t}", f"\\sigma_8({z:g})")]
         sampled = {p.name for p in self.space.params}
         self._derived_keep = [i for i, (n, _) in enumerate(all_derived)
                               if n not in sampled]
@@ -314,23 +344,27 @@ class CMBPosterior:
         yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, self.bbn_table)
         th = compute_thermo(bg, yhe)
         zre = zre_from_tau(bg, tau_re, yhe)
-        z_nl = LENS_NL_Z if self.nonlinear_lens else (0.0,)
-        po, chi_star, tf = compute_transfers(bg, th, zre, yhe, self._k,
-                                             z_outputs=z_nl,
-                                             n_step=self.n_step_boltzmann)
-        if self.nonlinear_lens:
-            po = self._nonlinear_lensing(bg, po, tf, z_nl)
-        los = (compute_cl_transfers_recurrence
-               if self.los_method == "recurrence" else compute_cl_transfers)
-        clt = los(po, chi_star, coarse_k=self._k,
-                  lmax=self.lmax + self.lens_margin, kmax_hint=self.kmax,
-                  tau_stride=self.los_tau_stride)
-        tt_cache = None
-        if self.compute_tensors:
-            kt = tensor_k_grid()
-            to = evolve_tensors(bg, tf, po.tau0, kt)
-            tt_cache = compute_tensor_transfers(to, lmax=min(700, self.lmax),
-                                                coarse_k=kt)
+        clt = tt_cache = mt = None
+        if self.use_cmb:
+            z_nl = LENS_NL_Z if self.nonlinear_lens else (0.0,)
+            po, chi_star, tf = compute_transfers(bg, th, zre, yhe, self._k,
+                                                 z_outputs=z_nl,
+                                                 n_step=self.n_step_boltzmann)
+            if self.nonlinear_lens:
+                po = self._nonlinear_lensing(bg, po, tf, z_nl)
+            los = (compute_cl_transfers_recurrence
+                   if self.los_method == "recurrence" else compute_cl_transfers)
+            clt = los(po, chi_star, coarse_k=self._k,
+                      lmax=self.lmax + self.lens_margin, kmax_hint=self.kmax,
+                      tau_stride=self.los_tau_stride)
+            if self.compute_tensors:
+                kt = tensor_k_grid()
+                to = evolve_tensors(bg, tf, po.tau0, kt)
+                tt_cache = compute_tensor_transfers(
+                    to, lmax=min(700, self.lmax), coarse_k=kt)
+        if self.matter_power:
+            mt = compute_matter_transfers(bg, th, zre, yhe,
+                                          z_outputs=tuple(sorted(self.z_pk)))
         tabs = compute_thermo_tables(bg, th, yhe)
         der = thermo_derived(bg, tabs)
         bf = bgm.background_functions(bg)
@@ -339,7 +373,7 @@ class CMBPosterior:
         a_eq = 1.0 / (1.0 + z_eq)
         tau_eq = bgm.conformal_time(bg, a_eq)
         rs_eq = interp(torch.log1p(z_eq)[:, None], tabs.x, tabs.rs)[:, 0]
-        return dict(bg=bg, yhe=yhe, clt=clt, tt_cache=tt_cache, bf=bf,
+        return dict(bg=bg, yhe=yhe, clt=clt, tt_cache=tt_cache, bf=bf, mt=mt,
                     rs_drag=der.r_drag, z_star=der.z_star,
                     r_star=der.r_star, zre=zre, tau=tau_re, z_drag=der.z_drag, kd=der.kd, dm_star=dm_star, z_eq=z_eq,
                     keq=a_eq * bgm.hubble_mpc(bg, a_eq[:, None])[:, 0],
@@ -376,8 +410,14 @@ class CMBPosterior:
         return po._replace(slens=po.slens * mult)
 
     def stage_semi(self, full_P: torch.Tensor, slow: dict) -> dict:
-        """Primordial power on the cached transfers, then lensing."""
+        """Primordial power on the cached transfers, then lensing, and the
+        P(k, z) / sigma8 tables."""
         pp = self._primordial(full_P)
+        A9 = torch.exp(full_P[:, self._i_logA]) / 10.0        # 10^9 A_s
+        mp = (matter_power_from_transfers(slow["bg"], pp, slow["mt"])
+              if self.matter_power else None)
+        if not self.use_cmb:
+            return dict(cls=None, mp=mp, A9=A9)
         lm = self.lmax
         raw = cls_from_cl_transfers(slow["clt"], pp, lmax=lm + self.lens_margin)
         muk2 = (2.7255e6) ** 2
@@ -402,11 +442,16 @@ class CMBPosterior:
             cls[:, 0, 1, slt] += muk2 * tens.te[:, :nlt]
             cls[:, 1, 1, slt] += muk2 * tens.ee[:, :nlt]
             cls[:, 2, 2, slt] += muk2 * tens.bb[:, :nlt]
-        return dict(cls=cls, A9=torch.exp(full_P[:, self._i_logA]) / 10.0)
+        return dict(cls=cls, mp=mp, A9=A9)
 
     def assemble_theory(self, slow: dict, semi: dict) -> CMBTheoryProducts:
+        mp = semi.get("mp")
+        summaries = ({} if mp is None else
+                     dict(z_pk=mp.z, sigma8_z=mp.sigma8_z,
+                          fsigma8_z=mp.fsigma8_z, mp=mp))
         return CMBTheoryProducts(bg=slow["bg"], bf=slow["bf"],
-                                 rs_drag=slow["rs_drag"], cls=semi["cls"])
+                                 rs_drag=slow["rs_drag"], cls=semi["cls"],
+                                 **summaries)
 
     def stage_fast(self, P: torch.Tensor, slow: dict, semi: dict):
         """Likelihoods + derived parameters from the cached theory."""
@@ -430,6 +475,12 @@ class CMBPosterior:
         for z in self.z_outputs:
             der += [bgm.hofz_kms(bg, z),
                     bgm.comoving_radial_distance(slow["bf"], z)]
+        if self.matter_power:
+            s8 = theory.sigma8_z[:, 0]
+            der += [s8, s8 * torch.sqrt(omm / 0.3), s8 * torch.sqrt(omm),
+                    s8 * omm ** 0.25, s8 / torch.sqrt(h)]
+            for z in self.z_outputs:
+                der += [theory.fsigma8_at(z), theory.sigma8_at(z)]
         der = torch.stack([d.to(P.dtype) for d in der], -1)
         return total, der[:, self._derived_keep]
 

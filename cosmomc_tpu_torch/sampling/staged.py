@@ -38,8 +38,10 @@ from cosmomc_tpu_torch.sampling.proposal import (BlockedProposal,
 # step classes (what to recompute)
 CLS_SLOW, CLS_SEMI, CLS_FAST = 0, 1, 2
 
-#: NamedTuple fields that hold grids shared by all chains (no chains axis)
-SHARED_FIELDS = frozenset({"ls", "kf", "wk", "lz_grid"})
+#: NamedTuple fields that hold grids shared by all chains (no chains axis):
+#: the C_l and tensor transfer caches' ls, kf, wk, the distance tables'
+#: lz_grid, the matter transfers' and P(k, z) tables' k and z
+SHARED_FIELDS = frozenset({"ls", "kf", "wk", "lz_grid", "k", "z"})
 
 
 class StagedChainState(NamedTuple):

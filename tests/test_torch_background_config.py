@@ -23,6 +23,7 @@ from cosmomc_tpu.likelihoods.base import LikelihoodList as JLikes
 from cosmomc_tpu.likelihoods.hst import HSTLikelihood as JHST
 from cosmomc_tpu.likelihoods.sn import SNLikelihood as JSN
 from cosmomc_tpu.models import background as jbgm
+from cosmomc_tpu.models.matterpower import MatterPower as JMatterPower
 from cosmomc_tpu.models.theory import CMBTheoryProducts as JCMBTheory
 from cosmomc_tpu.models.theory import compute_background_theory as jtheory
 from cosmomc_tpu.params.parameterizations import (
@@ -192,16 +193,18 @@ def test_bao_theory_vector_and_loglike(sets, theories, key):
 
 
 def test_bao_rows_without_theory_raise(theories, tmp_path):
-    """f_sigma8 needs matter power (not ported: NotImplementedError);
-    dilation rows have no theory in either package (ValueError)."""
-    _, tth = theories
-    for mtype, err in (("f_sigma8", NotImplementedError),
-                       ("dilation", ValueError)):
+    """f_sigma8 rows need matter power, which a background-only theory does
+    not have, and dilation rows have no theory: both packages raise
+    ValueError for each."""
+    jth, tth = theories
+    for mtype in ("f_sigma8", "dilation"):
         p = tmp_path / f"{mtype}.dataset"
         p.write_text(f"measurement_type = {mtype}\nzeff = 0.5\n"
                      "bao_measurement = 0.45 0.05\n")
-        with pytest.raises(err):
+        with pytest.raises(ValueError):
             TBAO(str(p), device="cpu").theory_vector(tth)
+        with pytest.raises(ValueError):
+            JBAO(str(p)).theory_vector(jth[0])
 
 
 @pytest.mark.parametrize("key", ["sn_fixed", "sn_twoscript", "sn_fixed_mag",
@@ -328,5 +331,20 @@ def test_flagship_posterior_takes_bao(sets):
                  jl.theory_vector(jt), VEC_RTOL)
     assert_close(total[0], jl.log_like(jt, jnp.zeros(0)), CHI2_RTOL)
     assert_close(per[0, 0], total[0], 0.0)
-    with pytest.raises(NotImplementedError, match="matter power"):
+    # without matter power f sigma8 raises as JAX's does; with a P(k, z)
+    # table in the semi cache it is the table's value, interpolated in z
+    with pytest.raises(ValueError, match="matter power"):
         theory.fsigma8_at(0.5)
+    with pytest.raises(ValueError, match="matter power"):
+        jt.fsigma8_at(0.5)
+    zs = np.array([0.0, 0.38, 0.61, 1.0])
+    nk = 4
+    jmp = JMatterPower(np.logspace(-3, 0, nk), zs, *[np.zeros((4, nk))] * 3,
+                       0.81 / (1 + 0.5 * zs), 0.47 - 0.05 * zs, 0.67)
+    jt = jt._replace(z_pk=jnp.asarray(zs), sigma8_z=jnp.asarray(jmp.sigma8_z),
+                     fsigma8_z=jnp.asarray(jmp.fsigma8_z))
+    theory = post.assemble_theory(slow, dict(cls=None,
+                                             mp=convert.matter_power(jmp)))
+    for z in (0.0, 0.5, 0.8):
+        assert_close(theory.fsigma8_at(z), [float(jt.fsigma8_at(z))], 1e-15)
+        assert_close(theory.sigma8_at(z), [float(jt.sigma8_at(z))], 1e-15)
