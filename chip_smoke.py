@@ -37,6 +37,17 @@ with plik_lite + a DR12 set with f_sigma8 rows + the tau prior.
 Phase 8 runs the astro LSS-only configuration (use_cmb=False: K4 and K1
 only) with synthetic LRG DR4-format, WiggleZ-format and DR12 f_sigma8 sets
 under SamplingRun, 32 chains, then resumes it bit for bit.
+Phase 2 also holds K1's extended instantiations, the massive-neutrino
+hierarchy and the dark-energy fluid (with a CDM-isocurvature chain), to
+the plain version in float64, on the source grid and (massive nu) on the
+matter grid.
+Phase 9 runs Planck 2018's base_mnu on the flagship (mnu free, matter
+power; K1's massive-neutrino instantiation twice a slow step): float32
+against float64, plik_lite + a DR12 set with f_sigma8 rows + the tau prior,
+one staged segment, and sigma8 at mnu = 0.07 eV against CAMB.
+Phase 10 runs base_w_wa the same way (w and wa free; the DE-fluid
+instantiation), then the CDM-isocurvature response at four alpha1 values
+in float64: C_l quadratic in the admixture amplitude.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -81,6 +92,25 @@ CAMB_FSIGMA8 = {0.38: 0.4779339, 0.51: 0.4760216, 0.61: 0.4706936}
 SIGMA8_F32_TOL = 5e-3
 #: CMBPosterior's default matter-power redshifts
 Z_PK = (0.0, 0.2, 0.38, 0.51, 0.61, 1.0, 2.0)
+#: phases 9 and 10: the extension parameters as users free them (ini
+#: overrides): mnu as the repo's grid (cosmomc_tpu/grid/gridconfig.py:16),
+#: w as tests/test_grid.py:25, wa over Planck 2018's w0-wa prior range,
+#: alpha1 as the reference (cosmomc_tpu/params/parameterizations.py:177)
+EXT_FREE = {"mnu": {"mnu": "0.06 0 5 0.1 0.03"},
+            "w0wa": {"w": "-1 -3 1 0.1 0.05", "wa": "0 -3 2 0.1 0.05"}}
+ALPHA1_FREE = "0 -0.3 0.3 0.01 0.01"
+#: each path's point beside BESTFIT, off the LCDM values (w0, wa crosses
+#: w = -1)
+EXT_POINT = {"mnu": {"mnu": 0.1}, "w0wa": {"w": -0.9, "wa": -0.3}}
+#: CAMB at mnu = 0.07 eV (tests/test_extended_oracle.py:97-117, H0 67.5,
+#: ombh2 0.022, omch2 0.122, A_s 2e-9, n_s 0.965, tau 0.06): sigma8(z)
+CAMB_SIGMA8_MNU, CAMB_MNU_TOL = {0.0: 0.80044, 3.1: 0.24686}, 0.015
+#: the CDM-isocurvature amplitude b of phase 10 (C_l at 0, +-b, 2b) and
+#: tests/test_isocurvature.py's tolerance on the quadratic response
+ISO_B, ISO_RTOL, ISO_ATOL = 0.2, 5e-4, 1e-6
+#: K1's extended instantiations are held to the plain float64 version
+#: alone; their float32 output within this share of each plane's maximum
+K1_VARIANT_F32_FLOOR = 1e-3
 #: step counts tried in turn for holding K1 to its plain version on the
 #: matter grid: the first at which every lane of the float32 and float64
 #: kernels stays finite and bounded. An unstable RK4 lane grows without
@@ -96,6 +126,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                 "cosmomc_tpu/models/recfast.py:279"),
     "boltzmann": ("cosmomc_tpu_torch/csrc/perturbations.cu",
                   "cosmomc_tpu/models/perturbations.py:928"),
+    "boltzmann_nu": ("cosmomc_tpu_torch/csrc/perturbations.cu",
+                     "cosmomc_tpu/models/perturbations.py:928"),
+    "boltzmann_de": ("cosmomc_tpu_torch/csrc/perturbations.cu",
+                     "cosmomc_tpu/models/perturbations.py:928"),
     "los": ("cosmomc_tpu_torch/csrc/cls.cu", "cosmomc_tpu/models/cls.py:285"),
     "lensing": ("cosmomc_tpu_torch/csrc/lensing.cu",
                 "cosmomc_tpu/models/lensing.py:136"),
@@ -109,14 +143,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: the kernels each main path must launch (phase 5 "runner" is the
 #: flagship under SamplingRun; phase 6 "background" launches none; phase 7
 #: "flagship_mp" is the flagship with matter power, K1 twice a slow step;
-#: phase 8 "astro" the LSS-only configuration)
+#: phase 8 "astro" the LSS-only configuration; phases 9 "mnu" and 10
+#: "w0wa" K1's extended instantiations, twice a slow step)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
                 "runner": ("recfast", "boltzmann", "los", "lensing"),
                 "background": (),
                 "flagship_mp": ("recfast", "boltzmann", "los", "lensing"),
-                "astro": ("recfast", "boltzmann")}
+                "astro": ("recfast", "boltzmann"),
+                "mnu": ("recfast", "boltzmann_nu", "los", "lensing"),
+                "w0wa": ("recfast", "boltzmann_de", "los", "lensing")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -139,6 +176,14 @@ OPS = {
     # fifth evaluation is then the next step's first), which phase 2 counts
     # from the table it runs
     "boltzmann": (285, 37 * 16 + 50),
+    # the extended instantiations add to that, per RHS: massive nu, the
+    # three node sums 32 (3, 2 and 3 a node), the switch and the three
+    # stress terms 12, the 28 Psi derivatives 6 each and the l = 0, 2
+    # sources 24 = 236; per step 28 more variables x 16 and the stress
+    # derivative for the sources 32. DE fluid, per RHS: 2 stress terms 4
+    # and the two derivatives 16 = 20; per step 2 variables x 16
+    "boltzmann_nu": (285 + 236, (37 + 28) * 16 + 50 + 32),
+    "boltzmann_de": (285 + 20, (37 + 2) * 16 + 50),
     # the least arithmetic that computes the function (csrc/cls.cu, where
     # j'' is folded into the j and j' coefficients): per (chain, l, k, tau)
     # point two lerps 6 and five multiply-adds 10; per (chain, k, tau) the
@@ -287,9 +332,10 @@ def check_f64(name, k64, p64):
     require(e <= 1e-9, f"{name} float64 agreement")
 
 
-def bestfit_vector(post):
-    """The varying vector at BESTFIT (centres for the rest)."""
-    return np.array([BESTFIT.get(p.name, p.center) for p in post.space.varying])
+def bestfit_vector(post, point=None):
+    """The varying vector at BESTFIT and `point` (centres for the rest)."""
+    at = {**BESTFIT, **(point or {})}
+    return np.array([at.get(p.name, p.center) for p in post.space.varying])
 
 
 class plain_version:
@@ -307,8 +353,8 @@ class plain_version:
         setattr(self.module, self.name, self.real)
 
 
-def start_points(post, rng, dtype):
-    P0 = np.tile(bestfit_vector(post), (NCHAINS, 1))
+def start_points(post, rng, dtype, point=None):
+    P0 = np.tile(bestfit_vector(post, point), (NCHAINS, 1))
     sig = np.array([p.propose_width for p in post.space.varying])
     P0 += 0.3 * sig * rng.standard_normal(P0.shape)
     lo = np.array([p.min for p in post.space.varying])
@@ -316,11 +362,11 @@ def start_points(post, rng, dtype):
     return torch.as_tensor(np.clip(P0, lo, hi), dtype=dtype, device=post.device)
 
 
-def k1_ops(qt, nk):
+def k1_ops(qt, nk, name="boltzmann"):
     """FP32 operations of one K1 solve on the stage table qt (C, S, 3, NQ)
-    for nk wavenumbers, by OPS["boltzmann"]: 5 RHS a step, 4 where the
-    step's first row repeats the row before."""
-    per_rhs, per_step = OPS["boltzmann"]
+    for nk wavenumbers, by OPS[name] (the instantiation): 5 RHS a step, 4
+    where the step's first row repeats the row before."""
+    per_rhs, per_step = OPS[name]
     repeats = (qt[:, 1:, 0] == qt[:, :-1, 2]).all(-1).sum(-1)
     return int(((5 * qt.shape[1] - repeats) * per_rhs
                 + qt.shape[1] * per_step).sum()) * nk
@@ -345,6 +391,39 @@ def k1_against_plain(name, q, k, rnu):
     err = max(check_f32(f"{name}.{n}", o_k[i], o_p[i], o_r[i], 1e-3)
               for i, n in enumerate(mpert.PLANES))
     return err, ms, plain_ms, (q32, k32, rnu32, o_k)
+
+
+def check_f32_floor(name, k32, r64, floor):
+    """float32 kernel vs the float64 plain result on the same inputs,
+    within `floor` of the plane's maximum; returns |kernel - plain|."""
+    e = rel_err(k32, r64)
+    log(f"  {name:14s} f32 kernel err {e:.3e} (vs f64 plain; floor {floor})")
+    require(e <= floor, f"{name} float32 accuracy")
+    return abs_err(k32, r64)
+
+
+def k1_variant_against_plain(name, q, k, rnu, sw, iso=None):
+    """An extended K1 instantiation (sw = (massive_nu, de_perts)) against
+    its plain version on the float32 stage table q: the plain version once,
+    in float64 on the float32 inputs upcast (timed), holds the float64
+    kernel (1e-9) and the float32 kernel (K1_VARIANT_F32_FLOOR); the
+    float32 kernel timed over 3 launches. Returns the float32 |kernel -
+    plain| maximum, both times and the float32 inputs and kernel output."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    q32, k32, rnu32 = q.float(), k.float(), rnu.float()
+    iso32 = None if iso is None else iso.float()
+    iso_u = None if iso is None else iso32.double()
+    up = (q32.double(), k32.double(), rnu32.double(), mpert.RSA_KTAU, *sw)
+    plain_ms, o_r = timed(lambda: mpert._evolve_plain(*up, iso=iso_u))
+    check_f64(name, mpert._evolve_cuda(*up, iso=iso_u), o_r)
+
+    def kern():
+        return mpert._evolve_cuda(q32, k32, rnu32, mpert.RSA_KTAU, *sw, iso=iso32)
+    kern()
+    ms, o_k = timed(kern, reps=3)
+    err = max(check_f32_floor(f"{name}.{n}", o_k[i], o_r[i], K1_VARIANT_F32_FLOOR)
+              for i, n in enumerate(mpert.PLANES))
+    return err, ms, plain_ms, (q32, k32, rnu32, iso32, o_k)
 
 
 def phase2(dev, results):
@@ -758,6 +837,124 @@ def phase2_matter(dev, results):
         ms_6144_steps_f64=ms_full[F64], bound_ms_6144_steps=full_bound["bound_ms"],
         max_memory_allocated_per_chain={"float32": mem[F32], "float64": mem[F64]},
         sigma8_f32_vs_f64=e8, fsigma8_f32_vs_f64=efs8)
+
+
+def phase2_variants(dev, results):
+    """K1's extended instantiations on the main paths of phases 9 and 10,
+    8 chains x 248 k on the source grid (mnu 0.06..0.3 eV, w0 -0.8..-1.2
+    and wa -0.4..0.3 across the chains; the DE fluid also with an
+    isocurvature amplitude of 0.2 on chain 0): against the plain version at
+    2048 steps, timed and bounded there, on one lane and at 8192 steps;
+    then the massive-neutrino instantiation on the matter grid (one chain
+    at mnu 0.1 eV) at the first bounded count of MATTER_CMP_STEPS, and
+    both instantiations timed there at 6144 steps."""
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+    from cosmomc_tpu_torch.models.cmb import source_k_grid
+    from cosmomc_tpu_torch.models.recfast import compute_thermo
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+
+    par = ThetaParameterization()
+    space = par.default_space()
+    rng = np.random.default_rng(2)
+    full = np.tile([p.center for p in space.params], (NCHAINS, 1))
+    for name in ("ombh2", "omch2", "theta", "tau"):
+        full[:, space.index(name)] = BESTFIT[name] * (
+            1 + 0.002 * rng.standard_normal(NCHAINS))
+    for name, lo, hi in (("mnu", 0.06, 0.3), ("w", -0.8, -1.2), ("wa", -0.4, 0.3)):
+        full[:, space.index(name)] = np.linspace(lo, hi, NCHAINS)
+
+    def inputs(full, n_step, kmax=0.5):
+        P = torch.as_tensor(full, dtype=F64, device=dev)
+        bg = par.to_background(P)
+        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, synthetic_bbn_table().to(dev, F64))
+        th = compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, P[:, space.index("tau")], yhe)
+        return bg, {n: mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=n,
+                                                kmax=kmax)[0] for n in n_step}
+    bg, tfs = inputs(full, (K1_CMP_STEPS, mpert.N_STEP))
+    k = torch.as_tensor(source_k_grid(kmax=0.5), dtype=F64, device=dev)
+    nk = k.shape[0]
+    rnu = mpert._r_nu(bg).contiguous()
+    b = torch.zeros(NCHAINS, dtype=F64, device=dev)
+    b[0] = 0.2
+    for name, sw, iso in (("boltzmann_nu", (True, False), None),
+                          ("boltzmann_de", (False, True), mpert.iso_inputs(bg, b))):
+        log(f"K1 {name}: {NCHAINS} chains x {nk} k; compare at {K1_CMP_STEPS} steps"
+            + (" (isocurvature b = 0.2 on chain 0)" if iso is not None else ""))
+        err, ms, plain_ms, (q32, k32, rnu32, iso32, o_k) = k1_variant_against_plain(
+            name, mpert._stage_tables(bg, tfs[K1_CMP_STEPS], *sw), k, rnu, sw, iso)
+        cmp_bound = bound({"fp32": k1_ops(q32, nk, name)},
+                          nbytes(q32, k32, rnu32, o_k, *([iso32] if iso is not None else [])))
+        one = lambda x: None if x is None else x[:1].contiguous()
+        q1, k1, r1, i1 = one(q32), k32[-1:].contiguous(), one(rnu32), one(iso32)
+        mpert._evolve_cuda(q1, k1, r1, mpert.RSA_KTAU, *sw, iso=i1)
+        serial_ms, _ = timed(lambda: mpert._evolve_cuda(q1, k1, r1, mpert.RSA_KTAU,
+                                                        *sw, iso=i1), 3)
+        q = mpert._stage_tables(bg, tfs[mpert.N_STEP], *sw)
+        ms_full = {}
+        for dt in (F32, F64):
+            qd, kd, rd = q.to(dt), k.to(dt), rnu.to(dt)
+            idt = None if iso is None else iso.to(dt)
+            mpert._evolve_cuda(qd, kd, rd, mpert.RSA_KTAU, *sw, iso=idt)
+            ms_full[dt], _ = timed(lambda: mpert._evolve_cuda(
+                qd, kd, rd, mpert.RSA_KTAU, *sw, iso=idt), 5)
+        full_bound = bound({"fp32": k1_ops(q.float(), nk, name)}, 0)["bound_ms"]
+        log(f"  {name}@{K1_CMP_STEPS} kernel {ms:.3f} ms (bound "
+            f"{cmp_bound['bound_ms']:.4f} ms), plain (float64) {plain_ms:.1f} ms, one "
+            f"lane {serial_ms:.3f} ms; @8192 kernel f32 {ms_full[F32]:.3f} ms (bound "
+            f"{full_bound:.4f} ms), f64 {ms_full[F64]:.3f} ms; base K1 @8192 "
+            f"{results['boltzmann']['ms_8192_steps']:.3f} ms")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             plain_dtype="float64", ms_8192_steps=ms_full[F32],
+                             ms_8192_steps_f64=ms_full[F64],
+                             bound_ms_8192_steps=full_bound, serial_ms=serial_ms,
+                             **cmp_bound)
+
+    # the matter grid: one chain at mnu 0.1 eV, w0 -0.9, wa -0.3
+    kgrid = mpw.matter_k_grid()
+    kmax = float(kgrid[-1])
+    one = np.array([[{**BESTFIT, "mnu": 0.1, "w": -0.9, "wa": -0.3}.get(p.name, p.center)
+                     for p in space.params]])
+    bg1, tfm = inputs(one, MATTER_CMP_STEPS, kmax)
+    km = torch.as_tensor(kgrid, dtype=F64, device=dev)
+    rnu1 = mpert._r_nu(bg1).contiguous()
+    i_dm = mpert.PLANES.index("dm")
+    sw = (True, False)
+    for n in MATTER_CMP_STEPS:
+        q = mpert._stage_tables(bg1, tfm[n], *sw)
+        big = {}
+        for dt in (F32, F64):
+            o = mpert._evolve_cuda(q.to(dt), km.to(dt), rnu1.to(dt), mpert.RSA_KTAU, *sw)
+            big[dt] = (float(o[i_dm].abs().max()) if bool(torch.isfinite(o).all())
+                       else math.inf)
+        log(f"  boltzmann_nu, matter grid, {n} steps: max |delta_m| float32 "
+            f"{big[F32]:.4g}, float64 {big[F64]:.4g}")
+        if max(big.values()) < MATTER_BOUNDED:
+            break
+    else:
+        require(False, "K1 boltzmann_nu bounded on the matter grid at some step count")
+    err, ms, plain_ms, (q32, k32, rnu32, _, o_k) = k1_variant_against_plain(
+        "boltzmann_nu.matter", q, km, rnu1, sw)
+    mg = dict(nk=len(kgrid), kmax=kmax, compare_steps=n, max_abs_err=err, ms=ms,
+              plain_ms=plain_ms, **{f: v for f, v in bound(
+                  {"fp32": k1_ops(q32, len(kgrid), "boltzmann_nu")},
+                  nbytes(q32, k32, rnu32, o_k)).items() if f.startswith("bound")})
+    log(f"  boltzmann_nu.matter@{n} kernel {ms:.3f} ms (bound {mg['bound_ms']:.4f} "
+        f"ms), plain (float64) {plain_ms:.1f} ms")
+    results["boltzmann_nu"]["matter_grid"] = mg
+    for name, sw in (("boltzmann_nu", (True, False)), ("boltzmann_de", (False, True))):
+        q = mpert._stage_tables(bg1, tfm[MATTER_CMP_STEPS[-1]], *sw).float()
+        k32, r32 = km.float(), rnu1.float()
+        mpert._evolve_cuda(q, k32, r32, mpert.RSA_KTAU, *sw)
+        ms6, _ = timed(lambda: mpert._evolve_cuda(q, k32, r32, mpert.RSA_KTAU, *sw), 5)
+        b6 = bound({"fp32": k1_ops(q, len(kgrid), name)}, 0)["bound_ms"]
+        log(f"  {name}, matter grid @{MATTER_CMP_STEPS[-1]}: {ms6:.3f} ms (bound "
+            f"{b6:.4f} ms; base K1 {results['boltzmann']['matter_grid']['ms_6144_steps']:.3f} ms)")
+        results[name].setdefault("matter_grid", {}).update(
+            ms_6144_steps=ms6, bound_ms_6144_steps=b6)
 
 
 def write_theory_cl(path, cls):
@@ -1243,7 +1440,6 @@ def drive_matter_power(dev, tmp, fid):
     + the tau prior under StagedMetropolisSampler: init and one 16-step
     segment with one slow step, which must launch K4 once, K1 twice and K2a
     once a slow step and K3 once a semi step. Returns the launch counts."""
-    from cosmomc_tpu_torch import kernels
     from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
     from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
     from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
@@ -1251,7 +1447,6 @@ def drive_matter_power(dev, tmp, fid):
     from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
     from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
     from cosmomc_tpu_torch.pipeline import CMBPosterior
-    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
 
     par = ThetaParameterization()
     table = synthetic_bbn_table()
@@ -1330,13 +1525,30 @@ def drive_matter_power(dev, tmp, fid):
         f"prior) {float(mll_bf[0]):.6f}; derived " + ", ".join(
             f"{n}={float(der_bf[0, dn.index(n)]):.6f}" for n in mp_names))
     require(float(mll_bf[0]) < 1.0, "fiducial + f_sigma8 BAO -logL near 0")
+    launches, per_segment, out = segment_with_matter_power(post, "flagship_mp")
+    idx = [dn.index(n) for n in mp_names]
+    require(bool(torch.isfinite(out.derived[..., idx]).all()),
+            "sigma8, S8 and fsigma8z* finite in the segment's derived values")
+    return launches, per_segment
+
+
+def segment_with_matter_power(post, label, point=None):
+    """Init and one 16-step segment with one slow step under
+    StagedMetropolisSampler from start points around the best fit (and
+    `point`): the run must launch K4 and K2a once, the path's K1
+    (PATH_KERNELS[label][1]) twice a slow step and K3 once a semi step,
+    nothing else; finite -logL and derived values, no error points.
+    Returns the run's launch counts, the segment's and its output."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+    sync = torch.cuda.synchronize
     prop = post.make_proposal(oversample_fast=4)
     w = np.array([p.propose_width for p in post.space.varying])
     prop.set_covariance(np.diag(w ** 2))
     sampler = StagedMetropolisSampler(prop, post, seed=0)
     expensive = [b for b, c in enumerate(sampler.block_class) if c == 0]
     rng = np.random.default_rng(0)
-    P0 = start_points(post, rng, F32)
+    P0 = start_points(post, rng, F32, point)
     sched = prop.make_schedule(SEG_STEPS, rng, slow_every=SEG_STEPS,
                                expensive_blocks=expensive)
     stage_s, calls = instrument_stages(post)
@@ -1357,19 +1569,19 @@ def drive_matter_power(dev, tmp, fid):
         + ", ".join(f"{n} {stage_s[n]:.3f} s / {calls[n]} calls" for n in stage_s))
     log("  launches in the main-path run: " + json.dumps(launches)
         + "; in the segment alone: " + json.dumps(per_segment))
-    want = {"recfast": calls["slow"], "boltzmann": 2 * calls["slow"],
+    want = {"recfast": calls["slow"], PATH_KERNELS[label][1]: 2 * calls["slow"],
             "los": calls["slow"], "lensing": calls["semi"]}
     for n in KERNELS:
         require(launches[n] == want.get(n, 0),
-                f"{n} launched {want.get(n, 0)} times on the flagship_mp path")
+                f"{n} launched {want.get(n, 0)} times on the {label} path")
     mll = state.mloglike
+    log("  -logL per chain: " + " ".join(f"{float(v):.3f}" for v in mll)
+        + f"; acceptance {float(out.accept.float().mean()):.3f}")
     require(bool(torch.isfinite(mll).all()) and bool((mll < 1e29).all()),
-            "finite -logL with matter power")
-    idx = [dn.index(n) for n in mp_names]
-    require(bool(torch.isfinite(out.derived[..., idx]).all()),
-            "sigma8, S8 and fsigma8z* finite in the segment's derived values")
-    require(not bool(out.error.any()), "no error points")
-    return launches, per_segment
+            f"finite -logL on the {label} path")
+    require(bool(torch.isfinite(out.derived).all()), f"{label}: finite derived")
+    require(not bool(out.error.any()), f"{label}: no error points")
+    return launches, per_segment, out
 
 
 def drive_astro(dev, tmp):
@@ -1492,6 +1704,208 @@ def drive_astro(dev, tmp):
     return launches, per_segment
 
 
+def ext_posterior(dev, label, likes, dtype, alpha1=False):
+    """CMBPosterior of phase 9 or 10 at full width: the flagship's
+    parameterization with EXT_FREE[label] (and alpha1) freed by ini
+    overrides, the tau prior, matter power."""
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.utils.ini import IniFile
+    keys = {f"param[{n}]": v for n, v in EXT_FREE[label].items()}
+    if alpha1:
+        keys["param[alpha1]"] = ALPHA1_FREE
+    par = ThetaParameterization()
+    space = par.default_space(IniFile(keys=keys))
+    space.get("tau").prior_mean = 0.0544
+    space.get("tau").prior_std = 0.0073
+    return CMBPosterior(par, space, likes, bbn_table=synthetic_bbn_table(),
+                        matter_power=True, device=dev, dtype=dtype)
+
+
+def drive_extended(dev, tmp, label):
+    """Phases 9 ("mnu": Planck 2018's base_mnu) and 10 ("w0wa": base_w_wa):
+    the flagship with EXT_FREE[label] sampled and matter power, full width,
+    8 chains, at EXT_POINT[label]: the auto switches (the massive-neutrino
+    hierarchy or the DE fluid, alone); C_l float32 against float64 (1%),
+    sigma8(z) and f sigma8(z) (0.5%); a plik_lite fiducial written from the
+    float32 C_l and a DR12 set with f_sigma8 rows from the float64 theory;
+    -logL there with the tau prior; then init and one 16-step segment with
+    one slow step under StagedMetropolisSampler, which must launch K4, K2a
+    once and the path's K1 instantiation twice a slow step and K3 once a
+    semi step, nothing else. Returns the launch counts."""
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.forecast import write_plik_lite_fiducial
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.likelihoods.synthetic import write_dr12_bao
+
+    sync = torch.cuda.synchronize
+    point = EXT_POINT[label]
+    log(f"phase {label}: " + json.dumps(EXT_FREE[label]) + " at "
+        + json.dumps(point))
+
+    def at(post, dtype, n=1):
+        return torch.as_tensor(np.tile(bestfit_vector(post, point), (n, 1)),
+                               dtype=dtype, device=dev)
+
+    # 1. the theory at the point, float32 (8 chains) and float64 (1 chain)
+    theory, cls = {}, {}
+    for dt in (F32, F64):
+        p0 = ext_posterior(dev, label, LikelihoodList(), dt)
+        want = (label == "mnu", label == "w0wa", False)
+        require((p0.massive_nu_hierarchy, p0.de_perturbations, p0._iso_enabled)
+                == want, f"{label}: the auto switches {want}")
+        require(set(EXT_FREE[label]) <= {p.name for p in p0.space.varying},
+                f"{label}: {sorted(EXT_FREE[label])} sampled")
+        full = p0.embed_full(at(p0, dt, NCHAINS if dt == F32 else 1))
+        t0 = time.time()
+        slow = p0.stage_slow(full)
+        semi = p0.stage_semi(full, slow)
+        sync()
+        log(f"  theory at the point ({str(dt)[6:]}, {full.shape[0]} chains) "
+            f"{time.time() - t0:.2f} s")
+        theory[dt], cls[dt] = p0.assemble_theory(slow, semi), semi["cls"][0]
+    e = {n: rel_err(cls[F32][i, j, 2:2001], cls[F64][i, j, 2:2001])
+         for n, i, j in (("TT", 0, 0), ("TE", 1, 0), ("EE", 1, 1), ("BB", 2, 2),
+                         ("PP", 3, 3))}
+    s8 = {dt: (theory[dt].sigma8_z[0].double(), theory[dt].fsigma8_z[0].double())
+          for dt in (F32, F64)}
+    e8 = float((s8[F32][0] / s8[F64][0] - 1).abs().max())
+    efs8 = float((s8[F32][1] / s8[F64][1] - 1).abs().max())
+    log("  lensed C_l (l <= 2000) float32 vs float64, max rel err: "
+        + ", ".join(f"{n} {v:.2e}" for n, v in e.items())
+        + f"; sigma8(z) {e8:.3e}, f sigma8(z) {efs8:.3e}; sigma8(0) float32 "
+        f"{float(s8[F32][0][0]):.6f}, float64 {float(s8[F64][0][0]):.6f}")
+    require(bool(torch.isfinite(cls[F32]).all()), f"{label}: finite C_l")
+    for n, v in e.items():
+        require(v < 1e-2, f"{label}: float32 {n} within 1% of float64")
+    require(2000.0 < float(cls[F64][0, 0, 220]) < 8000.0, f"{label}: first peak")
+    require(e8 < SIGMA8_F32_TOL and efs8 < SIGMA8_F32_TOL,
+            f"{label}: float32 sigma8 and f sigma8 within 0.5% of float64")
+
+    # 2. the fiducial sets, 3. -logL at the point
+    theory_cl = os.path.join(tmp, f"{label}.theory_cl")
+    write_theory_cl(theory_cl, cls[F32])
+    ds = write_plik_lite_fiducial(os.path.join(tmp, f"{label}_plik_fid"), theory_cl)
+    d = os.path.join(tmp, f"{label}_dr12")
+    bao0 = BAOLikelihood(write_dr12_bao(d, fsigma8=True), device=dev, dtype=F64)
+    dr12 = write_dr12_bao(d, bao0.theory_vector(theory[F64])[0].cpu().numpy(),
+                          fsigma8=True)
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(ds, name="plik_lite", device=dev, dtype=F32))
+    likes.add(BAOLikelihood(dr12, device=dev, dtype=F32))
+    post = ext_posterior(dev, label, likes, F32)
+    mll_bf, der_bf = post.logpost()(at(post, F32))
+    dn = [n for n, _ in post.derived_names]
+    log(f"  -logL at the point (plik_lite + DR12 with f_sigma8 + tau prior) "
+        f"{float(mll_bf[0]):.6f}; derived " + ", ".join(
+            f"{n}={float(der_bf[0, dn.index(n)]):.6f}"
+            for n in ("H0", "omeganuh2", "sigma8", "S8", "fsigma8z051")))
+    require(float(mll_bf[0]) < 1.0, f"{label}: fiducial -logL near 0 at its point")
+    launches, per_segment, _ = segment_with_matter_power(post, label, point)
+    return launches, per_segment
+
+
+def sigma8_mnu_anchors(dev):
+    """Phase 9: sigma8(0) and sigma8(3.1) at mnu = 0.07 eV through
+    compute_matter_power with the massive-neutrino hierarchy (K1's
+    instantiation on the matter grid, 6144 steps, linear), float32 and
+    float64, against CAMB_SIGMA8_MNU (1.5%; tests/test_extended_oracle.py,
+    whose YHe comes from the BBN table: here the synthetic one)."""
+    from cosmomc_tpu_torch.models.background import BackgroundParams
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+    from cosmomc_tpu_torch.models.matterpower import compute_matter_power
+    from cosmomc_tpu_torch.models.primordial import PrimordialParams
+    from cosmomc_tpu_torch.models.recfast import compute_thermo
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    from cosmomc_tpu_torch.params.parameterizations import mnu_to_omnuh2
+    zs = tuple(CAMB_SIGMA8_MNU)
+    s8 = {}
+    for dt in (F32, F64):
+        bg = BackgroundParams.make(ombh2=0.022, omch2=0.122, H0=67.5,
+                                   omnuh2=mnu_to_omnuh2(0.07), device=dev, dtype=dt)
+        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, synthetic_bbn_table().to(dev, dt))
+        th = compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, torch.full((1,), 0.06, dtype=dt, device=dev), yhe)
+        one = bg.H0.new_ones(1)
+        pp = PrimordialParams.make(logA=one * math.log(2e-9 * 1e10), ns=one * 0.965)
+        mp = compute_matter_power(bg, pp, th, zre, yhe, z_outputs=zs,
+                                  nonlinear=False, massive_nu=True)
+        s8[dt] = [float(v) for v in mp.sigma8_z[0]]
+    for dt in (F32, F64):
+        log(f"  sigma8 at mnu = 0.07 eV ({str(dt)[6:]}): " + ", ".join(
+            f"z={z}: {v:.6f} ({v / r - 1:+.4%} vs CAMB {r})"
+            for z, v, r in zip(zs, s8[dt], CAMB_SIGMA8_MNU.values())))
+    for z, v, r in zip(zs, s8[F32], CAMB_SIGMA8_MNU.values()):
+        require(abs(v / r - 1) < CAMB_MNU_TOL,
+                f"float32 sigma8({z}) at mnu = 0.07 eV within 1.5% of CAMB")
+    return s8
+
+
+def iso_response(dev):
+    """Phase 10: the base_w_wa posterior with alpha1 also free, float64, at
+    EXT_POINT["w0wa"] and alpha1 giving the admixture amplitudes 0, ISO_B,
+    -ISO_B, 2 ISO_B (one chain each) through the slow and semi stages (the
+    DE-fluid instantiation with isocurvature ICs): the unlensed TT is
+    quadratic in the amplitude, C(2b) = C(0) + 2 (C(b) - C(-b)) / 2 + 4
+    ((C(b) + C(-b)) / 2 - C(0)) (tests/test_isocurvature.py, rtol 5e-4,
+    atol 1e-6 muK^2), and the pure-isocurvature part is >= 0."""
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.models.cls import cls_from_cl_transfers
+    post = ext_posterior(dev, "w0wa", LikelihoodList(), F64, alpha1=True)
+    require(post._iso_enabled and post.de_perturbations
+            and not post.massive_nu_hierarchy, "w0wa + alpha1: the switches")
+    amp = np.array([0.0, ISO_B, -ISO_B, 2 * ISO_B])
+    P = np.tile(bestfit_vector(post, EXT_POINT["w0wa"]), (4, 1))
+    P[:, [p.name for p in post.space.varying].index("alpha1")] = \
+        np.sign(amp) * amp ** 2 / (1 + amp ** 2)
+    full = post.embed_full(torch.as_tensor(P, dtype=F64, device=dev))
+    got = post.iso_amplitude(full)
+    require(float((got.cpu() - torch.as_tensor(amp)).abs().max()) < 1e-12,
+            "alpha1 -> amplitude map")
+    slow = post.stage_slow(full)
+    semi = post.stage_semi(full, slow)
+    raw = cls_from_cl_transfers(slow["clt"], post._primordial(full),
+                                lmax=post.lmax + post.lens_margin)
+    tt = (raw.tt * MUK2).cpu().numpy()
+    t0, tp, tm, t2 = tt
+    iso_b2 = 0.5 * (tp + tm) - t0
+    pred = t0 + (tp - tm) + 4.0 * iso_b2
+    excess = np.abs(t2 - pred) / (ISO_ATOL + ISO_RTOL * np.abs(pred))
+    log(f"  isocurvature at amplitudes {amp.tolist()}: unlensed TT, l <= "
+        f"{post.lmax + post.lens_margin}: |C(2b) - quadratic| at most "
+        f"{float(np.abs(t2 - pred).max()):.3e} muK^2, {float(excess.max()):.3e} of "
+        f"the tolerance; pure-iso TT at l=10 {float(iso_b2[8]):.4f}, l=150 "
+        f"{float(iso_b2[148]):.4f} muK^2 (b = {ISO_B})")
+    require(bool(np.isfinite(tt).all()) and bool(torch.isfinite(semi["cls"]).all()),
+            "isocurvature C_l finite")
+    require(bool((iso_b2 > -1e-8 * np.abs(t0)).all()), "pure-iso TT >= 0")
+    require(float(excess.max()) <= 1.0, "isocurvature TT quadratic in the amplitude")
+    return float(np.abs(t2 - pred).max())
+
+
+def kernel_of(line):
+    """The kernel and template arguments of a ptxas "Compiling entry
+    function" line: _ZN<len><namespace><len><fn>I{f,d}[Li<NPT>E][Lb<0|1>E
+    ...]E...: f float, d double; K1's bool flags are NU, DE."""
+    mangled = line.split("'")[1] if "'" in line else "?"
+    m = re.search(r"_ZN(\d+)", line)
+    n = m and re.match(r"\d+", line[m.end() + int(m.group(1)):])
+    if not n:
+        return mangled
+    i = m.end() + int(m.group(1))
+    name = line[i + n.end():i + n.end() + int(n.group())]
+    t = re.match(r"I([fd])(?:Li(\d+)E)?((?:Lb[01]E)*)",
+                 line[i + n.end() + int(n.group()):])
+    if not t:
+        return name
+    flags = re.findall(r"Lb([01])E", t.group(3))
+    return (f"{name} {'f64' if t.group(1) == 'd' else 'f32'}"
+            + (f" NPT={t.group(2)}" if t.group(2) else "")
+            + "".join(f" {k}={f}" for k, f in zip(("NU", "DE"), flags)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
@@ -1525,11 +1939,7 @@ def main() -> int:
         kind = "?"
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                # mangled: <len><fn>I{f,d}[Li<NPT>E]E...: f float, d double
-                m = re.search(r"\d+([a-z_][a-z_0-9]*)I([fd])(?:Li(\d+)E)?", line)
-                kind = (f"{m.group(1)} {'f64' if m.group(2) == 'd' else 'f32'}"
-                        + (f" NPT={m.group(3)}" if m.group(3) else "")
-                        if m else line.split("'")[1] if "'" in line else "?")
+                kind = kernel_of(line)
             elif "registers" in line or "spill stores" in line:
                 log(f"  ptxas {name} [{kind}]: {line.split('info    :')[-1].strip()}")
 
@@ -1537,6 +1947,7 @@ def main() -> int:
     t0 = time.time()
     phase2(dev, results)
     phase2_matter(dev, results)
+    phase2_variants(dev, results)
     log(f"phase 2 done in {time.time() - t0:.1f} s")
     launches, segment = {}, {}
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE)) as tmp:
@@ -1565,6 +1976,14 @@ def main() -> int:
         t0 = time.time()
         launches["astro"], segment["astro"] = drive_astro(dev, tmp)
         log(f"phase 8 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        sigma8_mnu_anchors(dev)
+        launches["mnu"], segment["mnu"] = drive_extended(dev, tmp, "mnu")
+        log(f"phase 9 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["w0wa"], segment["w0wa"] = drive_extended(dev, tmp, "w0wa")
+        iso_response(dev)
+        log(f"phase 10 done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():

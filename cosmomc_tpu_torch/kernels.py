@@ -8,7 +8,10 @@ library under `_build/` (keyed by a hash of the sources and flags) and
 loaded with ctypes. Nothing here runs at import time.
 
 `launches[name]` counts the launches each wrapper makes: it is raised by
-one where the kernel is launched, and nowhere else.
+one where the kernel is launched, and nowhere else. A source may hold
+several instantiations (`VARIANTS`: K1's massive-neutrino and dark-energy
+extensions), each with entry points `<variant>_f32|f64` and a count of
+its own.
 """
 
 from __future__ import annotations
@@ -35,10 +38,13 @@ SOURCES = {
     "tensors": "tensors.cu",          # K5
     "tensor_los": "tensor_los.cu",    # K6
 }
+#: instantiation -> the kernel (source) that holds it
+VARIANTS = {"boltzmann_nu": "boltzmann", "boltzmann_de": "boltzmann",
+            "boltzmann_nu_de": "boltzmann"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in (*SOURCES, *VARIANTS)}
 #: ptxas report (registers, spills) and build seconds of each built kernel
 build_log: dict = {}
 build_seconds: dict = {}
@@ -119,10 +125,12 @@ def check(t: torch.Tensor, what: str, shape, dtype=None) -> None:
 
 
 def launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Call `<name>_f32|f64` (see `call`) and count the launch."""
+    """Call `<name>_f32|f64` (see `call`) of the kernel or instantiation
+    `name` and count the launch."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: float32 or float64 only, got {dtype}")
-    call(getattr(load(name), f"{name}_{'f64' if dtype == torch.float64 else 'f32'}"),
+    lib = load(VARIANTS.get(name, name))
+    call(getattr(lib, f"{name}_{'f64' if dtype == torch.float64 else 'f32'}"),
          *args)
     launches[name] += 1
 

@@ -32,14 +32,19 @@ def source_k_grid(kmax: float = 0.45, nk_log: int = 48, nk_lin: int = 200,
 def compute_transfers(bg: BackgroundParams, th: ThermoHistory,
                       zre: torch.Tensor, yhe: torch.Tensor, k,
                       z_outputs: Tuple[float, ...] = (0.0,), n_step: int = 0,
-                      massive_nu: bool = False, de_perts: bool = False):
-    """Slow stage: thermal tables + Boltzmann evolution for every chain.
-    Returns (transfers, chi_star (C,), ThermoFuncs)."""
+                      massive_nu: bool = False, de_perts: bool = False,
+                      iso_cdm_amp=0.0):
+    """Slow stage: thermal tables + Boltzmann evolution for every chain;
+    massive_nu / de_perts extend the evolved state and iso_cdm_amp (0.0
+    or one amplitude a chain) adds the CDM-isocurvature admixture
+    (perturbations.evolve_perturbations). Returns (transfers, chi_star
+    (C,), ThermoFuncs)."""
     kw = dict(n_step=n_step) if n_step else {}
     tf, tau0 = build_thermo_funcs(bg, yhe, th, zre, **kw)
     k = torch.as_tensor(np.asarray(k), dtype=tf.tau.dtype, device=tf.tau.device)
     po = evolve_perturbations(bg, tf, tau0, k, z_outputs,
-                              massive_nu=massive_nu, de_perts=de_perts)
+                              massive_nu=massive_nu, de_perts=de_perts,
+                              iso_cdm_amp=iso_cdm_amp)
     ipk = torch.argmax(tf.vis, dim=-1, keepdim=True)
     chi_star = tau0 - tf.tau.gather(-1, ipk)[:, 0]
     return po, chi_star, tf

@@ -1,16 +1,24 @@
 """Linear Einstein-Boltzmann evolution, synchronous gauge (kernel K1).
 
-Port of cosmomc_tpu/models/perturbations.py for the base LCDM layout
-(NVAR = 37: CDM, baryons, photon temperature and polarization hierarchies,
-massless neutrinos, metric): Ma & Bertschinger (1995) equations, per-lane
-tight-coupling (TCA) and radiation-streaming (RSA) switches, classical RK4
-on a shared conformal-time grid whose density follows the opacity, lanes
-held on analytic adiabatic ICs until k tau >= IC_RELEASE_KTAU or tau >= 3,
-and source functions at every node normalized by the initial curvature.
+Port of cosmomc_tpu/models/perturbations.py: Ma & Bertschinger (1995)
+equations for CDM, baryons, photon temperature and polarization
+hierarchies, massless neutrinos and the metric (the base layout, NVAR =
+37), per-lane tight-coupling (TCA) and radiation-streaming (RSA) switches,
+classical RK4 on a shared conformal-time grid whose density follows the
+opacity, lanes held on analytic ICs until k tau >= IC_RELEASE_KTAU or
+tau >= 3, and source functions at every node normalized by the initial
+curvature of the pure-adiabatic state.
 
-The massive-neutrino momentum hierarchy, the dark-energy fluid and CDM
-isocurvature are not in this slice: asking for them raises
-NotImplementedError.
+Three static extensions, as in the JAX package:
+  - `massive_nu`: the momentum-sampled massive-neutrino hierarchy
+    Psi_l(q_i), l = 0..LMAXNU on NQ_NU Gauss nodes (NVAR_NU more state
+    variables), with the background density and pressure of the massive
+    eigenstate from the same 4-node quadrature;
+  - `de_perts`: the c_s^2 = 1 dark-energy fluid [delta_de, (1+w) theta_de]
+    (NVAR_DE more), its 1/(1+w) Tikhonov-regularized near w = -1;
+  - `iso_cdm_amp`: a correlated CDM-isocurvature admixture in the ICs, one
+    amplitude a chain.
+The extended state is appended after the base layout.
 
 Layout of the work:
   - `build_thermo_funcs` (plain torch) builds the tau grid and the thermal
@@ -18,18 +26,22 @@ Layout of the work:
     caller computed once;
   - `_stage_tables` evaluates every k-independent quantity the RHS needs
     (a, opacity, c_s^2, local step, the species densities, conformal H,
-    pressure, visibility) at the three RK4 stage times of every step, with
+    pressure, visibility, and the extended sectors' node factors and fluid
+    coefficients) at the three RK4 stage times of every step, with
     jnp.interp's arithmetic, as one vectorized pass;
   - the per-(chain, k) recurrence runs as `_evolve_plain` (batched torch,
     the reference path and what CPU tensors take) or as the CUDA kernel
     csrc/perturbations.cu (one warp per (chain, k) lane, one multipole a
-    thread).
+    thread), one instantiation per combination of the two state
+    extensions.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from cosmomc_tpu_torch import kernels
@@ -60,10 +72,75 @@ TC_OPACTAU = 200.0
 TC_LAM_MAX = 150.0
 IC_RELEASE_KTAU = 0.08
 
-# fields of the per-stage table (chains, steps, 3 stages, NQ)
+NQ_NU = 4          # momentum nodes of the massive-neutrino hierarchy
+LMAXNU = 6         # Psi_l truncation
+NVAR_NU = NQ_NU * (LMAXNU + 1)
+NVAR_DE = 2
+
+
+def _trapezoid(y: np.ndarray, x: np.ndarray) -> float:
+    """numpy's trapezoid rule, written out (the same operations in the
+    same order), so the constants do not depend on the numpy version."""
+    return float(np.add.reduce(np.diff(x) * (y[1:] + y[:-1]) / 2.0))
+
+
+def _nu_quadrature(nq: int = NQ_NU):
+    """Gauss nodes and weights for int_0^inf dq q^3 f0(q) g(q), f0 =
+    1/(e^q + 1), by discrete Stieltjes orthogonalization (host, float64);
+    the weights sum to int q^3 f0 = 7 pi^4/120."""
+    q = np.linspace(1e-6, 45.0, 30001)
+    w = q ** 3 / (np.exp(q) + 1.0)
+    a, b = np.zeros(nq), np.zeros(nq)
+    p_prev, p = np.zeros_like(q), np.ones_like(q)
+    norm_prev = 1.0
+    for j in range(nq):
+        norm = _trapezoid(w * p * p, q)
+        a[j] = _trapezoid(w * q * p * p, q) / norm
+        if j > 0:
+            b[j] = norm / norm_prev
+        p_next = (q - a[j]) * p - (b[j] if j > 0 else 0.0) * p_prev
+        p_prev, p, norm_prev = p, p_next, norm
+    J = np.diag(a) + np.diag(np.sqrt(b[1:]), 1) + np.diag(np.sqrt(b[1:]), -1)
+    nodes, vecs = np.linalg.eigh(J)
+    return nodes, _trapezoid(w, q) * vecs[0] ** 2
+
+
+_NU_Q, _NU_W = _nu_quadrature()
+_NU_WNORM = _NU_W / _NU_W.sum()                  # weights of the <.> average
+#: d ln f0 / d ln q at the nodes, rescaled so that the quadrature gives
+#: <dlnf0/dlnq> = -4 exactly: the am -> 0 limit of the hierarchy is then
+#: the massless F_l equations to rounding
+_NU_DLNF = -_NU_Q / (1.0 + np.exp(-_NU_Q))
+_NU_DLNF = _NU_DLNF * (4.0 / abs(float((_NU_WNORM * _NU_DLNF).sum())))
+
+
+def extra_state(massive_nu: bool, de_perts: bool) -> int:
+    return (NVAR_NU if massive_nu else 0) + (NVAR_DE if de_perts else 0)
+
+
+# fields of the per-stage table (chains, steps, 3 stages, q_fields(...))
 (Q_TAU, Q_OPAC, Q_CSQB, Q_DTLOC, Q_GG, Q_GN, Q_GML, Q_GC, Q_GB, Q_ADOTOA,
  Q_GRHO, Q_GPRES, Q_R, Q_VIS, Q_EXPMK, Q_GNISW) = range(16)
 NQ = 16
+# with massive_nu, after the base fields: eps_q/q and q/eps_q at each node
+# and (am < 2) as 1 or 0; with de_perts, after those: w, grho_de and dw/dtau
+# times the regularized 1/(1 + w)
+Q_EQ, Q_QE, Q_AMLT2 = NQ, NQ + NQ_NU, NQ + 2 * NQ_NU
+NQ_NU_FIELDS = 2 * NQ_NU + 1
+Q_WDE, Q_GDE, Q_WPR = range(3)         # offsets from q_de(massive_nu)
+NQ_DE_FIELDS = 3
+
+
+def q_de(massive_nu: bool) -> int:
+    """The first dark-energy field of a stage-table row."""
+    return NQ + (NQ_NU_FIELDS if massive_nu else 0)
+
+
+def q_fields(massive_nu: bool, de_perts: bool) -> int:
+    """Fields of a stage-table row with the given extensions."""
+    return q_de(massive_nu) + (NQ_DE_FIELDS if de_perts else 0)
+
+
 #: csrc/perturbations.cu: the first thread of a warp that holds a multipole
 #: of each hierarchy (F_g 2..LMAXG, G 0..LMAXGP, F_nu 2..LMAXNR, one a thread)
 MULTIPOLE_LANES = {"fg": 0, "gp": LMAXG - 1, "fn": LMAXG - 1 + LMAXGP + 1}
@@ -97,13 +174,6 @@ class PerturbationOutput(NamedTuple):
     ddelta_m_z: torch.Tensor   # (C, nz, nk)
     weyl_z: torch.Tensor       # (C, nz, nk)
     aH_z: torch.Tensor         # (C, nz)
-
-
-def check_switches(massive_nu=False, de_perts=False, iso_cdm_amp=0.0) -> None:
-    if massive_nu or de_perts or iso_cdm_amp != 0.0:
-        raise NotImplementedError(
-            "only the base LCDM layout is ported: the massive-neutrino "
-            "hierarchy, DE fluid and CDM isocurvature are not")
 
 
 def _conformal_time_table(bg: BackgroundParams, n: int = 4096):
@@ -218,9 +288,12 @@ def grho_terms(bg: BackgroundParams, a: torch.Tensor):
             (C3 * d["omkh2"]).expand_as(a))
 
 
-def _stage_tables(bg: BackgroundParams, tf: ThermoFuncs) -> torch.Tensor:
+def _stage_tables(bg: BackgroundParams, tf: ThermoFuncs,
+                  massive_nu: bool = False, de_perts: bool = False
+                  ) -> torch.Tensor:
     """Every k-independent RHS input at the RK4 stage times (tau_a, the
-    midpoint, tau_b) of every step: (C, N-1, 3, NQ)."""
+    midpoint, tau_b) of every step: (C, N-1, 3, q_fields(massive_nu,
+    de_perts))."""
     taus = tf.tau
     dt = taus[:, 1:] - taus[:, :-1]
     ta = taus[:, :-1]
@@ -240,17 +313,37 @@ def _stage_tables(bg: BackgroundParams, tf: ThermoFuncs) -> torch.Tensor:
     gde = C3 * d["omdeh2"] * a ** (2.0 - 3.0 * (1.0 + c(bg.w) + c(bg.wa))) \
         * torch.exp(-3.0 * c(bg.wa) * (1.0 - a))
     gk = C3 * d["omkh2"]
-    # small-mnu layout: the massive eigenstate rides the massless equations
-    grho = gg + gn + gml + gc + gb + gde
+    extra = []
+    if massive_nu:
+        # the massive eigenstate's density and pressure from the same
+        # 4-node quadrature as the Psi_l(q) sums (perturbations.py:383-392)
+        nu_q = torch.as_tensor(_NU_Q, dtype=a.dtype, device=a.device)
+        nu_wn = torch.as_tensor(_NU_WNORM, dtype=a.dtype, device=a.device)
+        am = a * d["nu_mass"]
+        eps_q = torch.sqrt(nu_q ** 2 + am[..., None] ** 2)    # (C, M, NQ_NU)
+        eq, qe = eps_q / nu_q, nu_q / eps_q
+        grho_m = gml * torch.sum(nu_wn * eq, -1)
+        gpres_m = gml * torch.sum(nu_wn * qe, -1) / 3.0
+        gn_isw = gn
+        extra += [*eq.unbind(-1), *qe.unbind(-1), (am < 2.0).to(a.dtype)]
+    else:
+        # small-mnu layout: the massive eigenstate rides the massless
+        # equations
+        grho_m, gpres_m, gn_isw = gml, gml / 3.0, gn + gml
+    grho = gg + gn + grho_m + gc + gb + gde
     adotoa = torch.sqrt((grho + gk) / 3.0)
     w_de = c(bg.w) + c(bg.wa) * (1.0 - a)
-    gpres = (gg + gn) / 3.0 + gml / 3.0 + w_de * gde
+    gpres = (gg + gn) / 3.0 + gpres_m + w_de * gde
+    if de_perts:
+        opw = 1.0 + w_de
+        extra += [w_de, gde,
+                  (-c(bg.wa) * a * adotoa) * (opw / (opw * opw + 1e-4))]
     q = torch.stack([ts, interp(ts, taus, tf.opac), interp(ts, taus, tf.csqb),
                      interp(ts, taus, dtau_tab), gg, gn, gml, gc, gb, adotoa,
                      grho, gpres, (4.0 / 3.0) * gg / gb,
                      interp(ts, taus, tf.vis), interp(ts, taus, tf.expmk),
-                     gn + gml], dim=-1)
-    return q.reshape(C, M // 3, 3, NQ).contiguous()
+                     gn_isw, *extra], dim=-1)
+    return q.reshape(C, M // 3, 3, q_fields(massive_nu, de_perts)).contiguous()
 
 
 def _r_nu(bg: BackgroundParams) -> torch.Tensor:
@@ -259,23 +352,67 @@ def _r_nu(bg: BackgroundParams) -> torch.Tensor:
     return grho_n / (d["ogh2"] + grho_n)
 
 
-def adiabatic_ics(k: torch.Tensor, tau: torch.Tensor, rnu: torch.Tensor
-                  ) -> torch.Tensor:
+def iso_inputs(bg: BackgroundParams, b: torch.Tensor) -> torch.Tensor:
+    """Per chain (C, 3): the CDM-isocurvature amplitude b, the
+    matter/radiation transition rate omega = 3 H100 (ombh2 + omch2) /
+    sqrt(3 (grho_g + grho_n)) (1/Mpc) and R_c = omch2 / (ombh2 + omch2)
+    (perturbations.py:722-724)."""
+    d = densities(bg)
+    om_m = bg.ombh2 + bg.omch2
+    grho_r = d["ogh2"] + d["onu1"] * (d["massless_deg"] + d["massive_deg"])
+    om = 3.0 * H100_MPC * om_m / torch.sqrt(3.0 * grho_r)
+    b = torch.as_tensor(b, dtype=om.dtype, device=om.device).expand_as(om)
+    return torch.stack([b, om, bg.omch2 / om_m], -1).contiguous()
+
+
+def adiabatic_ics(k: torch.Tensor, tau: torch.Tensor, rnu: torch.Tensor,
+                  massive_nu: bool = False, de_perts: bool = False,
+                  iso: Optional[torch.Tensor] = None) -> torch.Tensor:
     """MB95 eq (96) adiabatic ICs (C=1): k (nk,), tau and rnu (C, 1) ->
-    state (C, nk, NVAR)."""
+    state (C, nk, NVAR + extra_state(massive_nu, de_perts)). With `iso`
+    (C, 3, from `iso_inputs`), the correlated CDM-isocurvature admixture
+    of amplitude b (perturbations.py:718-737); with massive_nu, Psi_l(q)
+    from the combined neutrino moments (MB95 eq 98); the DE fluid starts
+    at zero."""
     kt = k * tau
     dg = -(2.0 / 3.0) * kt ** 2
     theta = -(1.0 / 18.0) * k * kt ** 3
-    y = torch.zeros(kt.shape + (NVAR,), dtype=kt.dtype, device=kt.device)
+    theta_n = theta * (23.0 + 4.0 * rnu) / (15.0 + 4.0 * rnu)
+    fn2 = 2.0 * (2.0 * kt ** 2 / (3.0 * (15.0 + 4.0 * rnu)))
+    eta = 2.0 - (5.0 + 4.0 * rnu) / (6.0 * (15.0 + 4.0 * rnu)) * kt ** 2
+    dc = db = 0.75 * dg
+    dn, tb = dg, theta
+    if iso is not None:
+        b, om, Rc = iso[:, 0:1], iso[:, 1:2], iso[:, 2:3]
+        ot = om * tau
+        dgi = Rc * ot * (4.0 / 3.0 - 0.5 * ot)
+        dc = dc + b * (-2.0 + 0.75 * dgi)
+        db = db + b * 0.75 * dgi
+        dg = dg + b * dgi
+        dn = dn + b * dgi
+        ti = Rc * k * ot * kt / 6.0
+        tb = tb + b * ti
+        theta = theta + b * ti
+        theta_n = theta_n + b * ti
+        fn2 = fn2 + b * (Rc * ot * kt ** 2 / (3.0 * (2.0 * rnu + 15.0)))
+        eta = eta + b * (Rc * ot * (1.0 / 3.0 - ot / 8.0))
+    y = torch.zeros(kt.shape + (NVAR + extra_state(massive_nu, de_perts),),
+                    dtype=kt.dtype, device=kt.device)
     y[..., _I_DG] = dg
-    y[..., _I_DC] = 0.75 * dg
-    y[..., _I_DB] = 0.75 * dg
-    y[..., _I_DN] = dg
+    y[..., _I_DC] = dc
+    y[..., _I_DB] = db
+    y[..., _I_DN] = dn
     y[..., _I_TG] = theta
-    y[..., _I_TB] = theta
-    y[..., _I_TN] = theta * (23.0 + 4.0 * rnu) / (15.0 + 4.0 * rnu)
-    y[..., _I_FN2] = 2.0 * (2.0 * kt ** 2 / (3.0 * (15.0 + 4.0 * rnu)))
-    y[..., _I_ETA] = 2.0 - (5.0 + 4.0 * rnu) / (6.0 * (15.0 + 4.0 * rnu)) * kt ** 2
+    y[..., _I_TB] = tb
+    y[..., _I_TN] = theta_n
+    y[..., _I_FN2] = fn2
+    y[..., _I_ETA] = eta
+    if massive_nu:
+        dlnf = torch.as_tensor(_NU_DLNF, dtype=kt.dtype, device=kt.device)
+        psi = y[..., NVAR:NVAR + NVAR_NU].view(kt.shape + (NQ_NU, LMAXNU + 1))
+        psi[..., 0] = -(0.25 * dn)[..., None] * dlnf
+        psi[..., 1] = -(theta_n / (3.0 * k))[..., None] * dlnf
+        psi[..., 2] = -(0.25 * fn2)[..., None] * dlnf
     return y
 
 
@@ -295,9 +432,10 @@ def measure_curvature(bg: BackgroundParams, tf: ThermoFuncs, y: torch.Tensor,
 
 
 def _rhs(y: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
-         rsa_ktau: float):
-    """MB95 synchronous-gauge RHS (perturbations.py:375-683, base layout)
-    for y (C, nk, NVAR) at one stage; q (C, NQ). Returns (dy, aux)."""
+         rsa_ktau: float, massive_nu: bool = False, de_perts: bool = False):
+    """MB95 synchronous-gauge RHS (perturbations.py:375-683) for y (C, nk,
+    NVAR + extra_state(massive_nu, de_perts)) at one stage; q (C,
+    q_fields(massive_nu, de_perts)). Returns (dy, aux)."""
     Q = lambda f: q[:, f:f + 1]
     tau, opac, csqb, dt_loc = Q(Q_TAU), Q(Q_OPAC), Q(Q_CSQB), Q(Q_DTLOC)
     grho_g, grho_n, gml, grho_c, grho_b = (Q(Q_GG), Q(Q_GN), Q(Q_GML),
@@ -331,14 +469,41 @@ def _rhs(y: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     dn = torch.where(rsa, dn_rsa, dn)
     tn = torch.where(rsa, tn_rsa, tn)
 
-    wnu_m = (4.0 / 3.0) * gml
     zero = torch.zeros_like(dg)
     sigma_n = torch.where(rsa, zero, fn[..., 0] / 2.0)
+    if massive_nu:
+        # MB95 eq 55 on the Gauss nodes; past the RSA boundary while
+        # relativistic, or where the step cannot resolve the (q/eps) k
+        # streaming, the species is slaved to the massless one
+        # (perturbations.py:481-503)
+        nu_wn = torch.as_tensor(_NU_WNORM, dtype=y.dtype, device=y.device)
+        psi = y[..., NVAR:NVAR + NVAR_NU].unflatten(-1, (NQ_NU, LMAXNU + 1))
+        eq = q[:, None, Q_EQ:Q_EQ + NQ_NU]                  # (C, 1, NQ_NU)
+        qe = q[:, None, Q_QE:Q_QE + NQ_NU]
+        nu_rel_rsa = rsa & ((Q(Q_AMLT2) != 0.0) | (k * dt_loc > 0.9))
+        dgrho_m = torch.where(nu_rel_rsa, gml * dn_rsa,
+                              gml * torch.sum(nu_wn * eq * psi[..., 0], -1))
+        dgq_m = torch.where(nu_rel_rsa, (4.0 / 3.0) * gml * tn_rsa,
+                            gml * k * torch.sum(nu_wn * psi[..., 1], -1))
+        dgpi_m = torch.where(nu_rel_rsa, zero, (2.0 / 3.0) * gml * torch.sum(
+            nu_wn * qe * psi[..., 2], -1))
+    else:
+        # radiation-equivalent weights on the massless hierarchy's shape
+        wnu_m = (4.0 / 3.0) * gml
+        dgrho_m, dgq_m, dgpi_m = gml * dn, wnu_m * tn, wnu_m * sigma_n
     dgrho = (grho_c * dc + grho_b * db + grho_g * dg + grho_n * dn
-             + gml * dn)
-    hdot = (2.0 * k2 * eta + dgrho) / adotoa
+             + dgrho_m)
     dgq = ((4.0 / 3.0) * (grho_g * tg + grho_n * tn) + grho_b * tb
-           + wnu_m * tn)
+           + dgq_m)
+    if de_perts:
+        # the c_s^2 = 1 fluid, frozen past the RSA boundary
+        i_de = NVAR + (NVAR_NU if massive_nu else 0)
+        de_delta, de_V = y[..., i_de], y[..., i_de + 1]
+        w_de, grho_de, wpr = (Q(q_de(massive_nu) + f)
+                              for f in (Q_WDE, Q_GDE, Q_WPR))
+        dgrho = dgrho + torch.where(rsa, zero, grho_de * de_delta)
+        dgq = dgq + torch.where(rsa, zero, grho_de * de_V)
+    hdot = (2.0 * k2 * eta + dgrho) / adotoa
     etadot = 0.5 * dgq / k2
 
     fg2_tca = (4.0 / 3.0) * tauc * ((8.0 / 15.0) * tg + (4.0 / 15.0) * hdot
@@ -347,7 +512,7 @@ def _rhs(y: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     sigma_g = fg2_eff / 2.0
     pol_term = torch.where(rsa, zero, torch.where(
         tc_on, 2.5 * fg2_tca, fg[..., 0] + gp[..., 0] + gp[..., 2]))
-    dgpi = (4.0 / 3.0) * (grho_g * sigma_g + grho_n * sigma_n) + wnu_m * sigma_n
+    dgpi = (4.0 / 3.0) * (grho_g * sigma_g + grho_n * sigma_n) + dgpi_m
 
     sl = dg / 4.0 - sigma_g
     tbdot_full = -adotoa * tb + csqb * k2 * db + R * opac * (tg - tb)
@@ -406,15 +571,46 @@ def _rhs(y: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                       -1)
     fndot = torch.where(rsa[..., None], 0.0, fndot)
 
-    dy = torch.cat([torch.stack([etadot, dcdot, dbdot, tbdot, dgdot, tgdot],
-                                -1), fgdot, gpdot,
-                    torch.stack([dndot, tndot], -1), fndot], -1)
+    parts = [torch.stack([etadot, dcdot, dbdot, tbdot, dgdot, tgdot], -1),
+             fgdot, gpdot, torch.stack([dndot, tndot], -1), fndot]
     aux = dict(hdot=hdot, etadot=etadot, dgpi=dgpi, sigma_g=sigma_g,
                sigma_n=sigma_n,
                sigg_dot=torch.where(frozen, zero, fg2dot) / 2.0,
                sign_dot=torch.where(rsa, zero, fn2dot) / 2.0,
                pol_term=pol_term)
-    return dy, aux
+    if massive_nu:
+        # MB95 eq 57 per node, closed by eq 58 (perturbations.py:619-640)
+        dlnf = torch.as_tensor(_NU_DLNF, dtype=y.dtype, device=y.device)
+        qke = qe * kk                                       # (C, nk, NQ_NU)
+        ls = torch.arange(LMAXNU + 1, dtype=y.dtype, device=y.device)
+        prev = torch.cat([torch.zeros_like(psi[..., :1]), psi[..., :-1]], -1)
+        nxt = torch.cat([psi[..., 1:], torch.zeros_like(psi[..., :1])], -1)
+        psid = (qke[..., None] / (2.0 * ls + 1.0)) * (ls * prev - (ls + 1.0) * nxt)
+        e = lambda v: v[..., None]
+        psid = torch.cat([
+            e(psid[..., 0] + e(hdot / 6.0) * dlnf), psid[..., 1:2],
+            e(psid[..., 2] - e(hdot / 15.0 + 2.0 * etadot / 5.0) * dlnf),
+            psid[..., 3:LMAXNU],
+            e(qke * psi[..., LMAXNU - 1]
+              - e((LMAXNU + 1.0) / tau_safe) * psi[..., LMAXNU])], -1)
+        psid = torch.where(nu_rel_rsa[..., None, None], 0.0, psid)
+        parts.append(psid.flatten(-2))
+        # d/dtau of the massive anisotropic-stress sum, for psi' (ISW):
+        # gml' = -2 aH gml and (q/eps)' = -(q/eps) (am/eps)^2 aH, where
+        # (am/eps)^2 = 1 - (q/eps)^2
+        aux["dgpidot_extra"] = torch.where(nu_rel_rsa, zero, (2.0 / 3.0) * gml * torch.sum(
+            nu_wn * (qe * psid[..., 2]
+                     - (qe * (3.0 - qe * qe) * e(adotoa)) * psi[..., 2]), -1))
+    if de_perts:
+        # V = (1 + w) theta form (perturbations.py:649-662)
+        de_ddot = (-de_V - (1.0 + w_de) * 0.5 * hdot
+                   - 3.0 * adotoa * (1.0 - w_de) * de_delta
+                   - (9.0 * adotoa ** 2 * (1.0 - w_de)
+                      + 3.0 * adotoa * wpr) * de_V / k2)
+        de_Vdot = 2.0 * adotoa * de_V + k2 * de_delta + wpr * de_V
+        parts.append(torch.stack([torch.where(rsa, zero, de_ddot),
+                                  torch.where(rsa, zero, de_Vdot)], -1))
+    return torch.cat(parts, -1), aux
 
 
 def _sources(y, dy, aux, q, k):
@@ -435,6 +631,8 @@ def _sources(y, dy, aux, q, k):
     dgpidot = (4.0 / 3.0) * (
         -2.0 * adotoa * (grho_g * aux["sigma_g"] + grho_n * aux["sigma_n"])
         + grho_g * aux["sigg_dot"] + grho_n * aux["sign_dot"])
+    if "dgpidot_extra" in aux:
+        dgpidot = dgpidot + aux["dgpidot_extra"]
     psidot = phidot - 1.5 * dgpidot / k2
     theta0_N = y[..., _I_DG] / 4.0 - adotoa * alpha
     vb_N = (y[..., _I_TB] + k2 * alpha) / k
@@ -452,33 +650,55 @@ def _sources(y, dy, aux, q, k):
 
 
 def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
-                  rsa_ktau: float) -> torch.Tensor:
-    """RK4 over the grid as batched torch; returns (7, C, N-1, nk)."""
+                  rsa_ktau: float, massive_nu: bool = False,
+                  de_perts: bool = False,
+                  iso: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RK4 over the grid as batched torch; returns (7, C, N-1, nk). `iso`
+    (C, 3, from `iso_inputs`) adds the CDM-isocurvature admixture to the
+    ICs."""
     C, S = qtab.shape[0], qtab.shape[1]
     rn = rnu[:, None]
     out = torch.empty(len(PLANES), C, S, k.shape[0], dtype=qtab.dtype,
                       device=qtab.device)
-    y = adiabatic_ics(k, qtab[:, 0, 0, Q_TAU:Q_TAU + 1], rn)
+    sw = dict(massive_nu=massive_nu, de_perts=de_perts)
+
+    def ics(tau):
+        return adiabatic_ics(k, tau, rn, iso=iso, **sw)
+    y = ics(qtab[:, 0, 0, Q_TAU:Q_TAU + 1])
     with torch.no_grad():
         for i in range(S):
             qa, qm, qb = qtab[:, i, 0], qtab[:, i, 1], qtab[:, i, 2]
             tau_a, tau_b = qa[:, Q_TAU:Q_TAU + 1], qb[:, Q_TAU:Q_TAU + 1]
             dt = (tau_b - tau_a)[..., None]
-            k1, _ = _rhs(y, qa, k, rsa_ktau)
-            k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau)
-            k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau)
-            k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau)
+            k1, _ = _rhs(y, qa, k, rsa_ktau, **sw)
+            k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau, **sw)
+            k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau, **sw)
+            k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau, **sw)
             y_new = y + (dt / 6.0) * (k1 + 2 * k2_ + 2 * k3_ + k4_)
             released = (k * tau_b >= IC_RELEASE_KTAU) | (tau_b >= 3.0)
-            y = torch.where(released[..., None], y_new,
-                            adiabatic_ics(k, tau_b, rn))
-            dy, aux = _rhs(y, qb, k, rsa_ktau)
+            y = torch.where(released[..., None], y_new, ics(tau_b))
+            dy, aux = _rhs(y, qb, k, rsa_ktau, **sw)
             out[:, :, i] = torch.stack(_sources(y, dy, aux, qb, k))
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _nu_constants(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(2, NQ_NU) on the device, once: the normalized node weights and
+    d ln f0 / d ln q, as csrc/perturbations.cu reads them."""
+    return torch.as_tensor(np.stack([_NU_WNORM, _NU_DLNF]), dtype=dtype,
+                           device=device)
+
+
+#: the kernel instantiation of each (massive_nu, de_perts)
+VARIANTS = {(False, False): "boltzmann", (True, False): "boltzmann_nu",
+            (False, True): "boltzmann_de", (True, True): "boltzmann_nu_de"}
+
+
 def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
-                 rsa_ktau: float) -> torch.Tensor:
+                 rsa_ktau: float, massive_nu: bool = False,
+                 de_perts: bool = False,
+                 iso: Optional[torch.Tensor] = None) -> torch.Tensor:
     """csrc/perturbations.cu: one warp per (chain, k) lane runs the whole
     tau loop.
 
@@ -486,22 +706,31 @@ def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
     lax.scan at :928 over make_rhs.rhs and rk4_step). Bound: operations (5
     RHS evaluations a step, ~8191 dependent steps per lane), and in
     practice each lane's dependency chain. Every thread of the warp holds
-    the eight fluid variables and computes their derivatives alike; threads
-    0..28 hold one multipole each (`MULTIPOLE_LANES`), neighbours by warp
-    shuffles, so the RK4 state is 4 x 9 values a thread. A block is 8
-    warps of consecutive k of one chain: it stages the next 16 steps' qtab
-    rows in shared memory by cp.async, computes their k-independent terms
-    once, and collects its 8 lanes' sources to store (plane, chain, step,
-    8 consecutive k) at once. One launch a call."""
+    the eight fluid variables (ten with the DE fluid) and computes their
+    derivatives alike; threads 0..28 hold one multipole each
+    (`MULTIPOLE_LANES`) and, with massive_nu, threads 0..27 one Psi_l(q_i)
+    each as well (thread 7 i + l), neighbours and the momentum sums by warp
+    shuffles, so the RK4 state is 4 x 9 values a thread (4 x 12 with both
+    extensions). A block is 8 warps of consecutive k of one chain: it
+    stages the next tile of steps' qtab rows in shared memory by cp.async,
+    computes their k-independent terms once, and collects its 8 lanes'
+    sources to store (plane, chain, step, 8 consecutive k) at once. One
+    launch a call, of the instantiation `VARIANTS[massive_nu, de_perts]`;
+    `iso` (C, 3, from `iso_inputs`) gives each chain its CDM-isocurvature
+    admixture in the held ICs."""
     C, S = qtab.shape[0], qtab.shape[1]
     nk = k.shape[0]
-    kernels.check(qtab, "qtab", (C, S, 3, NQ))
+    kernels.check(qtab, "qtab", (C, S, 3, q_fields(massive_nu, de_perts)))
     kernels.check(k, "k", (nk,), qtab.dtype)
     kernels.check(rnu, "rnu", (C,), qtab.dtype)
+    if iso is None:
+        iso = torch.zeros(C, 3, dtype=qtab.dtype, device=qtab.device)
+    kernels.check(iso, "iso", (C, 3), qtab.dtype)
+    nuc = _nu_constants(qtab.dtype, qtab.device)
     out = torch.empty(len(PLANES), C, S, nk, dtype=qtab.dtype,
                       device=qtab.device)
-    kernels.launch("boltzmann", qtab.dtype, qtab, k, rnu, out, C, S, nk,
-                   float(rsa_ktau))
+    kernels.launch(VARIANTS[massive_nu, de_perts], qtab.dtype, qtab, k, rnu,
+                   iso, nuc, out, C, S, nk, float(rsa_ktau))
     return out
 
 
@@ -511,16 +740,22 @@ def evolve_perturbations(bg: BackgroundParams, tf: ThermoFuncs,
                          rsa_ktau: float = RSA_KTAU,
                          massive_nu: bool = False, de_perts: bool = False,
                          iso_cdm_amp=0.0) -> PerturbationOutput:
-    """Evolve all k modes of every chain over the shared grid."""
-    check_switches(massive_nu, de_perts, iso_cdm_amp)
+    """Evolve all k modes of every chain over the shared grid.
+    `massive_nu` and `de_perts` extend the state (module docstring);
+    `iso_cdm_amp`, 0.0 or one amplitude a chain ((C,) or a scalar), adds
+    the correlated CDM-isocurvature admixture."""
     dtype = tf.tau.dtype
     k = k.to(dtype=dtype, device=tf.tau.device).contiguous()
     C, N = tf.tau.shape
-    qtab = _stage_tables(bg, tf)
+    qtab = _stage_tables(bg, tf, massive_nu, de_perts)
     rnu = _r_nu(bg).contiguous()
+    iso = (None if isinstance(iso_cdm_amp, float) and iso_cdm_amp == 0.0
+           else iso_inputs(bg, iso_cdm_amp))
     evolve = _evolve_plain if qtab.device.type == "cpu" else _evolve_cuda
-    raw = evolve(qtab, k, rnu, rsa_ktau)                  # (7, C, N-1, nk)
+    raw = evolve(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso)
 
+    # the curvature normalisation of the PURE-ADIABATIC start state, even
+    # with an isocurvature admixture (perturbations.py:812-822)
     y0 = adiabatic_ics(k, tf.tau[:, :1], rnu[:, None])
     norm = measure_curvature(bg, tf, y0, k)               # (C, nk)
     planes = torch.cat([torch.zeros_like(raw[:, :, :1]), raw], 2)

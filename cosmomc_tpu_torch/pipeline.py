@@ -21,10 +21,13 @@ distance tables and the fitted drag sound horizon, no kernel.
 
 Covered: the flagship configuration (theta LCDM, halofit lensing, with
 BAO in the likelihood list), LCDM+r (`compute_tensors=True`, r
-semi-slow, nt = -r/8), matter power with the sigma8 derived values, and
-LSS-only runs (`use_cmb=False`: no source evolution, LOS or lensing).
-The high-l template splice and sampled mnu/w/wa/alpha1 raise
-NotImplementedError. The BBN table is always passed in.
+semi-slow, nt = -r/8), matter power with the sigma8 derived values,
+LSS-only runs (`use_cmb=False`: no source evolution, LOS or lensing), and
+the extended sectors: the massive-neutrino hierarchy and the dark-energy
+fluid, switched on ("auto") when mnu, w or wa is sampled or set away from
+its LCDM value, and correlated CDM isocurvature when alpha1 is. The
+high-l template splice raises NotImplementedError. The BBN table is
+always passed in.
 `los_method="auto"` means the table engine on every device.
 """
 
@@ -95,10 +98,6 @@ CMB_DERIVED_MP_NAMES = [
     ("s8omegamp25", r"\sigma_8 \Omega_m^{0.25}"),
     ("s8h5", r"\sigma_8/h^{0.5}"),
 ]
-
-#: parameters whose sampling needs a sector this slice does not have
-_UNPORTED_SAMPLED = ("mnu", "w", "wa", "alpha1")
-
 
 def _make_proposal(space: ParameterSpace, oversample_fast: int,
                    propose_scale: float) -> BlockedProposal:
@@ -293,18 +292,6 @@ class CMBPosterior:
             self.lmax_computed = 0
         if self.lmax_computed or self.highl_template:
             _unported("lmax_computed / highl_template (the high-l splice)")
-        for name in _UNPORTED_SAMPLED:
-            if name in self.space and self.space.get(name).varying:
-                _unported(f"sampling {name}")
-        for name, default in (("mnu", 0.06), ("w", -1.0), ("wa", 0.0),
-                              ("alpha1", 0.0)):
-            if name in self.space:
-                c = self.space.get(name).center
-                if (name == "mnu" and c > 0.2) or (name != "mnu"
-                                                   and abs(c - default) > 1e-6):
-                    _unported(f"{name} = {c} (needs an unported sector)")
-        if self.massive_nu_hierarchy is True or self.de_perturbations is True:
-            _unported("the massive-neutrino hierarchy / DE perturbations")
         all_derived = list(CMB_DERIVED_NAMES)
         for z in self.z_outputs:
             t = _ztag(z)
@@ -321,9 +308,46 @@ class CMBPosterior:
                               if n not in sampled]
         self.derived_names = [all_derived[i] for i in self._derived_keep]
         self.num_derived = len(self.derived_names)
+        self._resolve_sectors()
         self._k = (source_k_grid(kmax=self.kmax, nk_log=self.source_nk[0],
                                  nk_lin=self.source_nk[1])
                    if self.source_nk is not None else source_k_grid(kmax=self.kmax))
+
+    def _resolve_sectors(self):
+        """The extended sectors' static switches, as the JAX package sets
+        them (pipeline.py:313-342): the massive-neutrino hierarchy when mnu
+        is sampled or fixed above 0.2 eV, the DE fluid when w or wa is
+        sampled or fixed away from -1 or 0, isocurvature when alpha1 is
+        sampled or fixed nonzero."""
+        def param(name):
+            return self.space.get(name) if name in self.space else None
+
+        def varies(name):
+            return param(name) is not None and param(name).varying
+        if self.massive_nu_hierarchy == "auto":
+            p = param("mnu")
+            self.massive_nu_hierarchy = bool(
+                varies("mnu") or (p is not None and p.center > 0.2))
+        if self.de_perturbations == "auto":
+            pw, pwa = param("w"), param("wa")
+            self.de_perturbations = bool(
+                varies("w") or varies("wa")
+                or (pw is not None and abs(pw.center + 1.0) > 1e-6)
+                or (pwa is not None and abs(pwa.center) > 1e-6))
+        self._iso_enabled = param("alpha1") is not None and (
+            varies("alpha1") or abs(param("alpha1").center) > 1e-12)
+        if self._iso_enabled:
+            self._i_alpha1 = self.space.index("alpha1")
+
+    def iso_amplitude(self, full_P: torch.Tensor):
+        """alpha1 -> the isocurvature IC amplitude of each chain,
+        sign(a) sqrt(|a| / (1 - |a|)) with |a| clipped to 0.99
+        (Calculator_CAMB.f90:109-111); 0.0 without isocurvature."""
+        if not self._iso_enabled:
+            return 0.0
+        a1 = full_P[:, self._i_alpha1]
+        absa = torch.clamp(torch.abs(a1), 0.0, 0.99)
+        return torch.sign(a1) * torch.sqrt(absa / (1.0 - absa))
 
     def embed_full(self, varying: torch.Tensor) -> torch.Tensor:
         """(C, n_varying) -> (C, n_full) with the fixed values filled in."""
@@ -347,9 +371,12 @@ class CMBPosterior:
         clt = tt_cache = mt = None
         if self.use_cmb:
             z_nl = LENS_NL_Z if self.nonlinear_lens else (0.0,)
-            po, chi_star, tf = compute_transfers(bg, th, zre, yhe, self._k,
-                                                 z_outputs=z_nl,
-                                                 n_step=self.n_step_boltzmann)
+            po, chi_star, tf = compute_transfers(
+                bg, th, zre, yhe, self._k, z_outputs=z_nl,
+                n_step=self.n_step_boltzmann,
+                massive_nu=self.massive_nu_hierarchy,
+                de_perts=self.de_perturbations,
+                iso_cdm_amp=self.iso_amplitude(full_P))
             if self.nonlinear_lens:
                 po = self._nonlinear_lensing(bg, po, tf, z_nl)
             los = (compute_cl_transfers_recurrence
@@ -364,7 +391,9 @@ class CMBPosterior:
                     to, lmax=min(700, self.lmax), coarse_k=kt)
         if self.matter_power:
             mt = compute_matter_transfers(bg, th, zre, yhe,
-                                          z_outputs=tuple(sorted(self.z_pk)))
+                                          z_outputs=tuple(sorted(self.z_pk)),
+                                          massive_nu=self.massive_nu_hierarchy,
+                                          de_perts=self.de_perturbations)
         tabs = compute_thermo_tables(bg, th, yhe)
         der = thermo_derived(bg, tabs)
         bf = bgm.background_functions(bg)

@@ -149,6 +149,65 @@ def test_boltzmann_kernel_ragged_blocks(dev, tables, chains, nk, steps):
             check(out_k[p], out_p[p], out_r[p], dtype, 1e-3, name)
 
 
+@pytest.fixture(scope="module")
+def ext_tables(dev):
+    """Two chains on the 2048-step grid with mnu 0.06 and 0.3 eV, w0 -0.9
+    and -1.1, wa -0.4 (the w = -1 crossing) and 0.2, and isocurvature
+    amplitudes 0.2 and 0: each variant's stage table, k to 0.1/Mpc."""
+    from cosmomc_tpu_torch.params.parameterizations import mnu_to_omnuh2
+    bg = BackgroundParams.make(ombh2=np.array([0.0224, 0.0219]),
+                               omch2=np.array([0.120, 0.117]),
+                               H0=np.array([67.5, 69.0]),
+                               omnuh2=mnu_to_omnuh2(np.array([0.06, 0.3])),
+                               w=np.array([-0.9, -1.1]), wa=np.array([-0.4, 0.2]),
+                               nchains=2, device=dev, dtype=F64)
+    yhe = torch.full((2,), 0.245, dtype=F64, device=dev)
+    th = trec.compute_thermo(bg, yhe, n_z=2000)
+    zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64, device=dev), yhe)
+    tf, _ = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=2048)
+    k = torch.as_tensor(source_k_grid(0.1, 8, 16), dtype=F64, device=dev)
+    iso = tpert.iso_inputs(bg, torch.tensor([0.2, 0.0], dtype=F64, device=dev))
+    q = {sw: tpert._stage_tables(bg, tf, *sw) for sw in tpert.VARIANTS}
+    return q, k, tpert._r_nu(bg), iso
+
+
+@pytest.mark.parametrize("dtype", [F64, F32])
+@pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True),
+                                (False, False)])
+def test_boltzmann_extended_kernels(dev, ext_tables, sw, dtype):
+    """Each instantiation (massive-neutrino hierarchy, DE fluid, both, and
+    the base layout with an isocurvature chain) against its plain version:
+    one launch counted on its own name; float64 1e-9, float32 no less
+    accurate than plain float32 (floor 1e-3 of each plane's maximum)."""
+    q, k, rnu, iso = ext_tables
+    qd, kd, rd, id_ = (x.to(dtype).contiguous() for x in (q[sw], k, rnu, iso))
+    name = tpert.VARIANTS[sw]
+    n0 = dict(kernels.launches)
+    out_k = tpert._evolve_cuda(qd, kd, rd, tpert.RSA_KTAU, *sw, iso=id_)
+    torch.cuda.synchronize()
+    assert {n: kernels.launches[n] - n0[n] for n in n0} == {
+        n: int(n == name) for n in n0}
+    assert torch.isfinite(out_k).all()
+    out_p = tpert._evolve_plain(qd, kd, rd, tpert.RSA_KTAU, *sw, iso=id_)
+    out_r = out_p if dtype == F64 else tpert._evolve_plain(
+        qd.double(), kd.double(), rd.double(), tpert.RSA_KTAU, *sw, iso=id_.double())
+    for p, pl in enumerate(tpert.PLANES):
+        check(out_k[p], out_p[p], out_r[p], dtype, 1e-3, f"{name}.{pl}")
+
+
+@pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True)])
+def test_boltzmann_extended_ragged(dev, ext_tables, sw):
+    """The extended instantiations at one chain, 13 k (a last block of 5
+    warps) and 500 steps (a last tile of 4 steps in float64), float64."""
+    q, k, rnu, iso = ext_tables
+    qd = q[sw][:1, :500].contiguous()
+    kd, rd, id_ = k[-13:].contiguous(), rnu[:1].contiguous(), iso[:1].contiguous()
+    out_k = tpert._evolve_cuda(qd, kd, rd, tpert.RSA_KTAU, *sw, iso=id_)
+    out_p = tpert._evolve_plain(qd, kd, rd, tpert.RSA_KTAU, *sw, iso=id_)
+    for p, pl in enumerate(tpert.PLANES):
+        check(out_k[p], out_p[p], None, F64, 0.0, pl)
+
+
 def _plain(module, name, twin=None):
     """Context that routes a module's CUDA path to its plain version (the
     function `twin`, by default the name with "plain" for "cuda")."""
@@ -444,6 +503,14 @@ def test_lensing_kernel_theta_grid_options(dev):
 
 
 def test_wrappers_reject_bad_inputs(dev):
+    # a stage table without the massive-neutrino fields for that variant
+    q = torch.zeros(1, 4, 3, tpert.NQ, dtype=F64, device=dev)
+    k, rnu = torch.ones(2, dtype=F64, device=dev), torch.ones(1, dtype=F64, device=dev)
+    with pytest.raises(ValueError):
+        tpert._evolve_cuda(q, k, rnu, tpert.RSA_KTAU, massive_nu=True)
+    with pytest.raises(ValueError):
+        tpert._evolve_cuda(q, k, rnu, tpert.RSA_KTAU, iso=torch.zeros(1, 2, dtype=F64,
+                                                                     device=dev))
     zt = torch.zeros(1, trec.N_ZT, 8, dtype=F64, device=dev)
     with pytest.raises(ValueError):
         trec._scan_cuda(zt[:, :, ::2], torch.zeros(1, dtype=F64, device=dev))

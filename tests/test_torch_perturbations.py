@@ -106,10 +106,3 @@ def test_convert_perturbation_output(ref, port):
     po = convert.perturbation_output(ref[0]["po"])
     assert po.s0.shape == (1,) + port["po"].s0.shape[1:]
     assert_close(po.s0[0], port["po"].s0[0])
-
-
-@pytest.mark.parametrize("switch", [dict(massive_nu=True), dict(de_perts=True),
-                                    dict(iso_cdm_amp=0.1)])
-def test_unported_sectors_raise(switch):
-    with pytest.raises(NotImplementedError):
-        tpert.check_switches(**switch)

@@ -227,6 +227,44 @@ def _from_lanes(yf, ym):
     return y
 
 
+NL1 = tpert.LMAXNU + 1
+
+
+def _nu_lane_constants():
+    """What csrc/perturbations.cu:nu_lane_of sets once per thread."""
+    lane = torch.arange(32)
+    live = lane < tpert.NQ_NU * NL1
+    i = torch.where(live, lane // NL1, 0)
+    l = torch.where(live, lane % NL1, -1)
+    lf = l.to(F64)
+    return dict(live=live, i=i, l=l, lf=lf, lp1=lf + 1.0,
+                inv2l1=1.0 / (2.0 * lf + 1.0),
+                dlnf=torch.as_tensor(tpert._NU_DLNF, dtype=F64)[i])
+
+
+def _to_lanes_ext(y, sw):
+    """(C, nk, NVAR + extra) -> the fluid variables (with the DE pair), one
+    multipole a lane, and one Psi_l(q_i) a lane."""
+    nu, de = sw
+    yf, ym = _to_lanes(y[..., :tpert.NVAR])
+    yn = torch.zeros_like(ym)
+    if nu:
+        yn[..., :tpert.NVAR_NU] = y[..., tpert.NVAR:tpert.NVAR + tpert.NVAR_NU]
+    if de:
+        yf = torch.cat([yf, y[..., -tpert.NVAR_DE:]], -1)
+    return yf, ym, yn
+
+
+def _from_lanes_ext(yf, ym, yn, sw):
+    nu, de = sw
+    parts = [_from_lanes(yf[..., :len(FLUID)], ym)]
+    if nu:
+        parts.append(yn[..., :tpert.NVAR_NU])
+    if de:
+        parts.append(yf[..., len(FLUID):])
+    return torch.cat(parts, -1)
+
+
 def _derived(q):
     """csrc/perturbations.cu:derive_row, per (chain) row q (C, NQ)."""
     Q = lambda f: q[:, f:f + 1]
@@ -246,16 +284,18 @@ def _derived(q):
                 dadotoa=-(Q(tpert.Q_GRHO) + 3.0 * Q(tpert.Q_GPRES)) / 6.0)
 
 
-def _rhs_lanes(yf, ym, q, k, rsa_ktau, mp):
-    """csrc/perturbations.cu:rhs in torch: yf (C, nk, 8) on every lane, ym
-    (C, nk, 32) one multipole a lane."""
+def _rhs_lanes(yf, ym, q, k, rsa_ktau, mp, yn=None, sw=(False, False)):
+    """csrc/perturbations.cu:rhs in torch: yf (C, nk, 8, or 10 with the DE
+    fluid) on every lane, ym (C, nk, 32) one multipole a lane and, with
+    massive nu, yn (C, nk, 32) one Psi_l(q_i) a lane (lane 7 i + l)."""
     Q = lambda f: q[:, f:f + 1]
     d = _derived(q)
+    nu, de = sw
     tau, opac, csqb = Q(tpert.Q_TAU), Q(tpert.Q_OPAC), Q(tpert.Q_CSQB)
     grho_g, grho_n, gml = Q(tpert.Q_GG), Q(tpert.Q_GN), Q(tpert.Q_GML)
     grho_c, grho_b, adotoa, R = (Q(tpert.Q_GC), Q(tpert.Q_GB),
                                  Q(tpert.Q_ADOTOA), Q(tpert.Q_R))
-    eta, dc, db, tb, dg, tg, dn, tn = yf.unbind(-1)
+    eta, dc, db, tb, dg, tg, dn, tn = yf[..., :len(FLUID)].unbind(-1)
     # the loop divides by nothing: reciprocals once a thread and once a row
     k2, inv_k, inv_k2, inv_adotoa = k * k, 1.0 / k, 1.0 / (k * k), d["inv_adotoa"]
     rsa = k * tau >= rsa_ktau
@@ -278,9 +318,30 @@ def _rhs_lanes(yf, ym, q, k, rsa_ktau, mp):
 
     zero = torch.zeros_like(dg)
     sigma_n = torch.where(rsa, zero, fn0 / 2.0)
-    dgrho = grho_c * dc + grho_b * db + grho_g * dg + grho_n * dn + gml * dn
+    if nu:
+        # the 12 broadcasts (lanes 7 i + l, l = 0, 1, 2), summed in node order
+        nu_rel = rsa & ((Q(tpert.Q_AMLT2) != 0.0) | (k * Q(tpert.Q_DTLOC) > 0.9))
+        wn = tpert._NU_WNORM
+        s0 = s1 = s2 = zero
+        for i in range(tpert.NQ_NU):
+            s0 = s0 + wn[i] * Q(tpert.Q_EQ + i) * yn[..., NL1 * i]
+            s1 = s1 + wn[i] * yn[..., NL1 * i + 1]
+            s2 = s2 + wn[i] * Q(tpert.Q_QE + i) * yn[..., NL1 * i + 2]
+        dgrho = grho_c * dc + grho_b * db + grho_g * dg + grho_n * dn \
+            + torch.where(nu_rel, gml * dn, gml * s0)
+        dgq = (4.0 / 3.0) * (grho_g * tg + grho_n * tn) + grho_b * tb \
+            + torch.where(nu_rel, (4.0 / 3.0) * gml * tn, gml * k * s1)
+        dgpi_m = torch.where(nu_rel, zero, (2.0 / 3.0) * gml * s2)
+    else:
+        dgrho = grho_c * dc + grho_b * db + grho_g * dg + grho_n * dn + gml * dn
+        dgq = (4.0 / 3.0) * (grho_g * tg + grho_n * tn) + grho_b * tb + d["wnu"] * tn
+        dgpi_m = d["wnu"] * sigma_n
+    if de:
+        i0 = tpert.q_de(nu)
+        w_de, gde, wpr = Q(i0 + tpert.Q_WDE), Q(i0 + tpert.Q_GDE), Q(i0 + tpert.Q_WPR)
+        dgrho = dgrho + torch.where(rsa, zero, gde * yf[..., 8])
+        dgq = dgq + torch.where(rsa, zero, gde * yf[..., 9])
     hdot = (2.0 * k2 * eta + dgrho) * inv_adotoa
-    dgq = (4.0 / 3.0) * (grho_g * tg + grho_n * tn) + grho_b * tb + d["wnu"] * tn
     etadot = 0.5 * dgq * inv_k2
     fg2_tca = (4.0 / 3.0) * d["tauc"] * ((8.0 / 15.0) * tg + (4.0 / 15.0) * hdot
                                          + (8.0 / 5.0) * etadot)
@@ -294,11 +355,19 @@ def _rhs_lanes(yf, ym, q, k, rsa_ktau, mp):
                                                base + R * opac * (tg - tb)))
     tgdot = torch.where(rsa, zero, torch.where(tc_on, tb_tca,
                                                k2 * sl + opac * (tb - tg)))
-    dyf = torch.stack([
-        etadot, -0.5 * hdot, -tb - 0.5 * hdot, tbdot,
-        torch.where(rsa, zero, -(4.0 / 3.0) * tg - (2.0 / 3.0) * hdot), tgdot,
-        torch.where(rsa, zero, -(4.0 / 3.0) * tn - (2.0 / 3.0) * hdot),
-        torch.where(rsa, zero, k2 * (dn / 4.0 - sigma_n))], -1)
+    dyf = [etadot, -0.5 * hdot, -tb - 0.5 * hdot, tbdot,
+           torch.where(rsa, zero, -(4.0 / 3.0) * tg - (2.0 / 3.0) * hdot), tgdot,
+           torch.where(rsa, zero, -(4.0 / 3.0) * tn - (2.0 / 3.0) * hdot),
+           torch.where(rsa, zero, k2 * (dn / 4.0 - sigma_n))]
+    if de:
+        # the three coefficients the block derives once a row
+        a_ = adotoa
+        d1, d2 = 3.0 * a_ * (1.0 - w_de), 9.0 * (a_ * a_) * (1.0 - w_de) + 3.0 * a_ * wpr
+        dd, dv = yf[..., 8], yf[..., 9]
+        dyf += [torch.where(rsa, zero, -dv - (1.0 + w_de) * 0.5 * hdot - d1 * dd
+                            - d2 * dv * inv_k2),
+                torch.where(rsa, zero, (2.0 * a_ + wpr) * dv + k2 * dd)]
+    dyf = torch.stack(dyf, -1)
 
     # one multipole a lane: the three forms, one selected
     e = lambda v: v[..., None]
@@ -317,10 +386,31 @@ def _rhs_lanes(yf, ym, q, k, rsa_ktau, mp):
     dym = torch.where(zeroed, 0.0, v)
     fg2dot, fn2dot = l2[..., LANE["fg"]], l2[..., LANE["fn"]]
     aux = dict(hdot=hdot, etadot=etadot, sigma_g=sigma_g, sigma_n=sigma_n,
-               dgpi=(4.0 / 3.0) * (grho_g * sigma_g + grho_n * sigma_n)
-               + d["wnu"] * sigma_n,
+               dgpi=(4.0 / 3.0) * (grho_g * sigma_g + grho_n * sigma_n) + dgpi_m,
                sigg_dot=torch.where(tc_on | rsa, zero, fg2dot) / 2.0,
                sign_dot=torch.where(rsa, zero, fn2dot) / 2.0, pol_term=pol_term)
+    if nu:
+        # a lane's own Psi_l(q_i): neighbours by the up/down shuffles, q/eps
+        # of its node, the closure at l = LMAXNU, frozen under nu_rel_rsa
+        nl = _nu_lane_constants()
+        upn, nxn = torch.roll(yn, 1, -1), torch.roll(yn, -1, -1)
+        prevn = torch.where(nl["l"] == 0, 0.0, upn)
+        qe_own = q[:, None, tpert.Q_QE:tpert.Q_QE + tpert.NQ_NU][..., nl["i"]]
+        qke = qe_own * e(k.expand_as(tg))
+        gen = (qke * nl["inv2l1"]) * (nl["lf"] * prevn - nl["lp1"] * nxn)
+        src = torch.where(nl["l"] == 0, e(hdot / 6.0) * nl["dlnf"], torch.where(
+            nl["l"] == 2, -e(hdot / 15.0 + 2.0 * etadot / 5.0) * nl["dlnf"], 0.0))
+        clo = qke * prevn - e((tpert.LMAXNU + 1) / torch.clamp(tau, min=1e-10)) * yn
+        dyn = torch.where(~nl["live"] | e(nu_rel), 0.0,
+                          torch.where(nl["l"] == tpert.LMAXNU, clo, gen + src))
+        # d/dtau of the massive stress: the four dPsi_2/dtau by broadcast
+        ext = zero
+        for i in range(tpert.NQ_NU):
+            qe = Q(tpert.Q_QE + i)
+            ext = ext + wn[i] * (qe * dyn[..., NL1 * i + 2]
+                                 - (qe * (3.0 - qe * qe) * adotoa) * yn[..., NL1 * i + 2])
+        aux["dgpidot_extra"] = torch.where(nu_rel, zero, (2.0 / 3.0) * gml * ext)
+        aux["dyn"] = dyn
     return dyf, dym, aux
 
 
@@ -396,6 +486,58 @@ def test_lane_rhs_matches_rhs(small, step):
     ktau = k * q[:, tpert.Q_TAU:tpert.Q_TAU + 1]
     if step == 2040:
         assert bool((ktau >= tpert.RSA_KTAU).any()) and bool((ktau < tpert.RSA_KTAU).any())
+
+
+@pytest.fixture(scope="module")
+def small_ext(small):
+    """The small config's two chains with mnu 0.06 and 0.3 eV, w0 -0.9 and
+    -1.1, wa -0.4 and 0.2: the stage table of each extended variant."""
+    from cosmomc_tpu_torch.params.parameterizations import mnu_to_omnuh2
+    rows = COSMOLOGIES[:2]
+    ombh2, omch2, H0, yhe = (np.array(v) for v in zip(*rows))
+    bg = BackgroundParams.make(ombh2=ombh2, omch2=omch2, H0=H0,
+                               omnuh2=mnu_to_omnuh2(np.array([0.06, 0.3])),
+                               w=np.array([-0.9, -1.1]), wa=np.array([-0.4, 0.2]),
+                               nchains=2, device="cpu", dtype=F64)
+    yhe = torch.as_tensor(yhe, dtype=F64)
+    th = trec.compute_thermo(bg, yhe, n_z=2000)
+    zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64), yhe)
+    tf, _ = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=2048)
+    return {sw: tpert._stage_tables(bg, tf, *sw)
+            for sw in ((True, False), (False, True), (True, True))}, tpert._r_nu(bg)
+
+
+@pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True)])
+@pytest.mark.parametrize("step", [3, 900, 1300, 2040])
+def test_lane_rhs_extended_matches_rhs(small, small_ext, step, sw):
+    """The lane layout with the Psi_l(q_i) register (lane 7 i + l; the
+    momentum sums by 12 broadcasts, q/eps of a lane's own node, the
+    closure, dPsi_2/dtau by 4 broadcasts for the sources) and the DE pair
+    on every lane, against `_rhs` with the extensions (1e-12); states
+    perturbed around the ICs with their Psi_l and DE values."""
+    _, k, _, mp = small
+    tables, rnu = small_ext
+    q = tables[sw][:, step, 2]
+    rng = np.random.default_rng(step)
+    y = tpert.adiabatic_ics(k, q[:, tpert.Q_TAU:tpert.Q_TAU + 1], rnu[:, None], *sw)
+    y = y + torch.tensor(0.05 * rng.standard_normal(tuple(y.shape)), dtype=F64)
+    dy, aux = tpert._rhs(y, q, k, tpert.RSA_KTAU, *sw)
+    yf, ym, yn = _to_lanes_ext(y, sw)
+    dyf, dym, aux_l = _rhs_lanes(yf, ym, q, k, tpert.RSA_KTAU, mp, yn, sw)
+    got = _from_lanes_ext(dyf, dym, aux_l.get("dyn", torch.zeros_like(dym)), sw)
+    assert got.shape == dy.shape
+    for j in range(dy.shape[-1]):
+        assert rel_err(got[..., j], dy[..., j]) <= 1e-12 or \
+            float(dy[..., j].abs().max()) == 0.0 == float(got[..., j].abs().max()), j
+    if sw[0]:
+        assert torch.equal(aux_l["dyn"][..., tpert.NVAR_NU:],
+                           torch.zeros_like(aux_l["dyn"][..., tpert.NVAR_NU:]))
+    for name in aux:
+        ref = aux[name]
+        if float(ref.abs().max()) == 0.0:
+            assert float(aux_l[name].abs().max()) == 0.0, name
+        else:
+            assert rel_err(aux_l[name], ref) <= 1e-12, name
 
 
 def _evolve_lanes(qtab, k, rnu, rsa_ktau, mp):
