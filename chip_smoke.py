@@ -48,6 +48,15 @@ one staged segment, and sigma8 at mnu = 0.07 eV against CAMB.
 Phase 10 runs base_w_wa the same way (w and wa free; the DE-fluid
 instantiation), then the CDM-isocurvature response at four alpha1 values
 in float64: C_l quadratic in the admixture amplitude.
+Phase 11 runs the SPT configuration on the flagship: SPTpol TE/EE and BB
+and an SPT-SZ-shaped CMBLike2 TT set (written from the port's float64
+theory at the best fit) raise lmax to 8001, the Boltzmann C_l stop at
+2508 and a high-l template written from phase 3's float64 lensed
+spectrum fills above. K2a and K3 must run at the flagship's shapes, the
+spliced C_l equal the scaled template, -logL at the best fit its
+constant (the SPTpol sets' half ln det Cov plus the tau prior); then a
+few staged segments, and BK-Planck and CMBLikes HL and fullsky-exact on
+the cached theory, float32 against float64.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -121,6 +130,18 @@ K1_VARIANT_F32_FLOOR = 1e-3
 MATTER_CMP_STEPS = (K1_CMP_STEPS, 3072, 4096, 6144)
 MATTER_BOUNDED = 1e8
 
+#: phase 11 (the SPT configuration): the Boltzmann C_l stop at the
+#: flagship's lmax and the template fills above, to the lmax the SPTpol
+#: TE/EE set asks for (8000 + 1 for its l-derivative); the segments the
+#: staged sampler runs; the bound on float32-theory minus float64-theory
+#: -logL (each set written at the float64 theory without scatter, so both
+#: are near their constant) and on the spliced C_l against norm x template
+#: (float32 rounding)
+SPT_LMAX_COMPUTED, SPT_LMAX, SPT_SEGMENTS = 2508, 8001, 3
+SPT_F32_TOL, SPLICE_RTOL = 1.0, 1e-6
+#: K2a's (sampled l, fine k) and K3's lensed width on the flagship
+FLAGSHIP_K2A_SHAPE, FLAGSHIP_LENSED_L = (109, 4521), 2507
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
                 "cosmomc_tpu/models/recfast.py:279"),
@@ -144,7 +165,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: flagship under SamplingRun; phase 6 "background" launches none; phase 7
 #: "flagship_mp" is the flagship with matter power, K1 twice a slow step;
 #: phase 8 "astro" the LSS-only configuration; phases 9 "mnu" and 10
-#: "w0wa" K1's extended instantiations, twice a slow step)
+#: "w0wa" K1's extended instantiations, twice a slow step; phase 11 "spt"
+#: the flagship's kernels at the flagship's shapes under lmax 8001)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
@@ -153,7 +175,8 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "flagship_mp": ("recfast", "boltzmann", "los", "lensing"),
                 "astro": ("recfast", "boltzmann"),
                 "mnu": ("recfast", "boltzmann_nu", "los", "lensing"),
-                "w0wa": ("recfast", "boltzmann_de", "los", "lensing")}
+                "w0wa": ("recfast", "boltzmann_de", "los", "lensing"),
+                "spt": ("recfast", "boltzmann", "los", "lensing")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -1139,7 +1162,7 @@ def drive_path(dev, tmp, label, cfg):
             "segment output shape")
     require(bool(torch.isfinite(out.derived).all()), "finite derived")
     require(not bool(out.error.any()), "no error points")
-    return launches, per_segment, dict(ds=ds, theory=fid_theory)
+    return launches, per_segment, dict(ds=ds, theory=fid_theory, cls=cls[F64])
 
 
 def leaves(x, path="state"):
@@ -1885,6 +1908,289 @@ def iso_response(dev):
     return float(np.abs(t2 - pred).max())
 
 
+def check_sync(fn):
+    """Whether `fn` waits for the card: a ~50 ms sleep kernel is queued
+    first, and a call that returns after it has run synchronised. Returns
+    (synchronised, the call's host ms, the sync-debug warnings it raised,
+    the source lines that raised them)."""
+    import warnings
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.time()
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        host_ms = 1e3 * (time.time() - t0)
+    torch.cuda.synchronize()
+    stall = torch.cuda.Event(enable_timing=True)
+    sleep = torch.cuda.Event(enable_timing=True)
+    sleep.record()
+    torch.cuda._sleep(int(1e8))
+    stall.record()
+    torch.cuda.synchronize()
+    sleep_ms = sleep.elapsed_time(stall)
+    sites = [f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return host_ms > 0.8 * sleep_ms, host_ms, len(sites), sorted(set(sites))
+
+
+def drive_spt(dev, tmp, fid):
+    """Phase 11: the SPT configuration on the flagship (theta LCDM, halofit
+    lensing, table LOS, full width). SPTpol TE/EE (56 bins a spectrum to l
+    = 8000), SPTpol BB (150x150, 95x150, 95x95) and an SPT-SZ-shaped TT set
+    (47 Gaussian bandpowers, calibration, aberration) raise lmax to 8001;
+    lmax_computed = 2508 and a template written from phase 3's float64
+    lensed spectrum by write_highl_template fills above. The sets are
+    written from the port's float64 theory at the best fit (the splice
+    included), without scatter. Checks: the LOS (K2a) at 2508 + 150 and at
+    the flagship's shape, lensing (K3) 2507 l wide; the float32 C_l above
+    2508 equal to TT(2508) / template TT(2508) times the template (float32
+    rounding), phi-phi 0 there; float32 C_l within 1% of float64 to l =
+    2000; -logL at the best fit equal to its constant in float64 and within
+    SPT_F32_TOL of it in float32; SPT_SEGMENTS staged 16-step segments,
+    each slow step launching K4, K1, K2a once and each semi step K3 once;
+    BK-Planck (a BK15-shaped set) and CMBLikes in HL and fullsky-exact
+    mode on the cached float32 and float64 theory, finite and within
+    SPT_F32_TOL. Returns the launch counts of the run and per segment."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch import pipeline as pl
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.bkplanck import BKPlanckLikelihood
+    from cosmomc_tpu_torch.likelihoods.cmblikes import CMBLikes
+    from cosmomc_tpu_torch.likelihoods.sptpol import (SPTpolBBLikelihood,
+                                                      SPTpolTEEELikelihood)
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    sync = torch.cuda.synchronize
+    path = lambda name: os.path.join(tmp, "spt", name)
+    par = ThetaParameterization()
+    table = synthetic_bbn_table()
+    os.makedirs(path(""), exist_ok=True)
+    tmpl = sd.write_highl_template(path("HighL_lensedCls_synthetic.dat"),
+                                   fid["cls"].double().cpu().numpy(), SPT_LMAX)
+
+    def posterior(likes, dtype):
+        space = par.default_space()
+        space.get("tau").prior_mean = 0.0544
+        space.get("tau").prior_std = 0.0073
+        return pl.CMBPosterior(par, space, likes, bbn_table=table, device=dev,
+                               dtype=dtype, lmax_computed=SPT_LMAX_COMPUTED,
+                               highl_template=tmpl)
+
+    def at(post, dtype, n=1):
+        return torch.as_tensor(np.tile(bestfit_vector(post), (n, 1)),
+                               dtype=dtype, device=dev)
+
+    def readers(sets):
+        return [SPTpolTEEELikelihood(sets[0], device=dev),
+                SPTpolBBLikelihood(sets[1], device=dev),
+                CMBLikes(sets[2], name="sptsz_synthetic", device=dev)]
+
+    def likelihood_list(likes):
+        out = LikelihoodList()
+        for like in likes:
+            out.add(like)
+        return out
+
+    # 1. the float64 theory at the best fit on the sets' layouts
+    layout = readers([sd.write_sptpol_teee(path("teee0")),
+                      sd.write_sptpol_bb(path("bb0")),
+                      sd.write_cmblikes_tt(path("tt0"))])
+    post64 = posterior(likelihood_list(layout), F64)
+    require((post64.lmax, post64.lmax_computed) == (SPT_LMAX, SPT_LMAX_COMPUTED),
+            "the likelihoods raise lmax to 8001 over lmax_computed 2508")
+    full = post64.embed_full(at(post64, F64))
+    slow64 = post64.stage_slow(full)
+    semi64 = post64.stage_semi(full, slow64)
+    theory64 = post64.assemble_theory(slow64, semi64)
+
+    # 2. the sets written there
+    sets = [sd.write_sptpol_teee(path("teee"),
+                                 sd.sptpol_bandpowers(layout[0], theory64)),
+            sd.write_sptpol_bb(path("bb"), sd.sptpol_bandpowers(layout[1],
+                                                                theory64)),
+            sd.write_cmblikes_tt(path("tt"), sd.cmblikes_bandpowers(
+                layout[2], semi64["cls"])[:, 0])]
+    likes = readers(sets)
+    post = posterior(likelihood_list(likes), F32)
+    post64 = posterior(likelihood_list(readers(sets)), F64)
+
+    # 3. the float32 theory (8 chains at the best fit), with the LOS and
+    # lensing calls' multipoles recorded
+    seen = {"los": [], "lens": [], "lensed": []}
+    real_los, real_lens = pl.compute_cl_transfers, pl.lens_cls
+
+    def los(*a, **k):
+        seen["los"].append(k["lmax"])
+        return real_los(*a, **k)
+
+    def lens(*a, **k):
+        seen["lens"].append(k["lmax_lensed"])
+        out = real_lens(*a, **k)
+        seen["lensed"].append(out.tt.shape[-1])
+        return out
+    pl.compute_cl_transfers, pl.lens_cls = los, lens
+    try:
+        full32 = post.embed_full(at(post, F32, NCHAINS))
+        t0 = time.time()
+        slow32 = post.stage_slow(full32)
+        semi32 = post.stage_semi(full32, slow32)
+        sync()
+        log(f"phase 11: theory at the best fit (float32, {NCHAINS} chains) "
+            f"{time.time() - t0:.2f} s; lmax {post.lmax}, lmax_computed "
+            f"{post.lmax_computed}")
+        clt = slow32["clt"]
+        log(f"  K2a: l {int(clt.ls.min())}..{int(clt.ls.max())}, "
+            f"{tuple(clt.dT.shape[1:])} (sampled l, fine k); K3 lensed width "
+            f"{seen['lensed'][-1]}")
+        require(int(clt.ls.max()) == SPT_LMAX_COMPUTED + post.lens_margin
+                and tuple(clt.dT.shape[1:]) == FLAGSHIP_K2A_SHAPE,
+                "K2a at the flagship's shape (l to 2508 + 150)")
+        require(seen["lensed"][-1] == FLAGSHIP_LENSED_L,
+                "K3's lensed output 2507 l wide")
+        cls32, cls64 = semi32["cls"], semi64["cls"][0]
+        require(cls32.shape == (NCHAINS, 4, 4, SPT_LMAX + 1), "C_l to 8001")
+        lm, hi = SPT_LMAX_COMPUTED, slice(SPT_LMAX_COMPUTED + 1, SPT_LMAX + 1)
+        t64 = post64._highl
+        norm = cls32[:, 0, 0, lm].double() / t64[lm, 0]
+        errs = {}
+        for n, (i, j), col in (("TT", (0, 0), 0), ("EE", (1, 1), 1),
+                               ("BB", (2, 2), 2), ("TE", (1, 0), 3)):
+            want = norm[:, None] * t64[hi, col]
+            errs[n] = rel_err(cls32[:, i, j, hi], want)
+        log("  splice above 2508, float32 C_l against norm x template, max err "
+            "relative to each spectrum's maximum there: " + ", ".join(
+                f"{n} {v:.2e}" for n, v in errs.items())
+            + f"; norm {float(norm[0]):.6f}")
+        for n, v in errs.items():
+            require(v < SPLICE_RTOL, f"spliced {n} = norm x template")
+        require(not bool(cls32[:, 3, 3, hi].any()), "phi-phi 0 above 2508")
+        e = {n: rel_err(cls32[0, i, j, 2:2001], cls64[i, j, 2:2001])
+             for n, i, j in (("TT", 0, 0), ("TE", 1, 0), ("EE", 1, 1),
+                             ("BB", 2, 2), ("PP", 3, 3))}
+        e["TT above 2508"] = rel_err(cls32[0, 0, 0, hi], cls64[0, 0, hi])
+        log("  C_l float32 vs float64, max rel err: "
+            + ", ".join(f"{n} {v:.2e}" for n, v in e.items()))
+        for n, v in e.items():
+            require(v < 1e-2, f"phase 11 float32 {n} within 1% of float64")
+        require(bool(torch.isfinite(cls32).all()), "finite spliced C_l")
+
+        # 4. -logL at the best fit, float32 and float64, against its
+        # constant: the SPTpol sets' half ln det Cov, the tau prior
+        tau = BESTFIT["tau"]
+        const = (likes[0].half_logdet + likes[1].half_logdet
+                 + 0.5 * ((tau - 0.0544) / 0.0073) ** 2)
+        m32 = float(post.logpost()(at(post, F32))[0][0])
+        m64 = float(post64.logpost()(at(post64, F64))[0][0])
+        log(f"  -logL at the best fit: float32 {m32:.6f}, float64 {m64:.9f}, "
+            f"constant {const:.9f} (half ln det Cov: TE/EE "
+            f"{likes[0].half_logdet:.6f}, BB {likes[1].half_logdet:.6f}); "
+            f"float32 - float64 {m32 - m64:.3e}")
+        require(abs(m64 - const) < 1e-6, "float64 -logL at its constant")
+        require(abs(m32 - m64) < SPT_F32_TOL, "float32 -logL near float64's")
+        require(abs(const) > 1.0, "the constant is not 0")
+
+        # 5. the staged sampler: SPT_SEGMENTS segments, one slow step each
+        prop = post.make_proposal(oversample_fast=4)
+        w = np.array([p.propose_width for p in post.space.varying])
+        prop.set_covariance(np.diag(w ** 2))
+        sampler = StagedMetropolisSampler(prop, post, seed=0)
+        expensive = [b for b, c in enumerate(sampler.block_class) if c == 0]
+        rng = np.random.default_rng(0)
+        P0 = start_points(post, rng, F32)
+        stage_fast = post.stage_fast
+        stage_s, calls = instrument_stages(post)
+        kernels.reset_launches()
+        seen["los"].clear()
+        seen["lens"].clear()
+        t0 = time.time()
+        state = sampler.init_state(P0)
+        sync()
+        t_init = time.time() - t0
+        at_init, calls_init = dict(kernels.launches), dict(calls)
+        seg_s, out = [], None
+        for _ in range(SPT_SEGMENTS):
+            sched = prop.make_schedule(SEG_STEPS, rng, slow_every=SEG_STEPS,
+                                       expensive_blocks=expensive)
+            t0 = time.time()
+            state, out = sampler.run_segment(state, sched)
+            sync()
+            seg_s.append(time.time() - t0)
+        launches = dict(kernels.launches)
+        per_segment = {n: (launches[n] - at_init[n]) / SPT_SEGMENTS
+                       for n in launches}
+        run_calls = {n: calls[n] - calls_init[n] for n in calls}
+    finally:
+        pl.compute_cl_transfers, pl.lens_cls = real_los, real_lens
+    steps = SPT_SEGMENTS * SEG_STEPS * NCHAINS
+    log(f"  init {t_init:.2f} s; {SPT_SEGMENTS} segments {sum(seg_s):.2f} s "
+        f"({', '.join(f'{v:.3f}' for v in seg_s)}), {steps / sum(seg_s):.2f} "
+        "chain steps/s; stage wall per call: " + ", ".join(
+            f"{n} {1e3 * stage_s[n] / max(calls[n], 1):.1f} ms "
+            f"({calls[n]} calls)" for n in stage_s))
+    log("  launches in the run: " + json.dumps(launches)
+        + "; per segment: " + json.dumps(per_segment)
+        + f"; stage calls in the segments: {json.dumps(run_calls)}")
+    want = {"recfast": calls["slow"], "boltzmann": calls["slow"],
+            "los": calls["slow"], "lensing": calls["semi"]}
+    for n in KERNELS:
+        require(launches[n] == want.get(n, 0),
+                f"{n} launched {want.get(n, 0)} times on the spt path")
+    require(set(seen["los"]) == {SPT_LMAX_COMPUTED + post.lens_margin}
+            and set(seen["lens"]) == {SPT_LMAX_COMPUTED},
+            "the LOS and lensing stay at lmax_computed in every call")
+    mll = state.mloglike
+    log("  -logL per chain: " + " ".join(f"{float(v):.3f}" for v in mll)
+        + f"; acceptance {float(out.accept.float().mean()):.3f}")
+    require(bool(torch.isfinite(mll).all()) and bool((mll < 1e29).all()),
+            "finite -logL on the spt path")
+    require(bool(torch.isfinite(out.derived).all()), "spt: finite derived")
+    require(not bool(out.error.any()), "spt: no error points")
+    s_fast = check_sync(lambda: stage_fast(state.P, state.slow, state.semi))
+    log(f"  fast stage (SPTpol x2 + SPT-SZ TT, {NCHAINS} chains): waits for "
+        f"the card {s_fast[0]} (host {s_fast[1]:.1f} ms, sync warnings "
+        f"{s_fast[2]} at {', '.join(s_fast[3])})")
+
+    # 6. BK-Planck and CMBLikes HL / fullsky exact on the cached theory
+    th32 = post.assemble_theory(slow32, semi32)
+    bk0 = BKPlanckLikelihood(sd.write_bk_like(path("bk0")), device=dev)
+    other = {
+        "BK-Planck (HL, 3 B maps)": BKPlanckLikelihood(sd.write_bk_like(
+            path("bk"), sd.cmblikes_bandpowers(bk0, semi64["cls"])), device=dev)}
+    for approx, kw in (("HL", {}), ("exact", dict(lrange=(2, 200)))):
+        l0 = CMBLikes(sd.write_cmblikes_tt(path(f"tt_{approx}0"),
+                                           like_approx=approx, **kw),
+                      device=dev)
+        vals = sd.cmblikes_bandpowers(l0, semi64["cls"])[:, 0]
+        other[f"CMBLikes {approx} (TT)"] = CMBLikes(sd.write_cmblikes_tt(
+            path(f"tt_{approx}"), vals, like_approx=approx, **kw), device=dev)
+    for name, like in other.items():
+        nu = torch.as_tensor([[p.center for p in like.nuisance if p.varying]]
+                             * NCHAINS, dtype=F64, device=dev)
+        v64 = like.log_like(theory64, nu[:1])
+        like.log_like(th32, nu)
+        ms, v32 = timed(lambda: like.log_like(th32, nu), reps=5)
+        synced, host_ms, n_sync, sites = check_sync(
+            lambda: like.log_like(th32, nu))
+        d = float((v32.double() - v64).abs().max())
+        log(f"  {name}: -logL float64 theory {float(v64[0]):.6e}, float32 "
+            f"theory {float(v32[0]):.6e} (max |diff| {d:.3e}), {ms:.3f} ms a "
+            f"call ({NCHAINS} chains); waits for the card {synced} (host "
+            f"{host_ms:.1f} ms, sync warnings {n_sync} at {', '.join(sites)})")
+        require(bool(torch.isfinite(v32).all()) and bool(torch.isfinite(v64).all()),
+                f"{name}: finite")
+        require(d < SPT_F32_TOL, f"{name}: float32 theory within "
+                f"{SPT_F32_TOL} of float64")
+    return launches, per_segment
+
+
 def kernel_of(line):
     """The kernel and template arguments of a ptxas "Compiling entry
     function" line: _ZN<len><namespace><len><fn>I{f,d}[Li<NPT>E][Lb<0|1>E
@@ -1984,6 +2290,9 @@ def main() -> int:
         launches["w0wa"], segment["w0wa"] = drive_extended(dev, tmp, "w0wa")
         iso_response(dev)
         log(f"phase 10 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["spt"], segment["spt"] = drive_spt(dev, tmp, flagship_fid)
+        log(f"phase 11 done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():

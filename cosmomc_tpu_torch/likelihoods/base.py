@@ -12,12 +12,13 @@ with `nuisance` its (C, n_nuisance) slice of the sampled vectors.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from cosmomc_tpu_torch.params.space import Param, ParameterSpace, Speed
 from cosmomc_tpu_torch.utils.ini import IniFile
+from cosmomc_tpu_torch.utils.paramnames import ParamNames
 
 
 class Likelihood:
@@ -30,6 +31,34 @@ class Likelihood:
         self.name = name or type(self).__name__
         self.nuisance: List[Param] = []
 
+    def add_nuisance_from_paramnames(self, path: str,
+                                     ini: Optional[IniFile] = None,
+                                     defaults: Optional[dict] = None) -> None:
+        """Register the sampled entries of a .paramnames file as nuisance
+        parameters, in its order: centre and range from `param[name]` ini
+        lines (with `prior[name]`), else from `defaults` (a 1-tuple fixes
+        the parameter), as the JAX package's base class does."""
+        for info in ParamNames.from_file(path).sampled():
+            spec = ini.string(f"param[{info.name}]") if ini is not None else None
+            if spec is not None:
+                spec = [float(x) for x in spec.split()]
+            elif defaults and info.name in defaults:
+                spec = defaults[info.name]
+            else:
+                raise ValueError(
+                    f"{self.name}: no param[] spec for nuisance {info.name}")
+            if len(spec) == 1:
+                p = Param(info.name, spec[0], spec[0], spec[0], 0.0, 0.0,
+                          label=info.label, speed=Speed.FAST)
+            else:
+                p = Param(info.name, *spec[:5], label=info.label,
+                          speed=Speed.FAST)
+            if ini is not None and ini.string(f"param[{info.name}]") is not None:
+                pr = ini.string(f"prior[{info.name}]")
+                if pr:
+                    p.prior_mean, p.prior_std = (float(x) for x in pr.split())
+            self.nuisance.append(p)
+
     def log_like(self, theory, nuisance: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
@@ -38,30 +67,55 @@ class Likelihood:
 class LikelihoodList:
     """Ordered collection wiring nuisance blocks into the parameter space."""
     likes: List[Likelihood] = field(default_factory=list)
+    #: index lists of add_nuisance_to_space as tensors, per (list, device):
+    #: indexing with a host list copies it to the card, which waits for it
+    _cols: dict = field(default_factory=dict, repr=False, compare=False)
 
     def add(self, like: Likelihood) -> None:
         self.likes.append(like)
 
-    def add_nuisance_to_space(self, space: ParameterSpace) -> Dict[str, slice]:
+    def add_nuisance_to_space(self, space: ParameterSpace) -> Dict[str, object]:
         """Append each likelihood's nuisance params to the space; returns
-        {likelihood name: slice into the *varying* vector}."""
-        slices: Dict[str, slice] = {}
+        {likelihood name: its varying nuisance parameters' columns in the
+        *varying* vector}, a slice, or an index list where a likelihood
+        shares a parameter by name with one before it (SPTpol TE/EE and BB
+        both have beam1, beam2). The JAX package gives every likelihood the
+        slice of the parameters it added, which reads the wrong columns for
+        a shared name; without one the two agree."""
+        slices: Dict[str, object] = {}
         for like in self.likes:
             before = space.num_varying
             for p in like.nuisance:
                 if p.name not in space:
                     space.add(p)
-            slices[like.name] = slice(before, space.num_varying)
+            cols = {p.name: i for i, p in enumerate(space.varying)}
+            own = []
+            for p in like.nuisance:
+                if p.varying:
+                    if p.name not in cols:
+                        raise ValueError(
+                            f"{like.name}: nuisance {p.name} varies here but "
+                            "is fixed by an earlier likelihood")
+                    own.append(cols[p.name])
+            contiguous = own == list(range(before, space.num_varying))
+            slices[like.name] = (slice(before, space.num_varying)
+                                 if contiguous else own)
         return slices
 
     def total_log_like(self, theory, varying: torch.Tensor,
-                       slices: Dict[str, slice]):
+                       slices: Dict[str, object]):
         """(sum of chi^2/2, per-likelihood values), each per chain."""
         total = torch.zeros(varying.shape[0], dtype=varying.dtype,
                             device=varying.device)
         per = []
         for like in self.likes:
-            val = like.log_like(theory, varying[:, slices[like.name]])
+            cols = slices[like.name]
+            if not isinstance(cols, slice):
+                key = (tuple(cols), varying.device)
+                if key not in self._cols:
+                    self._cols[key] = torch.as_tensor(cols, device=varying.device)
+                cols = self._cols[key]
+            val = like.log_like(theory, varying[:, cols])
             per.append(val)
             total = total + val
         return total, (torch.stack(per, -1) if per else

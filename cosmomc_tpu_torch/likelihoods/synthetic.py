@@ -357,3 +357,314 @@ def mpk_bandpowers(like, theory) -> np.ndarray:
     W = like._W.to(P.dtype)
     out = torch.einsum("...k,k->...", W, P[0])
     return out.double().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# CMB bandpower sets: SPTpol TE/EE and BB, an SPT-SZ-shaped CMBLike2 TT set,
+# a BK15-shaped set, and a high-l lensed template
+# ---------------------------------------------------------------------------
+
+#: SPTpol 500d TE/EE (Henning et al. 2018): 56 bins a spectrum over
+#: 50 < l <= 8000; here 49 bins of 50 to l = 2500, then 7 wider ones
+SPTPOL_TEEE_EDGES = np.concatenate([np.arange(50, 2501, 50),
+                                    [3000, 3500, 4000, 5000, 6000, 7000, 8001]])
+#: SPTpol 500d BB (Sayre et al. 2019): 7 bins over 52 < l < 2301, three
+#: cross-spectra (150x150, 95x150, 95x95)
+SPTPOL_BB_EDGES = np.array([50, 250, 500, 750, 1000, 1300, 1650, 2301])
+#: SPT-SZ 2500d TT (Story et al. 2013): 47 bandpowers of width 50 over
+#: 650 < l <= 3000
+SPTSZ_EDGES = np.arange(651, 3002, 50)
+#: BK15: 9 bins of width 35 from l = 20
+BK_EDGES = np.arange(20, 336, 35)
+BK_BANDS = (95, 150, 220)
+BK_PARAMS = ("BBdust", "BBsync", "BBalphadust", "BBbetadust", "BBTdust",
+             "BBalphasync", "BBbetasync", "BBdustsynccorr", "EEtoBB_dust",
+             "EEtoBB_sync", "Delta_dust", "Delta_sync", "gamma_corr",
+             "gamma_95", "gamma_150", "gamma_220")
+
+
+def _bin_centres(edges: np.ndarray) -> np.ndarray:
+    return 0.5 * (edges[:-1] + edges[1:] - 1)
+
+
+def _tophat(l: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """A window 1/(hi-lo) over lo <= l < hi."""
+    return ((l >= lo) & (l < hi)) / float(hi - lo)
+
+
+def _bandpower_sigma(values: np.ndarray, ls: np.ndarray, rel: float,
+                     floor: float, l_noise: float) -> np.ndarray:
+    """rel of each value plus `floor` of the spectrum's largest value,
+    the floor growing as (l / l_noise)^2 (noise-dominated bins)."""
+    scale = np.abs(values).max() if np.abs(values).max() > 0 else 1.0
+    return rel * np.abs(values) + floor * scale * (1.0 + (ls / l_noise) ** 2)
+
+
+def _write_sptpol(out_dir: str, prefix: str, edges: np.ndarray,
+                  values: np.ndarray, corr_cross: float, seed: int,
+                  settings: Optional[Dict[str, object]] = None) -> str:
+    """Desc, bandpowers, covariance, windows/window_<i> and beam errors of
+    an SPTpol set; `values` (n_spectra, nbin)."""
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(out_dir, "windows"), exist_ok=True)
+    nspec, nbin = values.shape
+    lmin, lmax = int(edges[0]), int(edges[-1] - 1)
+    ls = _bin_centres(edges)
+    with open(os.path.join(out_dir, f"{prefix}_desc.txt"), "w") as f:
+        f.write(f"{nbin} 1\n{lmin} {lmax}\n")
+    np.savetxt(os.path.join(out_dir, f"{prefix}_bp.txt"),
+               np.column_stack([np.tile(np.arange(1, nbin + 1), nspec),
+                                values.reshape(-1)]), fmt=["%d", "%.17g"])
+    sig = np.concatenate([_bandpower_sigma(v, ls, 0.03, 0.01, 3000.0)
+                          for v in values])
+    n = nspec * nbin
+    corr = np.eye(n)
+    for i in range(n):
+        for j in range(n):
+            if i != j and i // nbin == j // nbin and abs(i - j) == 1:
+                corr[i, j] = 0.1            # neighbouring bins of a spectrum
+            elif i != j and i % nbin == j % nbin:
+                corr[i, j] = corr_cross     # one bin of two spectra
+    np.savetxt(os.path.join(out_dir, f"{prefix}_cov.txt"),
+               corr * np.outer(sig, sig), fmt="%.17g")
+    l = np.arange(lmin, lmax + 1)
+    for i in range(n):
+        b = i % nbin
+        sel = (l >= edges[b]) & (l < edges[b + 1])
+        np.savetxt(os.path.join(out_dir, "windows", f"window_{i + 1}"),
+                   np.column_stack([l[sel], _tophat(l[sel], edges[b],
+                                                    edges[b + 1])]),
+                   fmt=["%d", "%.17g"])
+    beam = rng.uniform(-1.0, 1.0, (2, 1)) * 0.01 * (1.0 + np.tile(ls, nspec)
+                                                   / 2000.0)[None, :]
+    np.savetxt(os.path.join(out_dir, f"{prefix}_beam.txt"),
+               np.column_stack([np.tile(np.arange(1, n + 1), 2),
+                                beam.reshape(-1)]), fmt=["%d", "%.17g"])
+    keys = {f"{prefix}_desc_file": f"{prefix}_desc.txt",
+            f"{prefix}_bp_file": f"{prefix}_bp.txt",
+            f"{prefix}_cov_file": f"{prefix}_cov.txt",
+            f"{prefix}_window_dir": "windows",
+            f"{prefix}_beam_file": f"{prefix}_beam.txt"}
+    keys.update(settings or {})
+    return _ini(os.path.join(out_dir, f"{prefix}.dataset"), keys)
+
+
+def write_sptpol_teee(out_dir: str, values: Optional[np.ndarray] = None,
+                      edges: np.ndarray = SPTPOL_TEEE_EDGES,
+                      settings: Optional[Dict[str, object]] = None) -> str:
+    """An SPTpol TE/EE set in the 2017 release's layout: `values` (2, nbin)
+    the TE and EE bandpowers (D_l, muK^2) over the bins `edges` (by default
+    56 bins over 50 <= l <= 8000). Errors 3% of each bandpower plus 1% of
+    the spectrum's largest, growing as (l/3000)^2; correlation 0.1 between
+    neighbouring bins and 0.2 between TE and EE of a bin; two seeded
+    beam-error templates; top-hat windows. `settings` adds dataset keys
+    (correct_aberration, the prior switches). Returns the .dataset."""
+    nbin = len(edges) - 1
+    values = np.ones((2, nbin)) if values is None else np.asarray(values, float)
+    return _write_sptpol(out_dir, "sptpol_TEEE", edges, values, 0.2, 0,
+                         settings)
+
+
+def write_sptpol_bb(out_dir: str, values: Optional[np.ndarray] = None) -> str:
+    """An SPTpol BB set in the 2019 release's layout: `values` (3, 7) the
+    150x150, 95x150 and 95x95 bandpowers over SPTPOL_BB_EDGES (7 bins over
+    50 <= l <= 2300); errors and windows as write_sptpol_teee, correlation
+    0.5 between the crosses of a bin."""
+    nbin = len(SPTPOL_BB_EDGES) - 1
+    values = np.ones((3, nbin)) if values is None else np.asarray(values, float)
+    return _write_sptpol(out_dir, "sptpol_BB", SPTPOL_BB_EDGES, values, 0.5, 1)
+
+
+def sptpol_bandpowers(like, theory) -> np.ndarray:
+    """The binned model of an SPTpol reader for the first chain of
+    `theory` at its nuisance centres, (n_spectra, nbin): the bandpowers
+    that make delta vanish there."""
+    import torch
+    nu = torch.as_tensor([[p.center for p in like.nuisance if p.varying]],
+                         dtype=like.dtype, device=like.device)
+    out = like.model(theory, nu)[0].double().cpu().numpy()
+    return out.reshape(-1, like.nbin)
+
+
+def _cl_file(path: str, names, index: np.ndarray, values: np.ndarray) -> None:
+    np.savetxt(path, np.column_stack([index, values]),
+               fmt=["%d"] + ["%.17g"] * values.shape[1],
+               header="bin " + " ".join(names))
+
+
+def write_cmblikes_tt(out_dir: str, values: Optional[np.ndarray] = None,
+                      like_approx: str = "gaussian", lrange=(2, 40)) -> str:
+    """A CMBLike2 TT set shaped as SPT-SZ 2500d's spt_s13_margfg.dataset:
+    binned over SPTSZ_EDGES (47 bandpowers of width 50 over 650 < l <= 3000),
+    top-hat windows, a calibration parameter (sptsz_cal, with a
+    log-calibration prior) and an aberration coefficient. `like_approx`
+    "gaussian" (the release's), "HL" (the fiducial is `values`) or "exact"
+    (unbinned over `lrange`, fullsky_exact_fksy 0.57, no covariance).
+    `values` the bandpowers (one a bin, or a multipole for "exact", D_l
+    muK^2) without noise; the noise is 5% of each value times (l/2000)^2.
+    Bandpower errors 2% plus 0.5% of the largest, growing as (l/2000)^2."""
+    os.makedirs(os.path.join(out_dir, "windows"), exist_ok=True)
+    name, edges = "sptsz_2500d_synthetic", SPTSZ_EDGES
+    binned = like_approx != "exact"
+    ls = (_bin_centres(edges) if binned else
+          np.arange(lrange[0], lrange[1] + 1, dtype=float))
+    values = np.ones(len(ls)) if values is None else np.asarray(values, float)
+    index = np.arange(1, len(ls) + 1) if binned else ls.astype(int)
+    noise = 0.05 * np.abs(values) * (ls / 2000.0) ** 2
+    _cl_file(os.path.join(out_dir, name + "_cl_hat.dat"), ["TT"], index,
+             values[:, None])
+    keys = dict(like_approx=like_approx, fields_use="T",
+                binned="T" if binned else "F",
+                cl_hat_file=name + "_cl_hat.dat",
+                calibration_param=name + "_cal.paramnames",
+                log_calibration_prior=0.026, aberration_coeff=-0.0004826)
+    with open(os.path.join(out_dir, name + "_cal.paramnames"), "w") as f:
+        f.write("sptsz_cal   T_{\\rm cal}^{\\rm SPT-SZ}\n")
+    if like_approx != "gaussian":
+        _cl_file(os.path.join(out_dir, name + "_cl_noise.dat"), ["TT"], index,
+                 noise[:, None])
+        keys["cl_noise_file"] = name + "_cl_noise.dat"
+    if binned:
+        lmin, lmax = int(edges[0]), int(edges[-1] - 1)
+        l = np.arange(lmin, lmax + 1)
+        for b in range(len(ls)):
+            sel = (l >= edges[b]) & (l < edges[b + 1])
+            np.savetxt(os.path.join(out_dir, "windows", f"{name}_{b + 1}"),
+                       np.column_stack([l[sel], _tophat(l[sel], edges[b],
+                                                        edges[b + 1])]),
+                       fmt=["%d", "%.17g"])
+        sig = _bandpower_sigma(values, ls, 0.02, 0.005, 2000.0)
+        corr = np.eye(len(ls)) + 0.15 * (np.eye(len(ls), k=1)
+                                         + np.eye(len(ls), k=-1))
+        np.savetxt(os.path.join(out_dir, name + "_cov.dat"),
+                   corr * np.outer(sig, sig), fmt="%.17g")
+        keys.update(cl_lmin=lmin, cl_lmax=lmax, nbins=len(ls),
+                    bin_window_files=f"windows/{name}_%u",
+                    bin_window_in_order="TT", covmat_cl="TT",
+                    covmat_fiducial=name + "_cov.dat")
+        if like_approx == "HL":
+            _cl_file(os.path.join(out_dir, name + "_cl_fid.dat"), ["TT"],
+                     index, values[:, None])
+            keys["cl_fiducial_file"] = name + "_cl_fid.dat"
+    else:
+        keys.update(cl_lmin=int(lrange[0]), cl_lmax=int(lrange[1]),
+                    fullsky_exact_fksy=0.57)
+    return _ini(os.path.join(out_dir, name + ".dataset"), keys)
+
+
+def cmblikes_bandpowers(like, cls) -> np.ndarray:
+    """The binned, adapted theory of a CMBLikes (or BK-Planck) reader for
+    the first chain of the (C, 4, 4, lmax+1) stack `cls` at its nuisance
+    centres, (nbins_used, ncl) in the used maps' vech order: the cl_hat
+    that makes the set's chi^2 vanish there (noise not included)."""
+    import torch
+    nu = torch.as_tensor([[p.center for p in like.nuisance if p.varying]],
+                         dtype=like.dtype, device=like.device)
+    return like.theory_vech(cls[:1], nu)[0].double().cpu().numpy()
+
+
+def _gaussian_bandpass(path: str, nu0: float, frac: float = 0.25) -> None:
+    """A Gaussian bandpass of FWHM frac*nu0 on 61 frequencies."""
+    nu = nu0 * np.linspace(1.0 - 1.2 * frac, 1.0 + 1.2 * frac, 61)
+    sig = frac * nu0 / 2.3548
+    np.savetxt(path, np.column_stack([nu, np.exp(-0.5 * ((nu - nu0) / sig) ** 2)]),
+               fmt="%.10e")
+
+
+def bk_map_names():
+    """The six maps of write_bk_like: E and B at each band."""
+    return [f"BK15_{b}_{f}" for b in BK_BANDS for f in "EB"]
+
+
+def write_bk_like(out_dir: str, values: Optional[np.ndarray] = None,
+                  maps_use=("BK15_95_B", "BK15_150_B", "BK15_220_B"),
+                  settings: Optional[Dict[str, object]] = None) -> str:
+    """A BK15-shaped HL set: six maps (E and B at 95, 150 and 220 GHz),
+    `maps_use` of them used, 9 bins of width 35 from l = 20 with top-hat
+    windows for every pair of the six maps (the reader keeps the required
+    ones), a Gaussian bandpass table per band under `bandpass[map]` keys,
+    the 16 foreground parameters in a .paramnames file, and a diagonal
+    covariance of 10% of each fiducial-plus-noise bandpower (cross
+    spectra: of the geometric mean of the autos). `values` (9, ncl) the
+    bandpowers in the used maps' vech order, also the fiducial; the noise
+    is 1e-3 (95), 5e-4 (150), 3e-3 (220) muK^2 on the autos."""
+    os.makedirs(os.path.join(out_dir, "windows"), exist_ok=True)
+    name, maps = "BK15_synthetic", bk_map_names()
+    used = [m for m in maps if m in maps_use]
+    n = len(used)
+    pairs = [(i, j) for i in range(n) for j in range(i + 1)]
+    names = [f"{used[i]}x{used[j]}" for i, j in pairs]
+    nb = len(BK_EDGES) - 1
+    values = (np.ones((nb, len(pairs))) if values is None
+              else np.asarray(values, float))
+    nlev = {95: 1e-3, 150: 5e-4, 220: 3e-3}
+    band = lambda m: int(m.split("_")[1])
+    noise = np.array([[nlev[band(used[i])] if i == j else 0.0
+                       for i, j in pairs]] * nb)
+    index = np.arange(1, nb + 1)
+    for stem, v in (("cl_hat", values), ("cl_fid", values),
+                    ("cl_noise", noise)):
+        _cl_file(os.path.join(out_dir, f"{name}_{stem}.dat"), names, index, v)
+    tot = np.abs(values) + noise
+    auto = np.stack([tot[:, pairs.index((i, i))] for i in range(n)], 1)
+    sig = np.stack([0.1 * np.sqrt(auto[:, i] * auto[:, j]) for i, j in pairs],
+                   1)
+    np.savetxt(os.path.join(out_dir, f"{name}_cov.dat"),
+               np.diag(sig.reshape(-1) ** 2), fmt="%.10e")
+    all_pairs = [f"{maps[i]}x{maps[j]}" for i in range(len(maps))
+                 for j in range(i + 1)]
+    lmax = int(BK_EDGES[-1] + 65)
+    l = np.arange(2, lmax + 1)
+    for b in range(nb):
+        w = _tophat(l, BK_EDGES[b], BK_EDGES[b + 1])
+        np.savetxt(os.path.join(out_dir, "windows", f"{name}_bpwf_bin{b + 1}.txt"),
+                   np.column_stack([l] + [w] * len(all_pairs)),
+                   fmt=["%d"] + ["%.10e"] * len(all_pairs))
+    for b in BK_BANDS:
+        _gaussian_bandpass(os.path.join(out_dir, f"{name}_bandpass_{b}.txt"), b)
+    with open(os.path.join(out_dir, f"{name}.paramnames"), "w") as f:
+        for p in BK_PARAMS:
+            f.write(f"{p}   {p}\n")
+    keys = dict(map_names=" ".join(maps),
+                map_fields=" ".join(m[-1] for m in maps),
+                maps_use=" ".join(used), like_approx="HL", binned="T",
+                nbins=nb, cl_lmin=2, cl_lmax=lmax,
+                bin_window_files=f"windows/{name}_bpwf_bin%u.txt",
+                bin_window_in_order=" ".join(all_pairs),
+                cl_hat_file=f"{name}_cl_hat.dat",
+                cl_fiducial_file=f"{name}_cl_fid.dat",
+                cl_noise_file=f"{name}_cl_noise.dat",
+                covmat_fiducial=f"{name}_cov.dat", covmat_cl=" ".join(names),
+                nuisance_params=f"{name}.paramnames")
+    for m in maps:
+        keys[f"bandpass[{m}]"] = f"{name}_bandpass_{band(m)}.txt"
+    keys.update(settings or {})
+    return _ini(os.path.join(out_dir, f"{name}.dataset"), keys)
+
+
+def write_highl_template(path: str, cls: np.ndarray, lmax: int) -> str:
+    """A look-alike of CosmoMC's HighL_lensedCls.dat, not CAMB's file: the
+    lensed spectrum `cls` ((4, 4, l_c+1) stack, l(l+1)C_l/2pi muK^2) held
+    to l_c, then extended to `lmax` by an exponential damping tail. The
+    slope of ln TT, ln EE and ln BB is fitted over the last 500
+    multipoles from l = 2 (capped at 0, so the tail never grows) and the tail starts
+    from the value at l_c; TE above l_c is the mean TE/sqrt(TT EE) of that
+    range times sqrt(TT EE). Columns l, TT, EE, BB, TE (CAMB lensedCls
+    order), from l = 2."""
+    cls = np.asarray(cls, float)
+    lc = cls.shape[-1] - 1
+    l = np.arange(2, lmax + 1)
+    fit = np.arange(max(2, lc - 500), lc + 1)
+    out = {}
+    for key, (i, j) in (("TT", (0, 0)), ("EE", (1, 1)), ("BB", (2, 2))):
+        d = cls[i, j]
+        slope = min(np.polyfit(fit, np.log(np.abs(d[fit]) + 1e-30), 1)[0], 0.0)
+        tail = d[lc] * np.exp(slope * (l - lc))
+        out[key] = np.where(l <= lc, d[np.minimum(l, lc)], tail)
+    rho = np.mean(cls[1, 0, fit] / np.sqrt(cls[0, 0, fit] * cls[1, 1, fit]))
+    out["TE"] = np.where(l <= lc, cls[1, 0, np.minimum(l, lc)],
+                         rho * np.sqrt(out["TT"] * out["EE"]))
+    np.savetxt(path, np.column_stack([l, out["TT"], out["EE"], out["BB"],
+                                      out["TE"]]),
+               fmt=["%d"] + ["%.17g"] * 4, header="L TT EE BB TE")
+    return path

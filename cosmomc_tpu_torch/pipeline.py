@@ -25,9 +25,11 @@ semi-slow, nt = -r/8), matter power with the sigma8 derived values,
 LSS-only runs (`use_cmb=False`: no source evolution, LOS or lensing), and
 the extended sectors: the massive-neutrino hierarchy and the dark-energy
 fluid, switched on ("auto") when mnu, w or wa is sampled or set away from
-its LCDM value, and correlated CDM isocurvature when alpha1 is. The
-high-l template splice raises NotImplementedError. The BBN table is
-always passed in.
+its LCDM value, and correlated CDM isocurvature when alpha1 is. With
+`lmax_computed` below the likelihoods' lmax, the Boltzmann C_l stop at
+`lmax_computed` and the fiducial lensed template (`highl_template`) fills
+the rest, scaled to the computed TT there. The BBN table is always passed
+in.
 `los_method="auto"` means the table engine on every device.
 """
 
@@ -202,10 +204,6 @@ def _ztag(z: float) -> str:
     return f"{z:g}".replace(".", "")
 
 
-def _unported(what: str):
-    raise NotImplementedError(f"CMBPosterior: {what} is not ported yet")
-
-
 @dataclass
 class CMBPosterior:
     """Theta-parameterized LCDM -> Boltzmann C_l -> CMB likelihoods (or,
@@ -222,7 +220,12 @@ class CMBPosterior:
     lmax: int = 2508
     kmax: float = 0.5
     lens_margin: int = 150
+    #: compute the Boltzmann C_l only to this l and fill (lmax_computed,
+    #: lmax] with the fiducial lensed template scaled by TT at the boundary
+    #: (Calculator_CAMB.f90 + LoadFiducialHighLTemplate); 0 = no splice
     lmax_computed: int = 0
+    #: the template (HighL_lensedCls.dat format: l, TT, EE, BB, TE in
+    #: l(l+1)C_l/2pi muK^2, CAMB lensedCls column order)
     highl_template: str = ""
     matter_power: bool = False
     #: the matter-power table's redshifts (extended to the likelihoods'
@@ -288,10 +291,7 @@ class CMBPosterior:
             extra = np.expm1(np.linspace(
                 np.log1p(max(self.z_pk)), np.log1p(zmax_req * 1.02), 24))[1:]
             self.z_pk = tuple(self.z_pk) + tuple(float(z) for z in extra)
-        if self.lmax_computed >= self.lmax:
-            self.lmax_computed = 0
-        if self.lmax_computed or self.highl_template:
-            _unported("lmax_computed / highl_template (the high-l splice)")
+        self._highl = self._load_highl_template()
         all_derived = list(CMB_DERIVED_NAMES)
         for z in self.z_outputs:
             t = _ztag(z)
@@ -312,6 +312,28 @@ class CMBPosterior:
         self._k = (source_k_grid(kmax=self.kmax, nk_log=self.source_nk[0],
                                  nk_lin=self.source_nk[1])
                    if self.source_nk is not None else source_k_grid(kmax=self.kmax))
+
+    def _load_highl_template(self):
+        """The template on (0..lmax) x (TT, EE, BB, TE), or None without a
+        splice. After the likelihoods' requirements have raised lmax, as
+        the reference's lmax_computed_cl = min(lmax, lmax_computed_cl): a
+        cap at or above lmax means no splice."""
+        if self.lmax_computed >= self.lmax:
+            self.lmax_computed = 0
+        if not 0 < self.lmax_computed < self.lmax:
+            return None
+        if not self.highl_template:
+            raise ValueError("lmax_computed < lmax needs highl_template")
+        raw = np.loadtxt(self.highl_template)
+        tmpl = np.zeros((self.lmax + 1, 4))
+        ls = raw[:, 0].astype(int)
+        keep = ls <= self.lmax
+        tmpl[ls[keep]] = raw[keep, 1:5]
+        if tmpl[2, 0] < 100:
+            raise ValueError("highl template must be in muK^2")
+        if ls.max() < self.lmax:
+            raise ValueError("highl template does not reach lmax")
+        return torch.as_tensor(tmpl, dtype=self.dtype, device=self.device)
 
     def _resolve_sectors(self):
         """The extended sectors' static switches, as the JAX package sets
@@ -382,7 +404,8 @@ class CMBPosterior:
             los = (compute_cl_transfers_recurrence
                    if self.los_method == "recurrence" else compute_cl_transfers)
             clt = los(po, chi_star, coarse_k=self._k,
-                      lmax=self.lmax + self.lens_margin, kmax_hint=self.kmax,
+                      lmax=(self.lmax_computed or self.lmax) + self.lens_margin,
+                      kmax_hint=self.kmax,
                       tau_stride=self.los_tau_stride)
             if self.compute_tensors:
                 kt = tensor_k_grid()
@@ -447,7 +470,7 @@ class CMBPosterior:
               if self.matter_power else None)
         if not self.use_cmb:
             return dict(cls=None, mp=mp, A9=A9)
-        lm = self.lmax
+        lm = self.lmax_computed or self.lmax
         raw = cls_from_cl_transfers(slow["clt"], pp, lmax=lm + self.lens_margin)
         muk2 = (2.7255e6) ** 2
         lensed = lens_cls(raw.ls, raw.tt * muk2, raw.te * muk2, raw.ee * muk2,
@@ -462,6 +485,15 @@ class CMBPosterior:
         cls[:, 1, 1, sl] = lensed.ee
         cls[:, 2, 2, sl] = lensed.bb
         cls[:, 3, 3, sl] = raw.pp[:, :lm - 1]
+        if self._highl is not None:
+            # fill (lm, lmax] of TT, EE, BB, TE with the template scaled by
+            # TT at the boundary; phi-phi stays 0 there
+            tmpl = self._highl
+            norm = (cls[:, 0, 0, lm] / tmpl[lm, 0])[:, None]
+            hi = slice(lm + 1, self.lmax + 1)
+            for (i, j), col in (((0, 0), 0), ((1, 1), 1), ((2, 2), 2),
+                                ((1, 0), 3), ((0, 1), 3)):
+                cls[:, i, j, hi] = norm * tmpl[lm + 1:, col]
         if self.compute_tensors:
             lmax_t = min(700, self.lmax)
             tens = tensor_cls_from_transfers(slow["tt_cache"], pp, lmax=lmax_t)

@@ -147,12 +147,14 @@ def test_alpha1_amplitude_map(bbn):
 
 
 def test_highl_splice_raises(bbn):
-    """The high-l template splice is the one CMBPosterior option still not
-    ported."""
+    """The high-l template splice needs its template: lmax_computed below
+    lmax without one raises ValueError, as in JAX
+    (tests/test_pipeline_extras.py); tests/test_torch_highl.py holds the
+    splice itself to JAX."""
     tab, _ = bbn
-    with pytest.raises(NotImplementedError, match="high-l splice"):
+    with pytest.raises(ValueError, match="highl_template"):
         TPost(TTheta(), TTheta().default_space(), TLikes(), bbn_table=tab,
-              device="cpu", lmax_computed=1000, highl_template="highl.dat")
+              device="cpu", lmax=2508, lmax_computed=1000)
 
 
 @pytest.fixture(scope="module")
