@@ -57,6 +57,12 @@ spliced C_l equal the scaled template, -logL at the best fit its
 constant (the SPTpol sets' half ln det Cov plus the tau prior); then a
 few staged segments, and BK-Planck and CMBLikes HL and fullsky-exact on
 the cached theory, float32 against float64.
+Phase 12 runs the LSS-only configuration with a BBN prior (the astro
+parameterization, K4 and K1 only): DES 1YR-shaped 3x2pt, Planck
+2015-shaped SZ cluster counts, D/H and Yp abundances on a written BBN
+grid and DR12 BAO with f_sigma8, float32 theory and float64 likelihoods,
+32 chains, two staged segments; then the action=4 per-likelihood table on
+phase 3's flagship posterior.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -142,6 +148,14 @@ SPT_F32_TOL, SPLICE_RTOL = 1.0, 1e-6
 #: K2a's (sampled l, fine k) and K3's lensed width on the flagship
 FLAGSHIP_K2A_SHAPE, FLAGSHIP_LENSED_L = (109, 4521), 2507
 
+#: phase 12 (the LSS-only configuration with a BBN prior): chains,
+#: segments of SEG_STEPS with one slow step each, the bound on
+#: float32-theory minus float64-theory -logL of each likelihood, and the
+#: float64 checks at the centres (WL's chi^2/2 at the theory its set was
+#: written from; the abundances and SZ against their sums by hand)
+LSS_NCHAINS, LSS_SEGMENTS, LSS_F32_TOL = 32, 2, 1.0
+LSS_WL_ZERO, LSS_HAND_RTOL = 1e-6, 1e-9
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
                 "cosmomc_tpu/models/recfast.py:279"),
@@ -166,7 +180,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: "flagship_mp" is the flagship with matter power, K1 twice a slow step;
 #: phase 8 "astro" the LSS-only configuration; phases 9 "mnu" and 10
 #: "w0wa" K1's extended instantiations, twice a slow step; phase 11 "spt"
-#: the flagship's kernels at the flagship's shapes under lmax 8001)
+#: the flagship's kernels at the flagship's shapes under lmax 8001; phase
+#: 12 "lss_bbn" the astro configuration with DES, SZ, BBN and BAO)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
@@ -176,7 +191,8 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "astro": ("recfast", "boltzmann"),
                 "mnu": ("recfast", "boltzmann_nu", "los", "lensing"),
                 "w0wa": ("recfast", "boltzmann_de", "los", "lensing"),
-                "spt": ("recfast", "boltzmann", "los", "lensing")}
+                "spt": ("recfast", "boltzmann", "los", "lensing"),
+                "lss_bbn": ("recfast", "boltzmann")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -1162,7 +1178,8 @@ def drive_path(dev, tmp, label, cfg):
             "segment output shape")
     require(bool(torch.isfinite(out.derived).all()), "finite derived")
     require(not bool(out.error.any()), "no error points")
-    return launches, per_segment, dict(ds=ds, theory=fid_theory, cls=cls[F64])
+    return launches, per_segment, dict(ds=ds, theory=fid_theory, cls=cls[F64],
+                                       post=post)
 
 
 def leaves(x, path="state"):
@@ -2191,6 +2208,271 @@ def drive_spt(dev, tmp, fid):
     return launches, per_segment
 
 
+def sz_cash_by_hand(counts, DN):
+    """The Cash -logL of theory counts DN (nz, nq) against a catalogue
+    written from integer `counts` plus synthetic.SZ_MISSING_Q rows with no
+    redshift, recomputed from the counts in numpy: each missing row scales
+    its S/N column so the column total grows by one, then Stirling's
+    ln n! above 10 and the exact one below (szcounts.f90:1769-1944)."""
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods import szcounts as sz
+    ny = counts.shape[1] - 1
+    lc = sz.LOGY_MIN + (np.arange(ny + 1) + 0.5) * sz.DLOGY
+    qlo, qhi = 10.0 ** (lc - 0.5 * sz.DLOGY), 10.0 ** (lc + 0.5 * sz.DLOGY)
+    n = counts.astype(float)
+    for q in sd.SZ_MISSING_Q:
+        j = ny if q >= qhi[ny - 1] else int(np.nonzero((qlo <= q) & (q < qhi))[0][0])
+        if n[:, j].sum() > 0:
+            n[:, j] *= (n[:, j].sum() + 1.0) / n[:, j].sum()
+    lnf = np.array([0.0 if v == 0 else
+                    (0.918939 + (v + 0.5) * math.log(v) - v if v > 10
+                     else math.lgamma(math.floor(v) + 1.0))
+                    for v in n.ravel()]).reshape(n.shape)
+    term = np.where(DN > 0, n * np.log(np.maximum(DN, 1e-300)) - DN - lnf, 0.0)
+    return -float(term.sum())
+
+
+def abundance_by_hand(tab, ds, ombh2, dn):
+    """An abundance set's Gaussian at (ombh2, DeltaN) from the numbers in
+    its .dataset and a bilinear lookup in the BBN grids (numpy)."""
+    keys = {}
+    with open(ds) as f:
+        for line in f:
+            k, _, v = line.partition("=")
+            keys[k.strip()] = v.strip()
+    x = (ombh2 - tab.ombh2_0) / tab.ombh2_step
+    y = (dn - tab.dn_0) / tab.dn_step
+    i, j = int(x), int(y)
+    fx, fy = x - i, y - j
+
+    def at(g):
+        g = np.asarray(g)
+        return ((1 - fx) * (1 - fy) * g[i, j] + fx * (1 - fy) * g[i + 1, j]
+                + (1 - fx) * fy * g[i, j + 1] + fx * fy * g[i + 1, j + 1])
+    dh = keys["measurement"] == "D/H"
+    pred = at(tab.dh if dh else tab.ypbbn)
+    terr = float(keys.get("theory_effective_error", 0.0)) or at(
+        tab.sig_dh if dh else tab.sig_yp)
+    t = pred + float(keys.get("theory_bias_offset", 0.0)) - float(keys["mean"])
+    return 0.5 * t * t / (float(keys["error"]) ** 2 + terr ** 2)
+
+
+def drive_lss_bbn(dev, tmp):
+    """Phase 12, part 1: the LSS-only configuration with a BBN prior as
+    cosmomc_tpu/driver.py builds it (parameterization = astro:
+    AstroParameterization and CMBPosterior(use_cmb=False,
+    matter_power=True), use_WL, use_SZ, abundance datasets): a DES 1YR-shaped 3x2pt set, a Planck 2015-shaped
+    SZ set (dN/dz/dq, Tinker), D/H and Yp abundances on a written BBN grid
+    and the synthetic DR12 BAO set with f_sigma8 rows, each written from
+    the port's float64 theory at the centres. The matter grid at full
+    width (216 k to 8/Mpc, 6144 steps), z_pk extended by WL's
+    required_zmax and SZ's 1.2, the theory in float32, the likelihoods in
+    float64. At the centres in float64: WL's chi^2/2 is 0, each abundance
+    its Gaussian by hand, SZ's Cash sum recomputed in numpy, the
+    per-likelihood table summing to the fast stage's total; the float32
+    theory within LSS_F32_TOL of each. Then StagedMetropolisSampler on
+    LSS_NCHAINS chains: init, LSS_SEGMENTS segments of SEG_STEPS with one
+    slow step each, launching K4 and K1 once a slow step and nothing
+    else; each new likelihood's ms a call and whether it waits for the
+    card. Returns the launch counts."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.abundances import AbundanceLikelihood
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.szcounts import SZCountsLikelihood
+    from cosmomc_tpu_torch.likelihoods.wl import WLLikelihood
+    from cosmomc_tpu_torch.models.bbn import load_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import AstroParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    t_phase = time.time()
+    d = os.path.join(tmp, "lss_bbn")
+    par = AstroParameterization()
+    table = load_bbn_table(sd.write_bbn_table(os.path.join(
+        d, sd.BBN_TABLE_NAME)))
+    abund = [sd.write_abundance(d, n, **sd.ABUNDANCE_SETS[n])
+             for n in ("D_Cooke2017", "Yp_Aver2015")]
+    des = sd.write_des_wl(d)
+    sd.write_sz_selection(d)
+    sd.write_sz_catalogue(d, np.zeros((11, 5), int))
+    bao0 = BAOLikelihood(sd.write_dr12_bao(d, fsigma8=True), device=dev)
+
+    def posterior(likes, dtype):
+        return CMBPosterior(par, par.default_space(), likes, bbn_table=table,
+                            use_cmb=False, matter_power=True, device=dev,
+                            dtype=dtype)
+
+    def centres(post, dtype, n=1):
+        v = np.array([p.center for p in post.space.varying])
+        return torch.as_tensor(np.tile(v, (n, 1)), dtype=dtype, device=dev)
+
+    # 1. the float64 theory at the centres, on the full likelihoods' grids
+    wl_all = WLLikelihood(des, dataset_overrides={
+        "data_selection": "DES_1YR_synthetic" + sd.DES_ALL_SCALES}, device=dev)
+    sz0 = SZCountsLikelihood(d, device=dev)
+    req = LikelihoodList()
+    req.add(wl_all)
+    req.add(sz0)
+    p64 = posterior(req, F64)
+    full = p64.embed_full(centres(p64, F64))
+    slow = p64.stage_slow(full)
+    th64 = p64.assemble_theory(slow, p64.stage_semi(full, slow))
+    log(f"phase 12: z_pk {len(p64.z_pk)} redshifts to {max(p64.z_pk):.4f} "
+        f"(WL required_zmax {wl_all.required_zmax:.4f}, SZ 1.2); "
+        f"sigma8(0) {float(th64.sigma8_z[0, 0]):.6f} (float64)")
+
+    # 2. the sets, written from that theory
+    des = sd.write_des_wl(d, sd.des_wl_rows(wl_all, th64))
+    nu_sz = sz0.nuisance_values(torch.as_tensor(
+        [[p.center for p in sz0.nuisance if p.varying]], dtype=F64, device=dev))
+    counts = np.rint(sz0.theory_counts(th64, nu_sz)[0].cpu().numpy()).astype(int)
+    sd.write_sz_catalogue(d, counts)
+    dr12 = sd.write_dr12_bao(d, bao0.theory_vector(th64)[0].cpu().numpy(),
+                             fsigma8=True)
+    likes = LikelihoodList()
+    likes.add(WLLikelihood(des, device=dev))
+    likes.add(SZCountsLikelihood(d, device=dev))
+    for ds in abund:
+        likes.add(AbundanceLikelihood(ds, device=dev))
+    likes.add(BAOLikelihood(dr12, device=dev, dtype=F64))
+    wl, sz = likes.likes[0], likes.likes[1]
+    log(f"  DES: {wl.num_used} of {sd.N_DES_ROWS} rows after the cuts; SZ: "
+        f"{sz.ncat} clusters at q >= 6 ({sz.nmiss} without a redshift), "
+        f"{len(sz.skyfracs)} patches x {len(sz.thetas)} theta, f_sky "
+        f"{sz.fsky:.3f}")
+    require(400 <= wl.num_used <= 500, "DES cuts keep about half the rows")
+    require(150 <= int(counts.sum()) <= 1000, "a few hundred SZ clusters")
+
+    # 3. at the centres, float64 and float32 theory
+    post64, post32 = posterior(likes, F64), posterior(likes, F32)
+    truth = np.array([p.center for p in post64.space.varying])
+    per64 = post64.per_likelihood(truth)
+    per32 = post32.per_likelihood(truth)
+    log("  -logL per likelihood at the centres, float64 theory / float32 "
+        "theory: " + ", ".join(f"{n} {per64[n]:.9f} / {per32[n]:.9f}"
+                               for n in per64))
+    full = post64.embed_full(centres(post64, F64))
+    slow64 = post64.stage_slow(full)
+    semi64 = post64.stage_semi(full, slow64)
+    total, _ = post64.stage_fast(centres(post64, F64), slow64, semi64)
+    require(abs(sum(per64.values()) - float(total[0]))
+            <= 1e-9 * max(1.0, abs(float(total[0]))),
+            "per_likelihood sums to the fast stage's total")
+    require(abs(per64[wl.name]) < LSS_WL_ZERO, "WL chi^2/2 = 0 at its theory")
+    bg = th64.bg
+    for ds, like in zip(abund, likes.likes[2:4]):
+        want = abundance_by_hand(table, ds, float(bg.ombh2[0]),
+                                 float(bg.nnu[0]) - 3.046)
+        require(abs(per64[like.name] - want) <= LSS_HAND_RTOL * abs(want),
+                f"{like.name} equals its Gaussian by hand ({want:.12e})")
+    DN = sz.theory_counts(th64, nu_sz)[0].cpu().numpy()
+    want = sz_cash_by_hand(counts, DN)
+    require(abs(per64[sz.name] - want) <= LSS_HAND_RTOL * abs(want),
+            f"SZ Cash -logL equals the sum from its counts ({want:.9f})")
+    for n in per64:
+        require(abs(per32[n] - per64[n]) < LSS_F32_TOL,
+                f"{n}: float32 theory within {LSS_F32_TOL} of float64")
+
+    # 4. the staged sampler, float32 theory
+    prop = post32.make_proposal()
+    w = np.array([p.propose_width for p in post32.space.varying])
+    prop.set_covariance(np.diag(w ** 2))
+    sampler = StagedMetropolisSampler(prop, post32, seed=0)
+    expensive = [b for b, c in enumerate(sampler.block_class) if c == 0]
+    rng = np.random.default_rng(0)
+    lo = np.array([p.min for p in post32.space.varying])
+    hi = np.array([p.max for p in post32.space.varying])
+    P0 = torch.as_tensor(np.clip(truth + 0.3 * w * rng.standard_normal(
+        (LSS_NCHAINS, len(w))), lo, hi), dtype=F32, device=dev)
+    scheds = [prop.make_schedule(SEG_STEPS, rng, slow_every=SEG_STEPS,
+                                 expensive_blocks=expensive)
+              for _ in range(LSS_SEGMENTS)]
+    stage_s, calls = instrument_stages(post32)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    state = sampler.init_state(P0)
+    torch.cuda.synchronize()
+    at_init = dict(kernels.launches)
+    t0 = time.time()
+    for sched in scheds:
+        state, out = sampler.run_segment(state, sched)
+    torch.cuda.synchronize()
+    t_run = time.time() - t0
+    launches = dict(kernels.launches)
+    per_segment = {n: (launches[n] - at_init[n]) / LSS_SEGMENTS
+                   for n in launches}
+    log(f"  {LSS_SEGMENTS} segments x {SEG_STEPS} steps x {LSS_NCHAINS} chains "
+        f"in {t_run:.3f} s ({LSS_SEGMENTS * SEG_STEPS * LSS_NCHAINS / t_run:.1f} "
+        f"chain steps/s); stage wall time: " + ", ".join(
+            f"{n} {stage_s[n]:.3f} s / {calls[n]} calls" for n in stage_s))
+    log("  launches in the lss_bbn run: " + json.dumps(launches)
+        + "; per segment: " + json.dumps(per_segment))
+    for n in KERNELS:
+        want = 1 if n in PATH_KERNELS["lss_bbn"] else 0
+        require(at_init[n] == want and per_segment[n] == want,
+                f"{n} launched {want} time(s) at init and a segment on the "
+                f"lss_bbn path")
+    mll = state.mloglike
+    log("  -logL per chain: " + " ".join(f"{float(v):.2f}" for v in mll)
+        + f"; acceptance {float(out.accept.float().mean()):.3f}")
+    require(bool(torch.isfinite(mll).all()) and bool((mll < 1e29).all()),
+            "finite -logL on the lss_bbn path")
+    require(bool(torch.isfinite(out.derived).all()), "lss_bbn: finite derived")
+    require(not bool(out.error.any()), "lss_bbn: no error points")
+
+    # 5. the fast stage and each new likelihood: ms a call, host waits
+    stage_fast = type(post32).stage_fast.__get__(post32)
+    fast = lambda: stage_fast(state.P, state.slow, state.semi)
+    fast_ms, _ = timed(fast, reps=3)
+    s_fast = check_sync(fast)
+    log(f"  fast stage ({LSS_NCHAINS} chains): {fast_ms:.3f} ms a call; "
+        f"waits for the card {s_fast[0]} (host {s_fast[1]:.1f} ms, sync "
+        f"warnings {s_fast[2]} at {', '.join(s_fast[3])})")
+    th32 = post32.assemble_theory(state.slow, state.semi)
+    for like in likes.likes[:4]:
+        cols = post32.slices[like.name]
+        nu = state.P[:, cols]
+        like.log_like(th32, nu)
+        ms, _ = timed(lambda: like.log_like(th32, nu), reps=3)
+        synced, host_ms, n_sync, sites = check_sync(
+            lambda: like.log_like(th32, nu))
+        log(f"  {like.name}: {ms:.3f} ms a call ({LSS_NCHAINS} chains); waits "
+            f"for the card {synced} (host {host_ms:.1f} ms, sync warnings "
+            f"{n_sync} at {', '.join(sites)})")
+        require(n_sync == 0, f"{like.name} adds no host-wait site")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sz.log_like(th32, state.P[:, post32.slices[sz.name]])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  SZ peak memory above its inputs: {peak / 2 ** 20:.1f} MiB for "
+        f"{LSS_NCHAINS} chains in blocks of {sz.chain_block} "
+        f"({peak / 2 ** 20 / LSS_NCHAINS:.1f} MiB a chain)")
+    require(peak < 5 * 2 ** 30, "SZ peak under ~4 GB whatever the chains")
+    log(f"  phase 12 part 1 took {time.time() - t_phase:.1f} s")
+    return launches, per_segment
+
+
+def action4_table(post):
+    """Phase 12, part 2: the action=4 per-likelihood table on phase 3's
+    posterior (plik_lite + tau prior, float32) at the best fit: its values
+    sum to that point's -logL without priors (the raw posterior)."""
+    truth = bestfit_vector(post)
+    table = post.per_likelihood(truth)
+    raw, _ = post.raw_logpost()(torch.as_tensor(truth[None], dtype=post.dtype,
+                                                device=post.device))
+    log("phase 12: action=4 table on the flagship at the best fit: "
+        + ", ".join(f"{n} {v:.6e}" for n, v in table.items())
+        + f"; -logL without priors {float(raw[0]):.6e}")
+    require(list(table) == [like.name for like in post.likes.likes],
+            "a row per likelihood")
+    require(abs(sum(table.values()) - float(raw[0]))
+            <= 1e-5 * max(1.0, abs(float(raw[0]))),
+            "the action=4 table sums to -logL without priors")
+
+
 def kernel_of(line):
     """The kernel and template arguments of a ptxas "Compiling entry
     function" line: _ZN<len><namespace><len><fn>I{f,d}[Li<NPT>E][Lb<0|1>E
@@ -2293,6 +2575,10 @@ def main() -> int:
         t0 = time.time()
         launches["spt"], segment["spt"] = drive_spt(dev, tmp, flagship_fid)
         log(f"phase 11 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["lss_bbn"], segment["lss_bbn"] = drive_lss_bbn(dev, tmp)
+        action4_table(flagship_fid["post"])
+        log(f"phase 12 done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -62,6 +62,25 @@ class Likelihood:
     def log_like(self, theory, nuisance: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
+    def nuisance_values(self, nuisance: torch.Tensor) -> torch.Tensor:
+        """The varying columns (C, n_varying) -> every nuisance parameter's
+        value (C, n), the fixed ones at their centres. The centres and
+        column indices are copied to the device once per set of varying
+        flags and centres (an ini override may change them after
+        construction)."""
+        key = (nuisance.device, nuisance.dtype,
+               tuple((p.varying, p.center) for p in self.nuisance))
+        cache = self.__dict__.setdefault("_nuisance_fill", {})
+        if key not in cache:
+            cache[key] = (
+                torch.as_tensor([p.center for p in self.nuisance],
+                                dtype=nuisance.dtype, device=nuisance.device),
+                torch.as_tensor([i for i, p in enumerate(self.nuisance)
+                                 if p.varying], dtype=torch.int64,
+                                device=nuisance.device))
+        cent, var = cache[key]
+        return cent.expand(nuisance.shape[0], -1).index_copy(1, var, nuisance)
+
 
 @dataclass
 class LikelihoodList:

@@ -22,7 +22,14 @@ theory at a truth point with it, and write the set again with those values
     windows, optional covariance; D_V scaling at z = 0.35 and the Q model
     with a flat prior, as sdss_lrgDR4.dataset sets them);
   - `write_wigglez`: one WiggleZ redshift bin (7 regions of 50 points over
-    100 k bands), its common dataset and the GiggleZ fiducial table.
+    100 k bands), its common dataset and the GiggleZ fiducial table;
+  - `write_bbn_table` and `write_abundance`: the reference-format BBN grid
+    (the synthetic table's formulas) and Yp / D/H `.dataset`s;
+  - `write_des_wl`: DES 1YR's 3x2pt layout (4 source and 5 lens bins, 20
+    theta bins, 900 rows, scale cuts keeping about half);
+  - `write_sz_selection` and `write_sz_catalogue`: the Planck 2015 SZ
+    layout (417 patches x 80 theta noise maps, a catalogue of given counts
+    with a few missing redshifts).
 """
 
 from __future__ import annotations
@@ -667,4 +674,240 @@ def write_highl_template(path: str, cls: np.ndarray, lmax: int) -> str:
     np.savetxt(path, np.column_stack([l, out["TT"], out["EE"], out["BB"],
                                       out["TE"]]),
                fmt=["%d"] + ["%.17g"] * 4, header="L TT EE BB TE")
+    return path
+
+
+# ---------------------------------------------------------------------------
+# BBN grid and abundance measurements
+# ---------------------------------------------------------------------------
+
+#: abundance sets shaped as the reference's (tests/test_abundances.py:26-47)
+ABUNDANCE_SETS = {
+    "Yp_Aver2015": dict(measurement="Yp", mean=0.2449, error=0.0040,
+                        theory_effective_error=0.0003),
+    "D_Cooke2017": dict(measurement="D/H", mean=2.527e-5, error=0.030e-5,
+                        theory_bias_offset=-0.091e-5,
+                        theory_effective_error=0.089e-5),
+    "D_Cooke2013": dict(measurement="D/H", mean=2.53e-5, error=0.04e-5),
+}
+BBN_TABLE_NAME = "BBN_synthetic_grid.dat"
+
+
+def write_bbn_table(path: str, n_omb: int = 96, n_dn: int = 41) -> str:
+    """`bbn.synthetic_bbn_grids` as a reference-format grid file: one row
+    per (ombh2, DeltaN) node in bbn.f90's 8 columns (COL_*), eta10 =
+    273.9 ombh2."""
+    from cosmomc_tpu_torch.models import bbn
+    omb, dn, g = bbn.synthetic_bbn_grids(n_omb, n_dn)
+    O, D = np.meshgrid(omb, dn, indexing="ij")
+    cols = np.zeros(O.shape + (8,))
+    cols[..., bbn.COL_OMBH2], cols[..., bbn.COL_ETA10] = O, 273.9 * O
+    cols[..., bbn.COL_DELTAN] = D
+    for c, f in ((bbn.COL_YP, "yp"), (bbn.COL_YPBBN, "ypbbn"),
+                 (bbn.COL_SIGYP, "sig_yp"), (bbn.COL_DH, "dh"),
+                 (bbn.COL_SIGDH, "sig_dh")):
+        cols[..., c] = g[f]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savetxt(path, cols.reshape(-1, 8), fmt="%.17e",
+               header="ombh2 eta10 DeltaN Yp YpBBN sigYp DH sigDH")
+    return path
+
+
+def write_abundance(out_dir: str, name: str, measurement: str, mean: float,
+                    error: float, theory_table: str = BBN_TABLE_NAME,
+                    theory_bias_offset: Optional[float] = None,
+                    theory_effective_error: Optional[float] = None) -> str:
+    """A Yp_Aver2015- or D/H-shaped `.dataset`; `theory_table` is a grid
+    file name in `out_dir` (write_bbn_table)."""
+    os.makedirs(out_dir, exist_ok=True)
+    keys = dict(measurement=measurement, mean=repr(float(mean)),
+                error=repr(float(error)), theory_table=theory_table)
+    if theory_bias_offset is not None:
+        keys["theory_bias_offset"] = repr(float(theory_bias_offset))
+    if theory_effective_error is not None:
+        keys["theory_effective_error"] = repr(float(theory_effective_error))
+    return _ini(os.path.join(out_dir, name + ".dataset"), keys)
+
+
+# ---------------------------------------------------------------------------
+# DES 1YR 3x2pt
+# ---------------------------------------------------------------------------
+
+#: DES 1YR's layout: source and lens bins, theta bins, n(z) rows, rows in all
+DES_NS, DES_NG, DES_NTHETA, DES_NZ = 4, 5, 20, 350
+N_DES_ROWS = DES_NTHETA * (2 * DES_NS * (DES_NS + 1) // 2
+                           + DES_NG * DES_NS + DES_NG)
+DES_NUISANCE = ([f"DES_b{i}" for i in range(1, 6)]
+                + [f"DES_m{i}" for i in range(1, 5)]
+                + ["DES_AIA", "DES_alphaIA", "DES_z0AI"]
+                + [f"DES_DzL{i}" for i in range(1, 6)]
+                + [f"DES_DzS{i}" for i in range(1, 5)])
+#: the scale cuts (arcmin): xip and xim above a minimum that grows with the
+#: source pair, gammat and wtheta above 12 and 8 Mpc/h at each lens bin's
+#: redshift, as DES 1YR; they keep about half the rows
+_DES_GAMMAT_MIN = (64.0, 40.0, 30.0, 24.0, 21.0)
+_DES_WTHETA_MIN = (43.0, 27.0, 20.0, 16.0, 14.0)
+DES_ALL_SCALES = "_all_scales.dat"
+
+
+def des_theta_bins() -> np.ndarray:
+    """Centres (arcmin) of 20 log-spaced bins from 2.5' to 250'."""
+    edges = 2.5 * 100.0 ** (np.arange(DES_NTHETA + 1) / DES_NTHETA)
+    return np.sqrt(edges[1:] * edges[:-1])
+
+
+def _des_pairs():
+    """(type, b1, b2) of each block in file order (1-based bins)."""
+    src = [(i, j) for i in range(1, DES_NS + 1) for j in range(i, DES_NS + 1)]
+    return ([("xip", i, j) for i, j in src] + [("xim", i, j) for i, j in src]
+            + [("gammat", l, s) for l in range(1, DES_NG + 1)
+               for s in range(1, DES_NS + 1)]
+            + [("wtheta", l, l) for l in range(1, DES_NG + 1)])
+
+
+def _des_nz() -> np.ndarray:
+    """Z_LOW Z_MID Z_HIGH, 4 source and 5 lens columns on a 0.01 grid to
+    z = 3.5: smooth source bins, lens bins the DES redMaGiC ranges
+    (0.15-0.9) blurred by 0.02, each normalised to unit integral."""
+    from scipy.special import erf
+    dz = 0.01
+    zm = dz * (np.arange(DES_NZ) + 0.5)
+    src = [np.exp(-0.5 * ((zm - m) / w) ** 2) * zm ** 1.5
+           for m, w in ((0.35, 0.15), (0.5, 0.17), (0.7, 0.2), (0.95, 0.25))]
+    lens = [0.5 * (erf((zm - lo) / 0.02) - erf((zm - lo - 0.15) / 0.02))
+            for lo in (0.15, 0.3, 0.45, 0.6, 0.75)]
+    nz = np.array(src + lens)
+    nz /= nz.sum(-1, keepdims=True) * dz
+    return np.column_stack([zm - dz / 2, zm, zm + dz / 2, nz.T])
+
+
+def write_des_wl(out_dir: str, values: Optional[np.ndarray] = None,
+                 seed: int = 0, name: str = "DES_1YR_synthetic") -> str:
+    """A DES 1YR-format 3x2pt set: n(z) files, theta bins, xip, xim, gammat
+    and wtheta measurement files (bin1 bin2 theta-bin value) of N_DES_ROWS
+    rows in all, the scale cuts, the nuisance .paramnames and a covariance
+    of 10% of each value plus 0.5% of its block's largest (times a seeded
+    factor in [0.9, 1.1]), correlated 0.4^|i-j| between the theta bins of
+    one block. `values` are the rows in
+    file order (xip, xim, gammat, wtheta); placeholders without. A second
+    selection file (name + DES_ALL_SCALES) keeps every row, so a reader
+    built on it gives the theory at every row (`des_wl_rows`). Returns the
+    .dataset."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    path = lambda suffix: os.path.join(out_dir, name + suffix)
+    pairs = _des_pairs()
+    values = (np.full(N_DES_ROWS, 1e-5) if values is None
+              else np.asarray(values, float))
+    nz = _des_nz()
+    np.savetxt(path("_nz_source.txt"), nz[:, :3 + DES_NS], fmt="%.10e")
+    np.savetxt(path("_nz_lens.txt"),
+               np.column_stack([nz[:, :3], nz[:, 3 + DES_NS:]]), fmt="%.10e")
+    theta = des_theta_bins()
+    np.savetxt(path("_theta_bins.txt"), theta, fmt="%.10e")
+    rows = {t: [] for t in ("xip", "xim", "gammat", "wtheta")}
+    for ib, (t, b1, b2) in enumerate(pairs):
+        for tb in range(DES_NTHETA):
+            rows[t].append((b1, b2, tb + 1, values[ib * DES_NTHETA + tb]))
+    for t, r in rows.items():
+        with open(path(f"_{t}.txt"), "w") as f:
+            for b1, b2, tb, v in r:
+                f.write(f"{b1} {b2} {tb} {v:.17e}\n")
+    with open(path("_scales.dat"), "w") as f, open(path(DES_ALL_SCALES),
+                                                      "w") as fa:
+        for t, b1, b2 in pairs:
+            lo = {"xip": 4.0 + 0.5 * (b1 + b2), "xim": 30.0 + 5.0 * (b1 + b2),
+                  "gammat": _DES_GAMMAT_MIN[b1 - 1],
+                  "wtheta": _DES_WTHETA_MIN[b1 - 1]}[t]
+            f.write(f"{t} {b1} {b2} {lo} 250.0\n")
+            fa.write(f"{t} {b1} {b2} 0.0 1e9\n")
+    blk_max = np.abs(values).reshape(len(pairs), DES_NTHETA).max(-1)
+    sig = 0.1 * (np.abs(values) + 0.05 * np.repeat(blk_max, DES_NTHETA)) \
+        * rng.uniform(0.9, 1.1, N_DES_ROWS)
+    blk = np.arange(DES_NTHETA)
+    corr = np.kron(np.eye(len(pairs)),
+                   0.4 ** np.abs(blk[:, None] - blk[None, :]))
+    np.savetxt(path("_cov.txt"), corr * np.outer(sig, sig), fmt="%.17e")
+    with open(path("_nuisance.paramnames"), "w") as f:
+        for n in DES_NUISANCE:
+            f.write(f"{n} {n.replace('DES_', '')}\n")
+    keys = dict(measurements_format="DES", num_z_bins=DES_NS,
+                num_gal_bins=DES_NG, kmax=15, lmax=50000,
+                nz_file=name + "_nz_source.txt",
+                nz_gal_file=name + "_nz_lens.txt",
+                theta_bins_file=name + "_theta_bins.txt",
+                data_types="xip xim gammat wtheta",
+                used_data_types="xip xim gammat wtheta",
+                data_selection=name + "_scales.dat",
+                cov_file=name + "_cov.txt",
+                nuisance_params=name + "_nuisance.paramnames",
+                intrinsic_alignment_model="DES1YR")
+    keys.update({f"measurements[{t}]": name + f"_{t}.txt" for t in rows})
+    return _ini(path(".dataset"), keys)
+
+
+def des_wl_rows(like_all, theory) -> np.ndarray:
+    """The theory at every row of a DES set, in file order, from a reader
+    built on the keep-all selection (write_des_wl), at its nuisance
+    centres, chain 0."""
+    import torch
+    if like_all.num_used != N_DES_ROWS:
+        raise ValueError("des_wl_rows needs the keep-all selection")
+    nu = torch.as_tensor([p.center for p in like_all.nuisance if p.varying],
+                         dtype=like_all.dtype, device=like_all.device)
+    nu = nu.expand(theory.bg.H0.shape[0], -1)
+    return like_all.theory_vector(theory, nu)[0].double().cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Planck 2015 SZ cluster counts
+# ---------------------------------------------------------------------------
+
+SZ_NPATCH, SZ_NTHETA = 417, 80
+#: sky fraction of the cosmology sample's mask
+SZ_FSKY = 0.65
+#: rows written with a missing redshift (z = -1), at these S/N
+SZ_MISSING_Q = (7.0, 11.0, 60.0)
+
+
+def write_sz_selection(out_dir: str, noise: float = 2.8e-4,
+                       seed: int = 0) -> str:
+    """SZ_thetas.txt (80 theta_500 values from 0.5' to 35'),
+    SZ_skyfracs.txt (417 patches summing to SZ_FSKY) and SZ_ylims.txt (the
+    Y_500 noise of each patch and theta, patch fastest as the reference
+    files are): noise * (theta / 5')^0.8 times a seeded lognormal factor of
+    20% per patch. Returns out_dir."""
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    thetas = np.exp(np.linspace(np.log(0.5), np.log(35.0), SZ_NTHETA))
+    frac = rng.uniform(0.5, 1.5, SZ_NPATCH)
+    frac *= SZ_FSKY / frac.sum()
+    patch = np.exp(0.2 * rng.standard_normal(SZ_NPATCH))
+    ylims = noise * (thetas[:, None] / 5.0) ** 0.8 * patch[None, :]
+    np.savetxt(os.path.join(out_dir, "SZ_thetas.txt"), thetas, fmt="%.17e")
+    np.savetxt(os.path.join(out_dir, "SZ_skyfracs.txt"), frac, fmt="%.17e")
+    np.savetxt(os.path.join(out_dir, "SZ_ylims.txt"), ylims.reshape(-1),
+               fmt="%.17e")
+    return out_dir
+
+
+def write_sz_catalogue(out_dir: str, counts: np.ndarray,
+                       name: str = "SZ_cat.txt") -> str:
+    """SZ_cat.txt (z, z_err, q): counts[i, j] clusters at the centre of z
+    bin i and S/N bin j (the open top bin at 1.2 x its lower edge), then
+    the SZ_MISSING_Q rows with z = -1."""
+    from cosmomc_tpu_torch.likelihoods import szcounts as sz
+    os.makedirs(out_dir, exist_ok=True)
+    counts = np.asarray(counts, int)
+    ny = counts.shape[1] - 1
+    lc = sz.LOGY_MIN + (np.arange(ny + 1) + 0.5) * sz.DLOGY
+    qlo = np.maximum(10.0 ** (lc - 0.5 * sz.DLOGY), sz.Q_THRESHOLD)
+    qmid = np.sqrt(qlo * 10.0 ** (lc + 0.5 * sz.DLOGY))
+    qmid[ny] = 1.2 * 10.0 ** (lc[ny - 1] + 0.5 * sz.DLOGY)
+    rows = [(sz.Z0 + (i + 0.5) * sz.DZ, 0.01, qmid[j])
+            for i in range(counts.shape[0]) for j in range(ny + 1)
+            for _ in range(counts[i, j])]
+    rows += [(-1.0, 0.0, q) for q in SZ_MISSING_Q]
+    path = os.path.join(out_dir, name)
+    np.savetxt(path, np.array(rows), fmt="%.10f", header="z z_err q")
     return path

@@ -276,7 +276,10 @@ def h0_from_theta(theta_target: torch.Tensor, make_bg, lo: float = 20.0,
                   hi: float = 120.0, iters: int = 50) -> torch.Tensor:
     """Solve H0 from 100*theta_MC by a fixed-count bisection, then one
     Newton polish step from the midpoint (background.py:333-366). The
-    Newton derivative d theta/d H0 comes from autograd."""
+    midpoint depends on the inputs only through branch decisions, so its
+    derivative is zero; the Newton step mid - f/f_H0 leaves the value
+    unchanged and carries the implicit derivative -(df/dp)/(df/dH0), to
+    second order as well (f_H0 is differentiable in the inputs)."""
     lo_ = torch.full_like(theta_target, lo)
     hi_ = torch.full_like(theta_target, hi)
     with torch.no_grad():
@@ -287,11 +290,22 @@ def h0_from_theta(theta_target: torch.Tensor, make_bg, lo: float = 20.0,
             lo_, hi_ = (torch.where(too_small, mid, lo_),
                         torch.where(too_small, hi_, mid))
     mid = (0.5 * (lo_ + hi_)).detach()
+    return newton_polish(
+        lambda h: cosmomc_theta(make_bg(h)) * 100.0 - theta_target, mid)
+
+
+def newton_polish(f_of, mid: torch.Tensor) -> torch.Tensor:
+    """One Newton step mid - f(mid)/f'(mid) from a detached root estimate,
+    as jax.value_and_grad gives it: f is evaluated from the inputs it
+    closes over (and so carries their gradients), f' comes from autograd
+    and keeps its own graph when f has one. Without gradients wanted, the
+    result carries none."""
+    f = f_of(mid)
     with torch.enable_grad():
-        h = mid.clone().requires_grad_(True)
-        f = cosmomc_theta(make_bg(h)) * 100.0 - theta_target.detach()
-        (f_h0,) = torch.autograd.grad(f.sum(), h)
-    return (mid - f.detach() / f_h0).detach()
+        x = mid.clone().requires_grad_(True)
+        (f_x,) = torch.autograd.grad(f_of(x).sum(), x,
+                                     create_graph=f.requires_grad)
+    return mid - f / f_x
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,9 @@ a reference-format grid file and resamples it onto a fine uniform grid;
 `synthetic_bbn_table` builds a smooth deterministic table without any
 file. Lookups are bilinear with a closed-form index.
 
-A `CMBPosterior` always takes its table explicitly: nothing here reads a
-default path.
+A `CMBPosterior` and an abundance likelihood always take their table
+explicitly: nothing here reads a default path (the JAX package's
+`load_bbn_table()` falls back to the reference data directory).
 """
 
 from __future__ import annotations
@@ -68,11 +69,12 @@ def load_bbn_table(path: str, n_fine_omb: int = 768,
                     resample(COL_SIGYP), resample(COL_SIGDH))
 
 
-def synthetic_bbn_table(n_omb: int = 96, n_dn: int = 41) -> BBNTable:
-    """A smooth, deterministic stand-in for the PArthENoPE grid, for runs
-    and tests without the data file: Yp = 0.2454 at (ombh2, DeltaN) =
+def synthetic_bbn_grids(n_omb: int = 96, n_dn: int = 41):
+    """The smooth deterministic stand-in for the PArthENoPE grid, for runs
+    and tests without the data file: (ombh2 (n_omb,), DeltaN (n_dn,), a dict
+    of (n_omb, n_dn) grids in GRID_FIELDS). Yp = 0.2454 at (ombh2, DeltaN) =
     (0.02237, 0), d Yp/d ln ombh2 = 0.0105, d Yp/d DeltaN = 0.013;
-    D/H = 2.584e-5 (ombh2/0.02237)^-1.6 (1 + 0.135 DeltaN). Numpy grids."""
+    D/H = 2.584e-5 (ombh2/0.02237)^-1.6 (1 + 0.135 DeltaN)."""
     omb = np.linspace(0.005, 0.05, n_omb)
     dn = np.linspace(-2.0, 2.0, n_dn)
     lo = np.log(omb / 0.02237)[:, None]
@@ -82,9 +84,15 @@ def synthetic_bbn_table(n_omb: int = 96, n_dn: int = 41) -> BBNTable:
     ypbbn = 4.0 * yp / (mr - yp * (mr - 4.0))
     dh = 2.584e-5 * np.exp(-1.6 * lo) * (1.0 + 0.135 * d)
     ones = np.ones_like(yp)
+    return omb, dn, dict(yp=yp, ypbbn=ypbbn, dh=dh, sig_yp=3e-4 * ones,
+                         sig_dh=4e-7 * ones)
+
+
+def synthetic_bbn_table(n_omb: int = 96, n_dn: int = 41) -> BBNTable:
+    """`synthetic_bbn_grids` as a table (numpy grids)."""
+    omb, dn, g = synthetic_bbn_grids(n_omb, n_dn)
     return BBNTable(float(omb[0]), float(omb[1] - omb[0]), float(dn[0]),
-                    float(dn[1] - dn[0]), yp, ypbbn, dh, 3e-4 * ones,
-                    4e-7 * ones)
+                    float(dn[1] - dn[0]), **g)
 
 
 def _bilinear(tab: BBNTable, grid: torch.Tensor, ombh2: torch.Tensor,
@@ -104,6 +112,18 @@ def yhe_bbn(ombh2, delta_n, table: BBNTable) -> torch.Tensor:
     return _bilinear(table, table.yp, ombh2, delta_n)
 
 
+def ypbbn_bbn(ombh2, delta_n, table: BBNTable) -> torch.Tensor:
+    """Nucleon-number fraction Yp^BBN (abundance-likelihood units), per
+    chain."""
+    return _bilinear(table, table.ypbbn, ombh2, delta_n)
+
+
 def dh_bbn(ombh2, delta_n, table: BBNTable) -> torch.Tensor:
     """Primordial D/H prediction, per chain."""
     return _bilinear(table, table.dh, ombh2, delta_n)
+
+
+def bbn_errors(ombh2, delta_n, table: BBNTable):
+    """(sigma_Yp^BBN, sigma_D/H) theory errors of the table, per chain."""
+    return (_bilinear(table, table.sig_yp, ombh2, delta_n),
+            _bilinear(table, table.sig_dh, ombh2, delta_n))

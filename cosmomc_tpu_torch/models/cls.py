@@ -171,6 +171,20 @@ def _device_plan(key: tuple, device: str, dtype: torch.dtype) -> dict:
                 k_chunk=key[4])
 
 
+def compute_cls(po: PerturbationOutput, pp: PrimordialParams,
+                chi_star: torch.Tensor, lmax: int = 2500,
+                tau0_hint: float = 14200.0, kmax_hint: float = 0.6,
+                points_per_osc: float = 4.0, coarse_k: np.ndarray = None,
+                tau_stride: int = 1) -> CMBSpectra:
+    """TT/TE/EE/phiphi in one call: the transfer stage (K2a) then the power
+    stage. `coarse_k` is the host grid the sources were evolved on."""
+    cache = compute_cl_transfers(po, chi_star, coarse_k, lmax=lmax,
+                                 tau0_hint=tau0_hint, kmax_hint=kmax_hint,
+                                 points_per_osc=points_per_osc,
+                                 tau_stride=tau_stride)
+    return cls_from_cl_transfers(cache, pp, lmax=lmax)
+
+
 def _strided_sources(po: PerturbationOutput, tau_stride: int):
     """Subsample the evolution tau grid for the LOS integral."""
     sl = slice(None, None, max(tau_stride, 1))

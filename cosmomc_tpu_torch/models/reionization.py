@@ -2,14 +2,15 @@
 (camb/reionization.f90; port of cosmomc_tpu/models/reionization.py).
 
 `zre_from_tau` is a fixed 30-step bisection batched over chains, then one
-Newton polish step whose derivative comes from autograd."""
+Newton polish step that carries d zre/d(tau, ombh2, ...) as JAX's does."""
 
 from __future__ import annotations
 
 import torch
 
 from cosmomc_tpu_torch.models import constants as const
-from cosmomc_tpu_torch.models.background import BackgroundParams, hubble_mpc
+from cosmomc_tpu_torch.models.background import (BackgroundParams, hubble_mpc,
+                                                 newton_polish)
 from cosmomc_tpu_torch.utils.interp import trapezoid
 
 DELTA_Z = 0.5
@@ -54,8 +55,4 @@ def zre_from_tau(bg: BackgroundParams, tau: torch.Tensor, yhe,
             low = reion_optical_depth(bg, mid, yhe) < tau
             lo, hi = torch.where(low, mid, lo), torch.where(low, hi, mid)
     mid = (0.5 * (lo + hi)).detach()
-    with torch.enable_grad():
-        z = mid.clone().requires_grad_(True)
-        f = reion_optical_depth(bg, z, yhe) - tau.detach()
-        (f_z,) = torch.autograd.grad(f.sum(), z)
-    return (mid - f.detach() / f_z).detach()
+    return newton_polish(lambda z: reion_optical_depth(bg, z, yhe) - tau, mid)

@@ -517,6 +517,19 @@ def _tlos_inputs(to: TensorOutput, lmax: int, tau0_hint: float,
     return args, grid
 
 
+def compute_tensor_cls(to: TensorOutput, pp: PrimordialParams,
+                       lmax: int = 700, tau0_hint: float = 14700.0,
+                       kmax_hint: float = 0.065, points_per_osc: float = 4.0,
+                       coarse_k=None) -> TensorSpectra:
+    """Tensor TT/TE/EE/BB in one call: the LOS transfers (K6), then the
+    tensor power."""
+    cache = compute_tensor_transfers(to, lmax=lmax, tau0_hint=tau0_hint,
+                                     kmax_hint=kmax_hint,
+                                     points_per_osc=points_per_osc,
+                                     coarse_k=coarse_k)
+    return tensor_cls_from_transfers(cache, pp, lmax=lmax)
+
+
 def compute_tensor_transfers(to: TensorOutput, lmax: int = 700,
                              tau0_hint: float = 14700.0,
                              kmax_hint: float = 0.065,

@@ -9,12 +9,14 @@ z_pk table and the P(k, z) tables themselves."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
 from cosmomc_tpu_torch.models import background as bgm
-from cosmomc_tpu_torch.models.background import (BackgroundFunctions,
+from cosmomc_tpu_torch.models.background import (BG_FIELDS,
+                                                 BackgroundFunctions,
                                                  BackgroundParams)
 from cosmomc_tpu_torch.utils.interp import interp
 
@@ -92,3 +94,22 @@ BACKGROUND_DERIVED_NAMES = [
     ("H0", "H_0"), ("omegam", r"\Omega_m"), ("omegal", r"\Omega_\Lambda"),
     ("rdrag", r"r_{\rm drag}"),
 ]
+
+
+def in_dtype(theory: CMBTheoryProducts, dtype: torch.dtype) -> CMBTheoryProducts:
+    """The theory's background, distance tables, sigma8(z) tables and
+    P(k, z) tables in `dtype` (the C_l are left as they are): a
+    likelihood that keeps float64 reads a float32 theory through this."""
+    bg = dataclasses.replace(theory.bg, **{f: getattr(theory.bg, f).to(dtype)
+                                           for f in BG_FIELDS})
+    bf = theory.bf
+    bf = BackgroundFunctions(bg, bf.lz_grid.to(dtype), bf.chi_grid.to(dtype),
+                             bf.curvature_k.to(dtype), bf.dchi_grid.to(dtype))
+    cast = lambda v: None if v is None else v.to(dtype)
+    mp = theory.mp
+    if mp is not None:
+        mp = mp._replace(**{f: cast(getattr(mp, f)) for f in mp._fields})
+    return theory._replace(bg=bg, bf=bf, rs_drag=cast(theory.rs_drag),
+                           z_pk=cast(theory.z_pk),
+                           sigma8_z=cast(theory.sigma8_z),
+                           fsigma8_z=cast(theory.fsigma8_z), mp=mp)

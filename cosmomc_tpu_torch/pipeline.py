@@ -21,7 +21,8 @@ distance tables and the fitted drag sound horizon, no kernel.
 
 Covered: the flagship configuration (theta LCDM, halofit lensing, with
 BAO in the likelihood list), LCDM+r (`compute_tensors=True`, r
-semi-slow, nt = -r/8), matter power with the sigma8 derived values,
+semi-slow, nt = -r/8 or, without `inflation_consistency`, 0), matter
+power with the sigma8 derived values,
 LSS-only runs (`use_cmb=False`: no source evolution, LOS or lensing), and
 the extended sectors: the massive-neutrino hierarchy and the dark-energy
 fluid, switched on ("auto") when mnu, w or wa is sampled or set away from
@@ -125,6 +126,16 @@ def _start_positions(space: ParameterSpace, rng: np.random.Generator,
     return out
 
 
+def _per_likelihood(post, P_varying, theory_of) -> Dict[str, float]:
+    """Each likelihood's chi^2/2 at one varying-parameter point, by name;
+    `theory_of` maps the (1, n) varying vector to the theory products."""
+    P = torch.as_tensor(np.asarray(P_varying, np.float64)[None],
+                        dtype=post.dtype, device=post.device)
+    _, per = post.likes.total_log_like(theory_of(P), P, post.slices)
+    return {like.name: float(v) for like, v in
+            zip(post.likes.likes, per[0].double().cpu())}
+
+
 @dataclass
 class BackgroundPosterior:
     """Background-only posterior (BASELINE config 1: BAO + SN + H0)."""
@@ -179,12 +190,7 @@ class BackgroundPosterior:
     def per_likelihood(self, P_varying) -> Dict[str, float]:
         """chi^2/2 of each likelihood at one point (the action=4 table,
         GeneralSetup.f90:165-172)."""
-        P = torch.as_tensor(np.asarray(P_varying, np.float64)[None],
-                            dtype=self.dtype, device=self.device)
-        _, per = self.likes.total_log_like(self.compute_theory(P), P,
-                                           self.slices)
-        return {like.name: float(v) for like, v in
-                zip(self.likes.likes, per[0].double().cpu())}
+        return _per_likelihood(self, P_varying, self.compute_theory)
 
     def paramnames(self) -> ParamNames:
         pn = self.space.param_names()
@@ -244,6 +250,7 @@ class CMBPosterior:
     de_perturbations: object = "auto"
     use_cmb: bool = True
     compute_tensors: bool = False            # r -> tensor TT/TE/EE/BB
+    inflation_consistency: bool = True       # nt = -r/8, else nt = 0
     #: "cuda" (the default) or "cpu"; without a card only "cpu" is accepted
     device: object = "cuda"
     dtype: torch.dtype = torch.float64
@@ -437,9 +444,8 @@ class CMBPosterior:
 
     def _primordial(self, full_P: torch.Tensor) -> PrimordialParams:
         if self.compute_tensors:
-            # inflation consistency, as the JAX package's default
             r = full_P[:, self._i_r]
-            nt = -r / 8.0
+            nt = -r / 8.0 if self.inflation_consistency else 0.0
         else:
             r, nt = 0.0, 0.0
         return PrimordialParams.make(logA=full_P[:, self._i_logA],
@@ -513,6 +519,19 @@ class CMBPosterior:
         return CMBTheoryProducts(bg=slow["bg"], bf=slow["bf"],
                                  rs_drag=slow["rs_drag"], cls=semi["cls"],
                                  **summaries)
+
+    def compute_theory(self, full_P: torch.Tensor):
+        """One full theory pass: (CMBTheoryProducts, extras), extras the
+        slow cache's z_star, r_star, yhe and zre (JAX pipeline.py:552-571)."""
+        slow = self.stage_slow(full_P)
+        theory = self.assemble_theory(slow, self.stage_semi(full_P, slow))
+        return theory, {k: slow[k] for k in ("z_star", "r_star", "yhe", "zre")}
+
+    def per_likelihood(self, P_varying) -> Dict[str, float]:
+        """chi^2/2 of each likelihood at one point (the action=4 table,
+        GeneralSetup.f90:165-172)."""
+        return _per_likelihood(
+            self, P_varying, lambda P: self.compute_theory(self.embed_full(P))[0])
 
     def stage_fast(self, P: torch.Tensor, slow: dict, semi: dict):
         """Likelihoods + derived parameters from the cached theory."""

@@ -1,4 +1,5 @@
-"""Interpolation: linear (jnp.interp semantics) and natural cubic splines.
+"""Interpolation: linear (jnp.interp semantics), cubic splines (natural or
+clamped ends) and Catmull-Rom bicubic grids.
 
 Every function is batched over leading axes: knots `x` may be shared (n,)
 or per chain (..., n), values are (..., n). The tridiagonal spline solve
@@ -105,32 +106,71 @@ class Spline(NamedTuple):
     y2: torch.Tensor  # (..., n) second derivatives at knots
 
 
-def spline_fit(x: torch.Tensor, y: torch.Tensor) -> Spline:
-    """Natural cubic spline through (x, y) (TCubicSpline%Init contract)."""
+def spline_fit(x: torch.Tensor, y: torch.Tensor, bc_start: float | None = None,
+               bc_end: float | None = None) -> Spline:
+    """Cubic spline through (x, y) (TCubicSpline%Init contract): natural
+    ends, or clamped to the first derivative bc_start / bc_end."""
     h = x[..., 1:] - x[..., :-1]
     dy = (y[..., 1:] - y[..., :-1]) / h
     zero = torch.zeros_like(h[..., :1])
     one = torch.ones_like(h[..., :1])
-    dl = torch.cat([zero, h[..., :-1], zero], dim=-1)   # natural: dl[-1] = 0
-    du = torch.cat([zero, h[..., 1:], zero], dim=-1)    # natural: du[0] = 0
-    d = torch.cat([one, 2.0 * (h[..., :-1] + h[..., 1:]), one], dim=-1)
     zb = torch.zeros_like(dy[..., :1])
-    b = torch.cat([zb, 6.0 * (dy[..., 1:] - dy[..., :-1]), zb], dim=-1)
+    if bc_start is None:
+        d0, du0, b0 = one, zero, zb
+    else:   # 2 h0 y2[0] + h0 y2[1] = 6 (dy0 - bc_start)
+        d0, du0, b0 = 2.0 * h[..., :1], h[..., :1], 6.0 * (dy[..., :1] - bc_start)
+    if bc_end is None:
+        dn, dln, bn = one, zero, zb
+    else:
+        dn, dln, bn = (2.0 * h[..., -1:], h[..., -1:],
+                       6.0 * (bc_end - dy[..., -1:]))
+    dl = torch.cat([zero, h[..., :-1], dln], dim=-1)
+    du = torch.cat([du0, h[..., 1:], zero], dim=-1)
+    d = torch.cat([d0, 2.0 * (h[..., :-1] + h[..., 1:]), dn], dim=-1)
+    b = torch.cat([b0, 6.0 * (dy[..., 1:] - dy[..., :-1]), bn], dim=-1)
     return Spline(x, y, _thomas(dl, d, du, b))
 
 
-def spline_eval(sp: Spline, xq: torch.Tensor) -> torch.Tensor:
-    """Evaluate at xq; knots shared (n,) and xq (m,), values (..., n)."""
+def _segments(sp: Spline, xq: torch.Tensor):
+    """The bracketing knot interval of each query: (a, b, h, y_l, y_r, y2_l,
+    y2_r). Knots are shared (n,); queries are shared (m,) or per row
+    (..., m), broadcast against the values' leading axes (..., n)."""
     x, y, y2 = sp
     n = x.shape[-1]
     i = (torch.searchsorted(x, xq.contiguous(), right=True) - 1).clamp(0, n - 2)
     xl, xr = x[i], x[i + 1]
     h = xr - xl
-    a = (xr - xq) / h
-    b = (xq - xl) / h
-    return (a * y[..., i] + b * y[..., i + 1]
-            + ((a ** 3 - a) * y2[..., i] + (b ** 3 - b) * y2[..., i + 1])
-            * h ** 2 / 6.0)
+    if xq.dim() > 1 and y.dim() > 1:
+        lead = torch.broadcast_shapes(y.shape[:-1], xq.shape[:-1])
+        take = lambda v, j: v.expand(lead + v.shape[-1:]).gather(
+            -1, j.expand(lead + j.shape[-1:]))
+    else:
+        take = lambda v, j: v[..., j]
+    return ((xr - xq) / h, (xq - xl) / h, h, take(y, i), take(y, i + 1),
+            take(y2, i), take(y2, i + 1))
+
+
+def spline_eval(sp: Spline, xq: torch.Tensor) -> torch.Tensor:
+    """Evaluate at xq; knots shared (n,), values (..., n), queries shared
+    (m,) or per row (..., m)."""
+    a, b, h, yl, yr, y2l, y2r = _segments(sp, xq)
+    return (a * yl + b * yr
+            + ((a ** 3 - a) * y2l + (b ** 3 - b) * y2r) * h ** 2 / 6.0)
+
+
+def spline_eval_deriv(sp: Spline, xq: torch.Tensor) -> torch.Tensor:
+    """dy/dx of the spline at xq (shapes as spline_eval)."""
+    a, b, h, yl, yr, y2l, y2r = _segments(sp, xq)
+    return ((yr - yl) / h
+            + ((3 * b ** 2 - 1) * y2r - (3 * a ** 2 - 1) * y2l) * h / 6.0)
+
+
+def spline_integral(sp: Spline) -> torch.Tensor:
+    """Exact integral of the spline over its full range, (...,)."""
+    x, y, y2 = sp
+    h = x[..., 1:] - x[..., :-1]
+    return torch.sum(h * (y[..., :-1] + y[..., 1:]) / 2.0
+                     - h ** 3 * (y2[..., :-1] + y2[..., 1:]) / 24.0, -1)
 
 
 def spline_cumint(sp: Spline) -> torch.Tensor:
@@ -157,3 +197,45 @@ def linspace(start, stop, num: int, dtype=None, device=None) -> torch.Tensor:
                             device=device))
     return torch.cat([out, last.to(out.dtype).expand(out.shape[:-1] + (1,))],
                      -1)
+
+
+class Grid2D(NamedTuple):
+    """Values z (nx, ny) on regular axes x (nx,), y (ny,)."""
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+
+
+def _cubic_weights(t: torch.Tensor):
+    """Catmull-Rom weights for the fractional position t in [0, 1]."""
+    t2 = t * t
+    t3 = t2 * t
+    return (-0.5 * t3 + t2 - 0.5 * t, 1.5 * t3 - 2.5 * t2 + 1.0,
+            -1.5 * t3 + 2.0 * t2 + 0.5 * t, 0.5 * t3 - 0.5 * t2)
+
+
+def grid2d_eval(g: Grid2D, xq: torch.Tensor, yq: torch.Tensor) -> torch.Tensor:
+    """Bicubic (Catmull-Rom) interpolation at query points of any shape,
+    clamped at the edges (TInterpGrid2D's role, JAX interp.py:149-188)."""
+    nx, ny = g.z.shape
+    fx = (xq - g.x[0]) / (g.x[1] - g.x[0])
+    fy = (yq - g.y[0]) / (g.y[1] - g.y[0])
+    ix = torch.floor(fx).to(torch.int64).clamp(0, nx - 2)
+    iy = torch.floor(fy).to(torch.int64).clamp(0, ny - 2)
+    wx = _cubic_weights((fx - ix.to(fx.dtype)).clamp(0.0, 1.0))
+    wy = _cubic_weights((fy - iy.to(fy.dtype)).clamp(0.0, 1.0))
+    out = torch.zeros_like(wx[0])
+    for di in range(4):
+        row = torch.zeros_like(wx[0])
+        for dj in range(4):
+            row = row + wy[dj] * g.z[(ix + di - 1).clamp(0, nx - 1),
+                                     (iy + dj - 1).clamp(0, ny - 1)]
+        out = out + wx[di] * row
+    return out
+
+
+def linear_interp(x: torch.Tensor, xp: torch.Tensor,
+                  fp: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation on sorted xp, clamped at the ends (JAX
+    interp.py:191-193): `interp`."""
+    return interp(x, xp, fp)

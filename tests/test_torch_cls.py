@@ -81,6 +81,43 @@ def test_cls_from_transfers(ref, port):
             assert_close(getattr(spec, f)[i], getattr(jspec, f))
 
 
+def test_compute_cls_and_cls_from_transfers(ref, port, monkeypatch):
+    """cls.compute_cls is the LOS then the power stage, and
+    cmb.cls_from_transfers the same in muK^2 (one temperature a chain):
+    with the LOS served from the port's transfers above (held to JAX's by
+    test_transfers), both against JAX's power stage on its own transfers,
+    which is JAX's compute_cls and cls_from_transfers."""
+    from cosmomc_tpu_torch.models import cmb as tcmb_mod
+    po, chi_star, clt = ref
+    calls = []
+
+    def los(po_, chi_, coarse_k, **kw):
+        calls.append((po_, chi_, coarse_k, kw))
+        return port
+    monkeypatch.setattr(tcls, "compute_cl_transfers", los)
+    pp = tprim.PrimordialParams.make(logA=torch.tensor([3.0447], dtype=F64),
+                                     ns=torch.tensor([0.9659], dtype=F64))
+    jp = jprim.PrimordialParams.make(logA=3.0447, ns=0.9659, dtype=jnp.float64)
+    jspec = jcls.cls_from_cl_transfers(clt, jp, lmax=LMAX_C)
+    tpo = convert.perturbation_output(po)
+    chi = torch.tensor([float(chi_star)], dtype=F64)
+    kw = dict(lmax=LMAX_C, kmax_hint=0.1, coarse_k=K, tau_stride=4)
+    spec = tcls.compute_cls(tpo, pp, chi, **kw)
+    muk = tcmb_mod.cls_from_transfers(tpo, chi, pp,
+                                      tcmb_k=torch.tensor([[2.7255]], dtype=F64),
+                                      tau0_hint=14200.0, **kw)
+    assert len(calls) == 2 and all(c[0] is tpo and c[1] is chi and c[2] is K
+                                   for c in calls)
+    assert calls[0][3] == dict(lmax=LMAX_C, tau0_hint=14200.0, kmax_hint=0.1,
+                               points_per_osc=4.0, tau_stride=4)
+    assert calls[1][3] == calls[0][3]
+    np.testing.assert_array_equal(spec.ls.numpy(), np.asarray(jspec.ls))
+    for f in ("tt", "te", "ee", "pp"):
+        assert_close(getattr(spec, f)[0], getattr(jspec, f))
+        scale = 1.0 if f == "pp" else (2.7255 * 1e6) ** 2
+        assert_close(getattr(muk, f)[0], np.asarray(getattr(jspec, f)) * scale)
+
+
 def test_coarse_grid_required(ref):
     with pytest.raises(ValueError):
         tcls.compute_cl_transfers(convert.perturbation_output(ref[0]),

@@ -16,6 +16,7 @@ and thetad (5e-3, as test_torch_slice.py says); the staged path against
 the monolithic one 1e-12; the alpha1 map 1e-15.
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -60,6 +61,8 @@ POINT = dict(ombh2=0.02237737, omch2=0.1201035, theta=1.0409020,
              tau=0.05430138, logA=3.0447260, ns=0.9658923, mnu=0.12,
              w=-0.9, wa=-0.4, alpha1=0.05)
 MLL_RTOL = 1e-9
+#: test_torch_slice.py's -logL tolerances, for the per-likelihood table
+MLL_RTOL_SLICE, MLL_ATOL_SLICE = 1e-8, 1e-6
 DERIVED_RTOL = {"kd": 5e-3, "thetad": 5e-3}
 
 
@@ -181,7 +184,14 @@ def extended(bbn, tmp_path_factory):
             np.stack([np.asarray(d) for _, d in ref]))
 
 
-def test_extended_posterior_matches(extended):
+@pytest.fixture(scope="module")
+def slow_cache():
+    """(full parameters, the port's slow stage there) pairs, filled by the
+    first test that needs the slow stage at the fixture's points."""
+    return []
+
+
+def test_extended_posterior_matches(extended, slow_cache):
     """All three sectors on (massive nu and the DE fluid on the source and
     the matter grids, isocurvature on the source grid): derived names,
     -logL and every derived value at both points against JAX; then the
@@ -196,7 +206,7 @@ def test_extended_posterior_matches(extended):
             tpost._iso_enabled, tpost.matter_power) == (True, True, True, True)
     assert tpost.derived_names == jpost.derived_names
     P = torch.as_tensor(points, dtype=F64)
-    slow_of, stage_slow = [], tpost.stage_slow
+    slow_of, stage_slow = slow_cache, type(tpost).stage_slow.__get__(tpost)
 
     def stage_slow_once(full):
         for f, slow in slow_of:
@@ -220,3 +230,57 @@ def test_extended_posterior_matches(extended):
     assert len(slow_of) == 1 and state.slow["mt"].delta_m_z.shape[0] == 2
     np.testing.assert_allclose(state.mloglike.numpy(), t_mll.numpy(), rtol=1e-12)
     np.testing.assert_allclose(state.derived.numpy(), t_der.numpy(), rtol=1e-12)
+
+
+def test_per_likelihood_matches(extended, slow_cache):
+    """CMBPosterior.compute_theory and per_likelihood (the action=4 table)
+    at the first point. The posterior has one likelihood and no prior, so
+    JAX's table there is its -logL, which the fixture holds (JAX's
+    per_likelihood itself is called on the astro posterior,
+    test_torch_lss_astro.py). The port's slow stage (a function of the
+    parameters alone) is the one test_extended_posterior_matches computed
+    at both points, first chain."""
+    jpost, tpost, points, j_mll, _ = extended
+    assert all(p.prior_mean is None for p in jpost.space.params)
+    full = tpost.embed_full(torch.as_tensor(points, dtype=F64))
+    if not slow_cache:
+        slow_cache.append((full, type(tpost).stage_slow(tpost, full)))
+    (full2, slow2), = slow_cache
+    assert torch.equal(full2, full)
+    slow0 = select_first(slow2)
+    calls = []
+
+    def stage_slow(f):
+        assert torch.equal(f, full[:1])
+        return slow0
+    compute_theory = type(tpost).compute_theory.__get__(tpost)
+    tpost.stage_slow = stage_slow
+    tpost.compute_theory = lambda f: calls.append(compute_theory(f)) \
+        or calls[-1]
+    try:
+        got = tpost.per_likelihood(points[0])
+    finally:
+        del tpost.compute_theory, tpost.stage_slow
+    assert list(got) == [like.name for like in jpost.likes.likes]
+    np.testing.assert_allclose(got[jpost.likes.likes[0].name], j_mll[0],
+                               rtol=MLL_RTOL_SLICE, atol=MLL_ATOL_SLICE)
+    theory, extras = calls[0]
+    assert sorted(extras) == ["r_star", "yhe", "z_star", "zre"]
+    assert theory.cls.shape[0] == 1 and theory.mp is not None
+    assert all(v.shape == (1,) for v in extras.values())
+
+
+def select_first(x, field=None):
+    """The first chain of a slow cache (shared grids pass through)."""
+    from cosmomc_tpu_torch.sampling.staged import SHARED_FIELDS
+    if torch.is_tensor(x):
+        return x if field in SHARED_FIELDS else x[:1]
+    if isinstance(x, dict):
+        return {k: select_first(v) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(select_first(getattr(x, f), f) for f in x._fields))
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: select_first(getattr(x, f.name), f.name)
+            for f in dataclasses.fields(x)})
+    return x

@@ -179,6 +179,30 @@ def test_semi_stage_on_jax_slow_cache(posts, evaluated, spec):
         assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max()
 
 
+def test_inflation_consistency_off(posts, evaluated):
+    """inflation_consistency=False (nt = 0, JAX pipeline.py:359) builds in
+    the port; stage_semi on the JAX slow cache at the seeded point (r =
+    0.04) matches JAX's stage_semi with the same switch, 1e-9 of each
+    spectrum's maximum, and the tensor BB differs from nt = -r/8's."""
+    jpost, tpost = posts
+    j_off = JPost(JPar(jnp.float64), _space(JPar(jnp.float64)), JLikes(),
+                  bbn_table=jpost.bbn_table, dtype=jnp.float64,
+                  inflation_consistency=False, **CFG)
+    t_off = TPost(TPar(), _space(TPar()), TLikes(),
+                  bbn_table=synthetic_bbn_table(), device="cpu", dtype=F64,
+                  inflation_consistency=False, **CFG)
+    full, slow, semi = evaluated["jstages"][1]
+    assert float(full[j_off._i_r]) == 0.04
+    j_cls = np.asarray(jax.jit(j_off.stage_semi)(full, slow)["cls"])
+    tslow = convert._slow_cache(slow, None, F64)
+    t_cls = t_off.stage_semi(convert.tensor(full)[None], tslow)["cls"][0]
+    for spec, (i, j) in SPECTRA.items():
+        a, b = t_cls[i, j].numpy(), j_cls[i, j]
+        assert np.abs(a - b).max() <= 1e-9 * np.abs(b).max(), spec
+    on = np.asarray(semi["cls"])[2, 2, :701]
+    assert np.abs(t_cls[2, 2, :701].numpy() - on).max() > 1e-6 * np.abs(on).max()
+
+
 @pytest.fixture(scope="module")
 def witness(posts, evaluated):
     """The port's slow cache with the tensor transfers (K5, K6 plain)

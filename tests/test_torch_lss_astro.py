@@ -168,3 +168,66 @@ def test_state_from_arrays_rebuilds_matter_caches(astro):
     assert any(".mt." in k for k in a) and any(".mp." in k for k in a)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+def test_per_likelihood_lss_bbn(astro, bbn, tmp_path_factory):
+    """The LSS-only configuration with a BBN prior (D/H and Yp abundances on
+    a written BBN grid): compute_theory and per_likelihood, the action=4
+    table, against JAX's per_likelihood at the centre, at
+    test_torch_slice.py's -logL tolerances. Both posteriors take the
+    fixture's theory configuration; the port's slow stage is served from
+    the fixture's sampler state (a function of the parameters alone), and
+    JAX's compute_theory is jitted (the HLO of
+    test_astro_parameterization_lss_only's)."""
+    from cosmomc_tpu.likelihoods.abundances import AbundanceLikelihood as JAb
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.abundances import \
+        AbundanceLikelihood as TAb
+    from cosmomc_tpu_torch.sampling.staged import SHARED_FIELDS
+    _, _, points, _, state = astro
+    tab, jtab = bbn
+    d = str(tmp_path_factory.mktemp("lss_bbn"))
+    sd.write_bbn_table(f"{d}/{sd.BBN_TABLE_NAME}")
+    jl, tl = JLikes(), TLikes()
+    for n in ("D_Cooke2017", "Yp_Aver2015"):
+        ds = sd.write_abundance(d, n, **sd.ABUNDANCE_SETS[n])
+        jl.add(JAb(ds))
+        tl.add(TAb(ds, device="cpu"))
+    kw = dict(use_cmb=False, matter_power=True, z_pk=(0.0, 0.5, 1.0))
+    jpost = JPost(JAstro(jnp.float64), JAstro(jnp.float64).default_space(),
+                  jl, bbn_table=jtab, dtype=jnp.float64, **kw)
+    tpost = TPost(TAstro(), TAstro().default_space(), tl, bbn_table=tab,
+                  device="cpu", dtype=F64, **kw)
+
+    def first(x, field=None):
+        if torch.is_tensor(x):
+            return x if field in SHARED_FIELDS else x[:1]
+        if isinstance(x, dict):
+            return {k: first(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(first(getattr(x, f), f) for f in x._fields))
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: first(getattr(x, f.name), f.name)
+                for f in dataclasses.fields(x)})
+        return x
+    slow0 = first(state.slow)
+    full0 = tpost.embed_full(torch.as_tensor(points[:1], dtype=F64))
+
+    def stage_slow(full):
+        assert torch.equal(full, full0)
+        return slow0
+    tpost.stage_slow = stage_slow
+    calls, compute_theory = [], tpost.compute_theory
+    tpost.compute_theory = lambda full: calls.append(
+        compute_theory(full)) or calls[-1]
+    jpost.compute_theory = jax.jit(jpost.compute_theory)
+    got = tpost.per_likelihood(points[0])
+    want = jpost.per_likelihood(jnp.asarray(points[0]))
+    assert list(got) == list(want) == ["abund_DH", "abund_Yp"]
+    for name in want:
+        np.testing.assert_allclose(got[name], want[name], rtol=1e-8,
+                                   atol=1e-6, err_msg=name)
+    theory, extras = calls[0]
+    assert theory.cls is None and theory.mp.lnP.shape[0] == 1
+    assert sorted(extras) == ["r_star", "yhe", "z_star", "zre"]

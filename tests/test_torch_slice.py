@@ -11,10 +11,10 @@ the JAX package's own C_l at the best fit.
 
   - -logL and every derived value at the best fit and 4 seeded points:
     the port's batched posterior against the JAX CMBPosterior;
-  - staged == monolithic in the port;
-  - three sampler steps (slow, semi, fast) from the same state, with the
-    JAX sampler's random draws recomputed from its key and injected into
-    the port: identical accept decisions, points and -logL.
+  - staged == monolithic in the port.
+
+The sampler steps on these posteriors are in test_torch_slice_sampler.py,
+so that `--dist loadfile` runs the two halves on two workers.
 """
 
 import os
@@ -31,18 +31,13 @@ from cosmomc_tpu.likelihoods.pliklite import PlikLiteLikelihood as JPlik
 from cosmomc_tpu.models.bbn import BBNTable as JBBN
 from cosmomc_tpu.params.parameterizations import ThetaParameterization as JPar
 from cosmomc_tpu.pipeline import CMBPosterior as JPost
-from cosmomc_tpu.sampling import proposal as jprop
-from cosmomc_tpu.sampling.proposal import ProposalSchedule
-from cosmomc_tpu.sampling.staged import StagedMetropolisSampler as JSampler
 
-from cosmomc_tpu_torch import convert
 from cosmomc_tpu_torch.likelihoods.base import LikelihoodList as TLikes
 from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood as TPlik
 from cosmomc_tpu_torch.models.bbn import GRID_FIELDS, synthetic_bbn_table
 from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization as TPar
 from cosmomc_tpu_torch.pipeline import CMB_DERIVED_NAMES
 from cosmomc_tpu_torch.pipeline import CMBPosterior as TPost
-from cosmomc_tpu_torch.sampling.staged import SegmentDraws
 from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler as TSampler
 
 F64 = torch.float64
@@ -165,52 +160,3 @@ def test_staged_equals_monolithic(posts, points, evaluated):
     state = TSampler(prop, tpost).init_state(torch.as_tensor(points, dtype=F64))
     np.testing.assert_allclose(state.mloglike.numpy(), t_mll, rtol=1e-12)
     np.testing.assert_allclose(state.derived.numpy(), t_der, rtol=1e-12)
-
-
-def _jax_draws(jsampler, state, sched):
-    """The JAX segment's random numbers, recomputed from its key exactly as
-    staged.py:197-202 and :146, proposal.py:314-324 draw them."""
-    prop = jsampler.proposal
-    nchains = state.P.shape[0]
-    key, k_rot = jax.random.split(state.key)
-    deltas = prop.segment_deltas(k_rot, nchains, sched, state.mapping,
-                                 state.P.dtype)
-    m2 = prop.schedule_radius_dims(sched)
-    radius, u = [], []
-    for t in range(len(sched.block)):
-        key, k_prop, k_acc = jax.random.split(key, 3)
-        radius.append(jprop._propose_r_m(k_prop, nchains, m2[t], state.P.dtype))
-        u.append(jax.random.exponential(k_acc, (nchains,), state.P.dtype))
-    return SegmentDraws(*(torch.as_tensor(np.asarray(x), dtype=F64)
-                          for x in (deltas, jnp.stack(radius), jnp.stack(u))))
-
-
-def test_sampler_steps_match(posts, points):
-    jpost, tpost = posts
-    jprop_ = jpost.make_proposal(oversample_fast=4)
-    tprop = tpost.make_proposal(oversample_fast=4)
-    w = np.array([p.propose_width for p in jpost.space.varying])
-    jprop_.set_covariance(np.diag(w ** 2))
-    tprop.set_covariance(np.diag(w ** 2))
-    js, ts = JSampler(jprop_, jpost), TSampler(tprop, tpost)
-    np.testing.assert_array_equal(ts.block_class, js.block_class)
-    # one step of each class, in block order slow, semi, fast
-    sizes = jprop_.block_sizes
-    sched = ProposalSchedule(np.array([0, 1, 2], np.int32),
-                             np.array([0, 1, 0], np.int32),
-                             np.zeros(3, np.int32),
-                             tuple(3 // s + 1 for s in sizes))
-    assert list(js.block_class[sched.block]) == [0, 1, 2]
-    # the same start state in both: the JAX caches, carried by convert
-    P0 = points[1:3]
-    jstate = js.init_state(jax.random.PRNGKey(3), jnp.asarray(P0))
-    tstate = convert.staged_chain_state(jstate)
-    draws = _jax_draws(js, jstate, sched)
-    jfinal, jout = js.run_segment(jstate, sched)
-    tfinal, tout = ts.run_segment(tstate, sched, draws=draws)
-    np.testing.assert_array_equal(tout.accept.numpy(), np.asarray(jout.accept))
-    np.testing.assert_allclose(tout.P.numpy(), np.asarray(jout.P), rtol=1e-12)
-    np.testing.assert_allclose(tout.mloglike.numpy(), np.asarray(jout.mloglike),
-                               rtol=MLL_RTOL, atol=MLL_ATOL)
-    np.testing.assert_array_equal(tfinal.num_accept.numpy(),
-                                  np.asarray(jfinal.num_accept))

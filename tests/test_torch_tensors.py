@@ -129,6 +129,34 @@ def test_tensor_cls_from_transfers(transfers):
             assert_close(getattr(spec, f)[i], getattr(jspec, f))
 
 
+def test_compute_tensor_cls(evolved, transfers, monkeypatch):
+    """tensors.compute_tensor_cls is the LOS then the tensor power: with
+    the LOS served from the port's transfers above (held to JAX's by
+    test_tensor_transfers), against JAX's power stage on its own
+    transfers, which is JAX's compute_tensor_cls."""
+    ref, _ = evolved
+    jcache, tcache = transfers
+    calls = []
+
+    def los(to, **kw):
+        calls.append((to, kw))
+        return tcache
+    monkeypatch.setattr(tten, "compute_tensor_transfers", los)
+    pp = tprim.PrimordialParams.make(
+        logA=torch.tensor([3.044], dtype=F64), ns=torch.tensor([0.965], dtype=F64),
+        r=torch.tensor([0.1], dtype=F64), nt=torch.tensor([-0.0125], dtype=F64))
+    jp = jprim.PrimordialParams.make(logA=3.044, ns=0.965, r=0.1, nt=-0.0125,
+                                     dtype=jnp.float64)
+    to = convert.tensor_output(ref)
+    spec = tten.compute_tensor_cls(to, pp, lmax=700)
+    assert len(calls) == 1 and calls[0][0] is to
+    assert calls[0][1] == dict(lmax=700, tau0_hint=14700.0, kmax_hint=0.065,
+                               points_per_osc=4.0, coarse_k=None)
+    jspec = jten.tensor_cls_from_transfers(jcache, jp, lmax=700)
+    for f in ("tt", "te", "ee", "bb"):
+        assert_close(getattr(spec, f)[0], getattr(jspec, f))
+
+
 def test_weinberg_damping_anchor():
     """The port alone: neutrino free streaming damps h by ~0.80 deep in the
     radiation era (tests/test_tensors.py's anchor), k = 1/Mpc, 4 substeps,
