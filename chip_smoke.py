@@ -70,7 +70,9 @@ agree, or when a phase's output is wrong. The last line of standard output
 is {"ok": true, "device": {...}}; the line before it lists the kernels.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -156,6 +158,18 @@ FLAGSHIP_K2A_SHAPE, FLAGSHIP_LENSED_L = (109, 4521), 2507
 LSS_NCHAINS, LSS_SEGMENTS, LSS_F32_TOL = 32, 2, 1.0
 LSS_WL_ZERO, LSS_HAND_RTOL = 1e-6, 1e-9
 
+#: phase 13 (the ini driver): the flagship's action 0 (NCHAINS chains,
+#: SEG_STEPS-step segments) runs DRIVER_SEGMENTS segments; the HMC run on
+#: the background ini (chains, warmup segments, segment steps, sampled
+#: steps, leapfrog steps); the CLI's -logL against the posterior built by
+#: hand; and the grid's job (chains, steps: enough for RunConfig's 50
+#: accepts a block before rows are written) with its HST importance rerun
+DRIVER_SEGMENTS = 4
+DRIVER_HMC = dict(num_chains=64, hmc_warmup_segments=4, segment_steps=8,
+                  samples=64, hmc_leapfrog_steps=8)
+DRIVER_MLL_RTOL = 1e-9
+DRIVER_GRID = dict(num_chains=64, segment_steps=64, samples=512)
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
                 "cosmomc_tpu/models/recfast.py:279"),
@@ -165,6 +179,8 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                      "cosmomc_tpu/models/perturbations.py:928"),
     "boltzmann_de": ("cosmomc_tpu_torch/csrc/perturbations.cu",
                      "cosmomc_tpu/models/perturbations.py:928"),
+    "boltzmann_nu_de": ("cosmomc_tpu_torch/csrc/perturbations.cu",
+                        "cosmomc_tpu/models/perturbations.py:928"),
     "los": ("cosmomc_tpu_torch/csrc/cls.cu", "cosmomc_tpu/models/cls.py:285"),
     "lensing": ("cosmomc_tpu_torch/csrc/lensing.cu",
                 "cosmomc_tpu/models/lensing.py:136"),
@@ -181,7 +197,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: phase 8 "astro" the LSS-only configuration; phases 9 "mnu" and 10
 #: "w0wa" K1's extended instantiations, twice a slow step; phase 11 "spt"
 #: the flagship's kernels at the flagship's shapes under lmax 8001; phase
-#: 12 "lss_bbn" the astro configuration with DES, SZ, BBN and BAO)
+#: 12 "lss_bbn" the astro configuration with DES, SZ, BBN and BAO; phase
+#: 13 "driver" action 0 of `python -m cosmomc_tpu_torch` on the flagship
+#: ini; K1's fourth instantiation, boltzmann_nu_de, is on no path: phase 2
+#: holds it to its plain version)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
@@ -192,7 +211,8 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "mnu": ("recfast", "boltzmann_nu", "los", "lensing"),
                 "w0wa": ("recfast", "boltzmann_de", "los", "lensing"),
                 "spt": ("recfast", "boltzmann", "los", "lensing"),
-                "lss_bbn": ("recfast", "boltzmann")}
+                "lss_bbn": ("recfast", "boltzmann"),
+                "driver": ("recfast", "boltzmann", "los", "lensing")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -223,6 +243,8 @@ OPS = {
     # and the two derivatives 16 = 20; per step 2 variables x 16
     "boltzmann_nu": (285 + 236, (37 + 28) * 16 + 50 + 32),
     "boltzmann_de": (285 + 20, (37 + 2) * 16 + 50),
+    # both extensions: the two sums
+    "boltzmann_nu_de": (285 + 236 + 20, (37 + 28 + 2) * 16 + 50 + 32),
     # the least arithmetic that computes the function (csrc/cls.cu, where
     # j'' is folded into the j and j' coefficients): per (chain, l, k, tau)
     # point two lerps 6 and five multiply-adds 10; per (chain, k, tau) the
@@ -878,47 +900,103 @@ def phase2_matter(dev, results):
         sigma8_f32_vs_f64=e8, fsigma8_f32_vs_f64=efs8)
 
 
-def phase2_variants(dev, results):
-    """K1's extended instantiations on the main paths of phases 9 and 10,
-    8 chains x 248 k on the source grid (mnu 0.06..0.3 eV, w0 -0.8..-1.2
-    and wa -0.4..0.3 across the chains; the DE fluid also with an
-    isocurvature amplitude of 0.2 on chain 0): against the plain version at
-    2048 steps, timed and bounded there, on one lane and at 8192 steps;
-    then the massive-neutrino instantiation on the matter grid (one chain
-    at mnu 0.1 eV) at the first bounded count of MATTER_CMP_STEPS, and
-    both instantiations timed there at 6144 steps."""
-    from cosmomc_tpu_torch.models import matterpower as mpw
-    from cosmomc_tpu_torch.models import perturbations as mpert
-    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
-    from cosmomc_tpu_torch.models.cmb import source_k_grid
-    from cosmomc_tpu_torch.models.recfast import compute_thermo
-    from cosmomc_tpu_torch.models.reionization import zre_from_tau
-    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+class VariantInputs:
+    """K1's extended instantiations' inputs on the source grid: 8 chains
+    near BESTFIT with mnu 0.06..0.3 eV, w0 -0.8..-1.2 and wa -0.4..0.3
+    across them, the stage tables' thermal functions at K1_CMP_STEPS and
+    mpert.N_STEP steps, and an isocurvature amplitude of 0.2 on chain 0.
+    `inputs(full, n_step, kmax)` builds the same for other points."""
 
-    par = ThetaParameterization()
-    space = par.default_space()
-    rng = np.random.default_rng(2)
-    full = np.tile([p.center for p in space.params], (NCHAINS, 1))
-    for name in ("ombh2", "omch2", "theta", "tau"):
-        full[:, space.index(name)] = BESTFIT[name] * (
-            1 + 0.002 * rng.standard_normal(NCHAINS))
-    for name, lo, hi in (("mnu", 0.06, 0.3), ("w", -0.8, -1.2), ("wa", -0.4, 0.3)):
-        full[:, space.index(name)] = np.linspace(lo, hi, NCHAINS)
+    def __init__(self, dev):
+        from cosmomc_tpu_torch.models import perturbations as mpert
+        from cosmomc_tpu_torch.models.cmb import source_k_grid
+        from cosmomc_tpu_torch.params.parameterizations import \
+            ThetaParameterization
+        self.dev, self.par = dev, ThetaParameterization()
+        self.space = space = self.par.default_space()
+        rng = np.random.default_rng(2)
+        full = np.tile([p.center for p in space.params], (NCHAINS, 1))
+        for name in ("ombh2", "omch2", "theta", "tau"):
+            full[:, space.index(name)] = BESTFIT[name] * (
+                1 + 0.002 * rng.standard_normal(NCHAINS))
+        for name, lo, hi in (("mnu", 0.06, 0.3), ("w", -0.8, -1.2),
+                             ("wa", -0.4, 0.3)):
+            full[:, space.index(name)] = np.linspace(lo, hi, NCHAINS)
+        self.bg, self.tfs = self.inputs(full, (K1_CMP_STEPS, mpert.N_STEP))
+        self.k = torch.as_tensor(source_k_grid(kmax=0.5), dtype=F64, device=dev)
+        self.rnu = mpert._r_nu(self.bg).contiguous()
+        self.b = torch.zeros(NCHAINS, dtype=F64, device=dev)
+        self.b[0] = 0.2
 
-    def inputs(full, n_step, kmax=0.5):
-        P = torch.as_tensor(full, dtype=F64, device=dev)
-        bg = par.to_background(P)
-        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, synthetic_bbn_table().to(dev, F64))
+    def inputs(self, full, n_step, kmax=0.5):
+        from cosmomc_tpu_torch.models import perturbations as mpert
+        from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+        from cosmomc_tpu_torch.models.recfast import compute_thermo
+        from cosmomc_tpu_torch.models.reionization import zre_from_tau
+        P = torch.as_tensor(full, dtype=F64, device=self.dev)
+        bg = self.par.to_background(P)
+        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046,
+                      synthetic_bbn_table().to(self.dev, F64))
         th = compute_thermo(bg, yhe)
-        zre = zre_from_tau(bg, P[:, space.index("tau")], yhe)
+        zre = zre_from_tau(bg, P[:, self.space.index("tau")], yhe)
         return bg, {n: mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=n,
                                                 kmax=kmax)[0] for n in n_step}
-    bg, tfs = inputs(full, (K1_CMP_STEPS, mpert.N_STEP))
-    k = torch.as_tensor(source_k_grid(kmax=0.5), dtype=F64, device=dev)
+
+
+def phase2_nu_de(dev, results, vi=None):
+    """K1's fourth instantiation (massive nu and the DE fluid together,
+    `boltzmann_nu_de`) against its plain version run once in float64 on
+    the float32 inputs upcast, at the width of phase2_variants' other
+    instantiations: VariantInputs' NCHAINS chains (mnu 0.06 to 0.3 eV,
+    w0 -0.8 to -1.2, wa -0.4 to 0.3; isocurvature 0.2 on chain 0) x the
+    248 k of the source grid at K1_CMP_STEPS steps (kernel f64 1e-9, f32
+    within K1_VARIANT_F32_FLOOR), timed and bounded there; then the kernel
+    alone at 8192 steps."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    vi = vi or VariantInputs(dev)
+    sw = (True, True)
+    nk = vi.k.shape[0]
+    shape = f"{NCHAINS} chains x {nk} k x {K1_CMP_STEPS} steps"
+    log(f"K1 boltzmann_nu_de: compare at {shape} (isocurvature b = 0.2 on "
+        "chain 0)")
+    iso = mpert.iso_inputs(vi.bg, vi.b)
+    err, ms, plain_ms, (q32, k32, rnu32, iso32, o_k) = k1_variant_against_plain(
+        "boltzmann_nu_de", mpert._stage_tables(vi.bg, vi.tfs[K1_CMP_STEPS], *sw),
+        vi.k, vi.rnu, sw, iso)
+    cmp_bound = bound({"fp32": k1_ops(q32, nk, "boltzmann_nu_de")},
+                      nbytes(q32, k32, rnu32, iso32, o_k))
+    q = mpert._stage_tables(vi.bg, vi.tfs[mpert.N_STEP], *sw).float()
+    mpert._evolve_cuda(q, k32, rnu32, mpert.RSA_KTAU, *sw, iso=iso32)
+    ms_full, _ = timed(lambda: mpert._evolve_cuda(q, k32, rnu32, mpert.RSA_KTAU,
+                                                  *sw, iso=iso32), 5)
+    full_bound = bound({"fp32": k1_ops(q, nk, "boltzmann_nu_de")},
+                       0)["bound_ms"]
+    log(f"  boltzmann_nu_de@{shape}: kernel {ms:.3f} ms (bound "
+        f"{cmp_bound['bound_ms']:.4f} ms), plain (float64) {plain_ms:.1f} ms; "
+        f"@{mpert.N_STEP} steps: kernel {ms_full:.3f} ms (bound "
+        f"{full_bound:.4f} ms)")
+    results["boltzmann_nu_de"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, plain_dtype="float64",
+        compare_shape=shape, ms_8192_steps=ms_full,
+        bound_ms_8192_steps=full_bound, **cmp_bound)
+
+
+def phase2_variants(dev, results):
+    """K1's extended instantiations on the main paths of phases 9 and 10,
+    VariantInputs' 8 chains x 248 k on the source grid (the DE fluid also
+    with its isocurvature chain): against the plain version at 2048 steps,
+    timed and bounded there, on one lane and at 8192 steps; then the
+    massive-neutrino instantiation on the matter grid (one chain at mnu
+    0.1 eV) at the first bounded count of MATTER_CMP_STEPS, and both
+    instantiations timed there at 6144 steps; then both extensions
+    together (phase2_nu_de)."""
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    from cosmomc_tpu_torch.models import perturbations as mpert
+
+    vi = VariantInputs(dev)
+    space, bg, tfs, k, rnu, b = vi.space, vi.bg, vi.tfs, vi.k, vi.rnu, vi.b
+    inputs = vi.inputs
     nk = k.shape[0]
-    rnu = mpert._r_nu(bg).contiguous()
-    b = torch.zeros(NCHAINS, dtype=F64, device=dev)
-    b[0] = 0.2
     for name, sw, iso in (("boltzmann_nu", (True, False), None),
                           ("boltzmann_de", (False, True), mpert.iso_inputs(bg, b))):
         log(f"K1 {name}: {NCHAINS} chains x {nk} k; compare at {K1_CMP_STEPS} steps"
@@ -994,6 +1072,7 @@ def phase2_variants(dev, results):
             f"{b6:.4f} ms; base K1 {results['boltzmann']['matter_grid']['ms_6144_steps']:.3f} ms)")
         results[name].setdefault("matter_grid", {}).update(
             ms_6144_steps=ms6, bound_ms_6144_steps=b6)
+    phase2_nu_de(dev, results, vi)
 
 
 def write_theory_cl(path, cls):
@@ -1201,6 +1280,19 @@ def leaves(x, path="state"):
             yield from leaves(getattr(x, f.name), f"{path}.{f.name}")
 
 
+def flagship_dr12(dev, tmp, fid):
+    """Phase 5's synthetic DR12-shaped BAO set, written from the port's
+    float64 theory at the best fit (phase 3's `fid["theory"]`); its path
+    is also kept as `fid["dr12"]`."""
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.synthetic import write_dr12_bao
+    d = os.path.join(tmp, "dr12")
+    bao0 = BAOLikelihood(write_dr12_bao(d), device=dev, dtype=F64)
+    fid["dr12"] = write_dr12_bao(
+        d, bao0.theory_vector(fid["theory"])[0].cpu().numpy())
+    return fid["dr12"]
+
+
 def drive_runner(dev, tmp, fid):
     """Phase 5: the flagship at phase 3's width with plik_lite + synthetic
     DR12-shaped BAO + the tau prior, under SamplingRun: 8 chains, 4
@@ -1219,7 +1311,6 @@ def drive_runner(dev, tmp, fid):
     from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
     from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
     from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
-    from cosmomc_tpu_torch.likelihoods.synthetic import write_dr12_bao
     from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
     from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
     from cosmomc_tpu_torch.pipeline import CMBPosterior
@@ -1227,9 +1318,7 @@ def drive_runner(dev, tmp, fid):
     from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
 
     sync = torch.cuda.synchronize
-    d = os.path.join(tmp, "dr12")
-    bao0 = BAOLikelihood(write_dr12_bao(d), device=dev, dtype=F64)
-    dr12 = write_dr12_bao(d, bao0.theory_vector(fid["theory"])[0].cpu().numpy())
+    dr12 = flagship_dr12(dev, tmp, fid)
     likes = LikelihoodList()
     likes.add(PlikLiteLikelihood(fid["ds"], name="plik_lite", device=dev,
                                  dtype=F32))
@@ -1361,30 +1450,19 @@ def check_resume(run1, s1, s2, cfg, P0, root):
         f"bit; the next segment takes the same {int(o1.accept.sum())} accepts")
 
 
-def drive_background(dev, tmp):
-    """Phase 6: bench.py:bench_background's posterior (BackgroundParameterization:
-    omegam, H0, ombh2 with its BBN prior; synthetic DR12-shaped BAO, 6dF,
-    a Pantheon-format set of BG_NSN SNe with a mag covmat, and HST at the
-    truth's H0, all written from the port's float64 theory at
-    BACKGROUND_TRUTH without scatter), float32, BG_NCHAINS chains under
-    MetropolisSampler and SamplingRun until R-1 < 0.01. Returns the run's
-    launch counts. Runs on the CPU too (`dev` the CPU device)."""
-    from cosmomc_tpu_torch import kernels
-    from cosmomc_tpu_torch.io.chains import load_chains
+def background_sets(dev, tmp):
+    """Phase 6's synthetic sets: DR12-shaped BAO, 6dF, a Pantheon-format
+    set of BG_NSN SNe with a mag covmat, all written from the port's
+    float64 theory at BACKGROUND_TRUTH without scatter, and the HST H0
+    that theory gives at zeff = 0.04. Returns their paths and that H0."""
     from cosmomc_tpu_torch.likelihoods import synthetic as sd
     from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
-    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
-    from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
     from cosmomc_tpu_torch.likelihoods.sn import SNLikelihood
     from cosmomc_tpu_torch.models import background as bgm
     from cosmomc_tpu_torch.models.theory import compute_background_theory
     from cosmomc_tpu_torch.params.parameterizations import \
         BackgroundParameterization
-    from cosmomc_tpu_torch.pipeline import BackgroundPosterior
-    from cosmomc_tpu_torch.sampling.metropolis import MetropolisSampler
-    from cosmomc_tpu_torch.sampling.runner import RunConfig, SamplingRun
 
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     par = BackgroundParameterization()
     full = np.array([p.center for p in par.default_space().params])
     for k, v in sd.BACKGROUND_TRUTH.items():
@@ -1405,6 +1483,35 @@ def drive_background(dev, tmp):
     log(f"phase 6: synthetic DR12, 6dF, {BG_NSN} SNe (mag covmat) and HST "
         f"(H0 {hst_h0:.4f}) written at {sd.BACKGROUND_TRUTH} in "
         f"{time.time() - t0:.1f} s")
+    return dict(dr12=dr12, sixdf=sixdf, sn=sn, hst_h0=hst_h0)
+
+
+def drive_background(dev, tmp):
+    """Phase 6: bench.py:bench_background's posterior (BackgroundParameterization:
+    omegam, H0, ombh2 with its BBN prior; synthetic DR12-shaped BAO, 6dF,
+    a Pantheon-format set of BG_NSN SNe with a mag covmat, and HST at the
+    truth's H0, all written from the port's float64 theory at
+    BACKGROUND_TRUTH without scatter), float32, BG_NCHAINS chains under
+    MetropolisSampler and SamplingRun until R-1 < 0.01. Returns the run's
+    launch counts and the sets (background_sets). Runs on the CPU too
+    (`dev` the CPU device)."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.io.chains import load_chains
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
+    from cosmomc_tpu_torch.likelihoods.sn import SNLikelihood
+    from cosmomc_tpu_torch.params.parameterizations import \
+        BackgroundParameterization
+    from cosmomc_tpu_torch.pipeline import BackgroundPosterior
+    from cosmomc_tpu_torch.sampling.metropolis import MetropolisSampler
+    from cosmomc_tpu_torch.sampling.runner import RunConfig, SamplingRun
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    par = BackgroundParameterization()
+    sets = background_sets(dev, tmp)
+    dr12, sixdf, sn, hst_h0 = (sets[k] for k in ("dr12", "sixdf", "sn", "hst_h0"))
 
     def posterior(dtype):
         likes = LikelihoodList()
@@ -1468,7 +1575,7 @@ def drive_background(dev, tmp):
             f"(truth {sd.BACKGROUND_TRUTH[name]}, {pull:+.2f} sigma)")
         if name in ("omegam", "H0"):
             require(abs(pull) < 3.0, f"{name} within 3 sigma of the truth")
-    return launches
+    return launches, sets
 
 
 def drive_matter_power(dev, tmp, fid):
@@ -2473,6 +2580,343 @@ def action4_table(post):
             "the action=4 table sums to -logL without priors")
 
 
+def write_ini(path, keys):
+    """An ini file of `key = value` lines."""
+    with open(path, "w") as f:
+        f.writelines(f"{k} = {v}\n" for k, v in keys.items())
+    return path
+
+
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def port_cli(args, what, expect_rc=0):
+    """`python -m <args>` from the checkout, as a user runs it; its output
+    goes to the log, its exit code must be `expect_rc`."""
+    return port_clis([(args, what, expect_rc)])[0]
+
+
+def port_clis(runs):
+    """Each (args, what, expect_rc) of `runs` as port_cli runs it, all
+    started together (each new process builds its host tables anew, so
+    they overlap); returns their standard outputs in order."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args, _, _ in runs]
+    outs = []
+    try:
+        for proc, (_, what, expect_rc) in zip(procs, runs):
+            out, err = proc.communicate(timeout=600)
+            for line in (out + err).strip().splitlines()[-12:]:
+                log(f"  | {line}")
+            require(proc.returncode == expect_rc,
+                    f"{what} exits {expect_rc} (got {proc.returncode})")
+            outs.append(out)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def mll_at(post, P):
+    """-logL (float64 numpy) of `post` at the (C, n) points P."""
+    with torch.no_grad():
+        return post.logpost()(torch.as_tensor(
+            P, dtype=post.dtype, device=post.device))[0].double().cpu().numpy()
+
+
+def driver_flagship(dev, d, fid, times):
+    """Phase 13's steps 1, 2, 3 and 5 (drive_driver) on the flagship ini
+    written under `d`; adds each step's wall time to `times`. Returns
+    step 2's launch counts and its launches a segment."""
+    from cosmomc_tpu_torch import driver, kernels
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.models.bbn import load_bbn_table
+    from cosmomc_tpu_torch.models.lensing import lens_cls
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    from cosmomc_tpu_torch.sampling import importance, runner
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    bbn = sd.write_bbn_table(os.path.join(d, "bbn_grid.dat"))
+    hst = dict(H0=73.48, H0_err=1.66)
+    flag = write_ini(os.path.join(d, "flagship.ini"), {
+        "file_root": os.path.join(d, "chains", "flagship"),
+        "pliklite_dataset": fid["ds"], "bao_dataset[DR12]": fid["dr12"],
+        "prior[tau]": "0.0544 0.0073", "bbn_table": bbn,
+        "Hubble_H0": hst["H0"], "Hubble_H0_err": hst["H0_err"],
+        "device": dev.type})
+
+    def by_hand(with_hst):
+        """The flagship ini's posterior in float64, built without the
+        driver."""
+        par = ThetaParameterization()
+        space = par.default_space()
+        space.get("tau").prior_mean, space.get("tau").prior_std = 0.0544, 0.0073
+        likes = LikelihoodList()
+        likes.add(PlikLiteLikelihood(fid["ds"], device=dev, dtype=F64))
+        likes.add(BAOLikelihood(fid["dr12"], name="DR12", device=dev, dtype=F64))
+        if with_hst:
+            likes.add(HSTLikelihood(**hst))
+        return CMBPosterior(par, space, likes, bbn_table=load_bbn_table(bbn),
+                            device=dev, dtype=F64)
+
+    # 1. the CLI, action 4
+    t0 = time.time()
+    hand = by_hand(False)
+    centre = np.array([p.center for p in hand.space.varying])
+    mll_hand = float(mll_at(hand, centre[None])[0])
+    cli = ["cosmomc_tpu_torch", flag, "action=4", "use_float64=T"]
+    out, _ = port_clis([
+        (cli + [f"test_check_compare={mll_hand!r}"], "the CLI's action 4", 0),
+        (cli + [f"test_check_compare={mll_hand + 1.0!r}"],
+         "the CLI's action 4 one above the value", 1)])
+    mll_cli = float(out.split("Test -log(Like) =")[1].split()[0])
+    log(f"phase 13: CLI action=4 -logL {mll_cli:.10f}, by hand "
+        f"{mll_hand:.10f} (rel diff {abs(mll_cli - mll_hand) / abs(mll_hand):.2e})")
+    require(abs(mll_cli - mll_hand) <= DRIVER_MLL_RTOL * abs(mll_hand),
+            "the CLI's -logL equals the posterior built by hand")
+    times["1 CLI action 4"] = time.time() - t0
+
+    # 2. action 0 on the flagship ini, its launches counted alone; rows are
+    # written after one accept a block (RunConfig's default of 50 would
+    # take far more than DRIVER_SEGMENTS segments)
+    root0 = os.path.join(d, "chains", "flagship")
+    at_init = {}
+    real_init = StagedMetropolisSampler.init_state
+
+    def init_state(self, P0):
+        state = real_init(self, P0)
+        torch.cuda.synchronize()
+        at_init.update(kernels.launches)
+        return state
+
+    @dataclasses.dataclass
+    class OneAcceptConfig(runner.RunConfig):
+        burn_accepts_per_block: int = 1
+    real_cfg = runner.RunConfig
+    StagedMetropolisSampler.init_state = init_state
+    runner.RunConfig = OneAcceptConfig
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        rc = driver.run_ini(flag, dict(
+            action="0", use_float64="F", num_chains=str(NCHAINS),
+            segment_steps=str(SEG_STEPS),
+            samples=str(DRIVER_SEGMENTS * SEG_STEPS), MPI_R_Stop="0",
+            feedback="0"))
+        torch.cuda.synchronize()
+        times["2 action 0"] = time.time() - t0
+        launches = dict(kernels.launches)
+    finally:
+        StagedMetropolisSampler.init_state = real_init
+        runner.RunConfig = real_cfg
+    per_segment = {n: (launches[n] - at_init[n]) / DRIVER_SEGMENTS
+                   for n in launches}
+    log("phase 13: action 0 launches " + json.dumps(launches)
+        + "; per segment " + json.dumps(per_segment))
+    require(rc == 0, "action 0 exits 0")
+    for n in KERNELS:
+        if n in PATH_KERNELS["driver"]:
+            require(launches[n] > 0, f"{n} launched by action 0")
+        else:
+            require(launches[n] == 0, f"{n} not launched by action 0")
+    for ext in ("_1.txt", ".paramnames", ".ranges", ".converge_stat",
+                ".inputparams", ".margestats", ".covmat", ".likestats"):
+        require(os.path.isfile(root0 + ext), f"action 0 wrote {ext}")
+    samples = MCSamples.load(root0, ignore_frac=0.0)
+    require(samples.samples.shape[1] == hand.space.num_varying + hand.num_derived
+            and len(samples.weights) > 0
+            and bool(np.isfinite(samples.samples).all()),
+            "MCSamples reads the chains back")
+    log(f"  {len(samples.weights)} rows, weight {samples.norm:.0f}, R-1 "
+        f"{samples.converge_tests()['R-1']:.3f}")
+
+    # 3. action 1: the chains reweighted with HST added, float64
+    got = []
+    real_arrays = importance.importance_sample_arrays
+
+    def arrays(*a, **k):
+        got.append(real_arrays(*a, **k))
+        return got[-1]
+    importance.importance_sample_arrays = arrays
+    try:
+        t0 = time.time()
+        rc = driver.run_ini(flag, dict(
+            action="1", redo_root=root0, use_HST="T", use_float64="T",
+            file_root=os.path.join(d, "chains", "flagship_hst")))
+        torch.cuda.synchronize()
+        times["3 action 1"] = time.time() - t0
+    finally:
+        importance.importance_sample_arrays = real_arrays
+    w = np.concatenate([r.weights for r in got])
+    eff = float(w.sum() ** 2 / (len(w) * (w ** 2).sum()))
+    rows = got[0].samples[:3]
+    mll_rows = mll_at(by_hand(True), rows)
+    err = np.abs(got[0].mloglike[:3] - mll_rows) / np.abs(mll_rows)
+    log(f"phase 13: action 1 on {len(w)} rows in blocks of "
+        f"{importance.CMB_BATCH}: eff_frac {eff:.4f}; three rows' -logL "
+        f"{got[0].mloglike[:3]} vs by hand {mll_rows} (rel {err.max():.2e})")
+    require(rc == 0 and 0.0 < eff <= 1.0, "action 1 eff_frac in (0, 1]")
+    require(bool((err <= DRIVER_MLL_RTOL).all()),
+            "action 1's -logL equals the posterior's own")
+    require(os.path.isfile(os.path.join(d, "chains", "flagship_hst_post_1.txt")),
+            "action 1 wrote the post chains")
+
+    # 5. the same keys on the flagship ini raise before any launch
+    t0 = time.time()
+    for over in ({"action": "2"}, {"action": "0", "sampling_method": "hmc"}):
+        kernels.reset_launches()
+        try:
+            driver.run_ini(flag, over)
+            raised = False
+        except NotImplementedError as e:
+            raised = "queue 1 item 4" in str(e)
+        require(raised and not any(kernels.launches.values()),
+                f"{over} on the flagship raises before any kernel launch")
+    # and K3's wrapper, which the semi stage runs, on spectra that want a
+    # gradient
+    ls = torch.arange(2, 81, dtype=F64, device=dev)
+    spectra = torch.ones(4, 1, 79, dtype=F64, device=dev, requires_grad=True)
+    kernels.reset_launches()
+    try:
+        lens_cls(ls, *spectra, lmax_lensed=60)
+        raised = False
+    except NotImplementedError as e:
+        raised = "queue 1 item 4" in str(e)
+    require(raised and not any(kernels.launches.values()),
+            "lens_cls on the card raises for a gradient before any launch")
+    times["5 raises"] = time.time() - t0
+
+    return launches, per_segment
+
+
+def driver_background(dev, d, bg, times):
+    """Phase 13's steps 4 and 6 (drive_driver) on the background ini
+    written under `d` from phase 6's sets `bg`; adds each step's wall time
+    to `times`. Runs on the CPU too (`dev` the CPU device: the inis then
+    carry device = cpu)."""
+    from cosmomc_tpu_torch import driver
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.utils.ini import IniFile
+
+    # 4. action 2 and HMC on the background ini (autograd on the card)
+    bgkeys = {"parameterization": "background",
+              "bao_dataset[DR12]": bg["dr12"], "bao_dataset[6DF]": bg["sixdf"],
+              "sn_dataset[Pantheon]": bg["sn"], "use_HST": "T",
+              "Hubble_H0": repr(bg["hst_h0"]), "Hubble_H0_err": "1.66",
+              "device": dev.type}
+    bgini = write_ini(os.path.join(d, "background.ini"), {
+        "file_root": os.path.join(d, "chains", "background"), **bgkeys})
+    t0 = time.time()
+    require(driver.run_ini(bgini, {"action": "2"}) == 0, "action 2 exits 0")
+    times["4 action 2"] = time.time() - t0
+    post = driver.build_posterior(IniFile(bgini))
+    centre = np.array([p.center for p in post.space.varying])
+    mll_c = float(mll_at(post, centre[None])[0])
+    root2 = os.path.join(d, "chains", "background")
+    with open(root2 + ".minimum") as f:
+        mll_min = float(f.read().split("-log(Like) =")[1].split()[0])
+    ev = np.linalg.eigvalsh(np.loadtxt(root2 + ".hessian.covmat"))
+    log(f"phase 13: action 2 -logL {mll_min:.6f} (centre {mll_c:.6f}); Hessian "
+        f"covmat eigenvalues {ev}")
+    require(mll_min <= mll_c, ".minimum at or below the centre's -logL")
+    require(bool((ev > 0).all()), "the Hessian covmat is positive definite")
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = driver.run_ini(bgini, {
+            "action": "0", "sampling_method": "hmc", "MPI_R_Stop": "0",
+            "feedback": "0", "file_root": os.path.join(d, "chains", "hmc"),
+            **{k: str(v) for k, v in DRIVER_HMC.items()}})
+    times["4 HMC"] = time.time() - t0
+    log(buf.getvalue().strip())
+    acc = float(buf.getvalue().split("accept =")[1].split(",")[0])
+    hmc = MCSamples.load(os.path.join(d, "chains", "hmc"), ignore_frac=0.0)
+    sig = np.sqrt(np.diag(hmc.cov()))
+    means = hmc.means()
+    require(rc == 0 and acc > 0.4, "HMC accepts more than 0.4")
+    for i, name in enumerate(p.name for p in post.space.varying):
+        pull = (means[i] - sd.BACKGROUND_TRUTH[name]) / sig[i]
+        log(f"  HMC {name}: mean {means[i]:.6g} +- {sig[i]:.4g} (truth "
+            f"{sd.BACKGROUND_TRUTH[name]}, {pull:+.2f} sigma)")
+        if name in ("omegam", "H0"):
+            require(abs(pull) < 3.0, f"HMC {name} within 3 sigma of the truth")
+
+    # 6. the grid CLI: one background job and its HST importance rerun
+    t0 = time.time()
+    frag = write_ini(os.path.join(d, "bg_data.ini"), {**bgkeys, "use_HST": "F"})
+    settings = os.path.join(d, "grid_settings.json")
+    with open(settings, "w") as f:
+        json.dump({"params": [[]], "datasets": [[["bg"], [frag]]],
+                   "importance_runs": [["HST", {"use_HST": "T"}]],
+                   "defaults": {"MPI_R_Stop": "0", "feedback": "0",
+                                **{k: str(v) for k, v in DRIVER_GRID.items()}}},
+                  f)
+    grid = os.path.join(d, "grid")
+    port_cli(["cosmomc_tpu_torch.grid", "make", grid, settings], "grid make")
+    out = port_cli(["cosmomc_tpu_torch.grid", "run", grid], "grid run")
+    require("base_bg: rc=0" in out and "base_bg_post_HST: rc=0" in out,
+            "grid run: both jobs exit 0")
+    out = port_cli(["cosmomc_tpu_torch.grid", "status", grid], "grid status")
+    require("base_bg " in out and "chains=1" in out, "grid status lists the job")
+    require(os.path.isfile(os.path.join(grid, "base", "bg_post_HST",
+                                        "base_bg_post_HST_post_1.txt")),
+            "the importance rerun wrote its chains")
+    times["6 grid"] = time.time() - t0
+
+
+def drive_driver(dev, tmp, fid, bg):
+    """Phase 13: the ini driver, `python -m cosmomc_tpu_torch params.ini`,
+    and the tools it dispatches to, on inis written from phase 3's plik_lite
+    fiducial, phase 5's DR12-shaped BAO set and phase 6's background sets:
+      1. the CLI, action 4 on the flagship ini in float64, as a subprocess:
+         -logL equal to the same posterior built by hand
+         (DRIVER_MLL_RTOL), test_check_compare passing at that value and
+         failing (exit 1) one above it;
+      2. action 0 on the flagship ini (float32, NCHAINS chains,
+         DRIVER_SEGMENTS segments of SEG_STEPS steps, MPI_R_Stop = 0):
+         exactly K4, K1, K2a and K3 launched, the chain files and sidecars
+         and the GetDist outputs written, MCSamples reading them back;
+      3. action 1 on those chains with HST added, float64: eff_frac in
+         (0, 1], three rows' new -logL equal to the hand-built posterior's
+         (DRIVER_MLL_RTOL);
+      4. action 2 and sampling_method = hmc on the background ini, float64
+         with autograd on the card: the .minimum at or below the centre's
+         -logL, a positive definite Hessian covmat; HMC accepting > 0.4
+         with omegam and H0 within 3 pooled sigma of the truth;
+      5. the same two keys on the flagship ini raising NotImplementedError
+         before any kernel launch, and K3's wrapper so on spectra that
+         want a gradient;
+      6. `python -m cosmomc_tpu_torch.grid make / run / status` on a
+         one-job background grid with one importance rerun (HST added).
+    Returns step 2's launch counts and its launches a segment."""
+    t_phase = time.time()
+    times = {}
+    d = os.path.join(tmp, "driver")
+    os.makedirs(d)
+    launches, per_segment = driver_flagship(dev, d, fid, times)
+    driver_background(dev, d, bg, times)
+    log(f"phase 13 took {time.time() - t_phase:.1f} s on {smi_line()}: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
+    return launches, per_segment
+
+
 def kernel_of(line):
     """The kernel and template arguments of a ptxas "Compiling entry
     function" line: _ZN<len><namespace><len><fn>I{f,d}[Li<NPT>E][Lb<0|1>E
@@ -2507,9 +2951,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -2554,7 +2996,7 @@ def main() -> int:
                                                              flagship_fid)
         log(f"phase 5 done in {time.time() - t0:.1f} s")
         t0 = time.time()
-        launches["background"] = drive_background(dev, tmp)
+        launches["background"], bg_sets = drive_background(dev, tmp)
         segment["background"] = dict(launches["background"])
         log(f"phase 6 done in {time.time() - t0:.1f} s")
         t0 = time.time()
@@ -2579,6 +3021,10 @@ def main() -> int:
         launches["lss_bbn"], segment["lss_bbn"] = drive_lss_bbn(dev, tmp)
         action4_table(flagship_fid["post"])
         log(f"phase 12 done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        launches["driver"], segment["driver"] = drive_driver(
+            dev, tmp, flagship_fid, bg_sets)
+        log(f"phase 13 done in {time.time() - t0:.1f} s")
 
     rows = []
     for n, (src, rep) in KERNELS.items():

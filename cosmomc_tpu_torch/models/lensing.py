@@ -333,7 +333,15 @@ def _passes_cuda(cl: torch.Tensor, n_theta: int, apodize: bool, nl_out: int
     and the seeds both come from (n_theta, apodize), so they agree.
 
     Replaces cosmomc_tpu/models/lensing.py:lens_cls (the lax.scans at
-    :136, :247 and :287); the bound and the design are in the source."""
+    :136, :247 and :287); the bound and the design are in the source.
+
+    Raises NotImplementedError when asked for a gradient: the kernel has
+    no reverse pass, so the lensing deltas would carry none, silently."""
+    if torch.is_grad_enabled() and cl.requires_grad:
+        raise NotImplementedError(
+            "lens_cls has no gradient on the card yet (K3's reverse pass is "
+            "ROADMAP.md queue 1 item 4); the plain version on CPU tensors "
+            "has one")
     C, _, L = cl.shape
     kernels.check(cl, "cl", (C, 4, L))
     if nl_out > L:

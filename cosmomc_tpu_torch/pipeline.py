@@ -391,7 +391,18 @@ class CMBPosterior:
     # ------------------------------------------------------------------
 
     def stage_slow(self, full_P: torch.Tensor) -> dict:
-        """Everything independent of the primordial power and nuisance."""
+        """Everything independent of the primordial power and nuisance.
+
+        Raises NotImplementedError when asked for a gradient: the plain
+        versions of K4, K1, K2a and K5 run under `torch.no_grad()` and the
+        CUDA wrappers have no backward, so a gradient through this stage
+        would hold only the background paths, silently."""
+        if torch.is_grad_enabled() and full_P.requires_grad:
+            raise NotImplementedError(
+                "CMBPosterior.stage_slow has no gradient yet (the kernels' "
+                "reverse passes are ROADMAP.md queue 1 item 4); differentiate "
+                "the semi and fast stages with the slow cache held, on the "
+                "CPU")
         bg = self.parameterization.to_background(full_P)
         tau_re = full_P[:, self._i_tau]
         yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, self.bbn_table)
@@ -469,7 +480,8 @@ class CMBPosterior:
 
     def stage_semi(self, full_P: torch.Tensor, slow: dict) -> dict:
         """Primordial power on the cached transfers, then lensing, and the
-        P(k, z) / sigma8 tables."""
+        P(k, z) / sigma8 tables. Differentiable on the CPU only: on the card
+        lens_cls raises when asked for a gradient (K3 has no reverse pass)."""
         pp = self._primordial(full_P)
         A9 = torch.exp(full_P[:, self._i_logA]) / 10.0        # 10^9 A_s
         mp = (matter_power_from_transfers(slow["bg"], pp, slow["mt"])

@@ -1,5 +1,9 @@
 """The port's repaired faults against the JAX package: the implicit
-derivatives of the two bisections (H0 from theta, z_re from tau), and the
+derivatives of the two bisections (H0 from theta, z_re from tau), the
+slow stage and K3's wrapper refusing a gradient they cannot give (the
+kernels have no reverse pass yet; the semi + fast gradient with the slow
+cache held, on the CPU, is tested in test_torch_slice_sampler.py, on that
+file's slow cache), and the
 public functions of ported modules that the port lacked (the spline
 derivative and integral, clamped spline ends, the bicubic grid, linear
 interpolation, the BBN Yp^BBN and error lookups, compute_cmb_theory).
@@ -28,8 +32,11 @@ from cosmomc_tpu.utils import interp as jinterp
 from cosmomc_tpu_torch.models import bbn as tbbn
 from cosmomc_tpu_torch.models import cmb as tcmb
 from cosmomc_tpu_torch.models import reionization as treion
+from cosmomc_tpu_torch.likelihoods.base import LikelihoodList as TLikes
 from cosmomc_tpu_torch.models.background import BackgroundParams as TBG
+from cosmomc_tpu_torch.params.parameterizations import AstroParameterization as TAstro
 from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization as TTheta
+from cosmomc_tpu_torch.pipeline import CMBPosterior as TPost
 from cosmomc_tpu_torch.utils import interp as tinterp
 
 F64 = torch.float64
@@ -87,6 +94,65 @@ def test_h0_gradient_through_to_background():
         np.testing.assert_allclose(h[0, :3].numpy(), j_hess[i, :3],
                                    rtol=HESS_RTOL,
                                    atol=HESS_RTOL * np.abs(j_hess[:, :3]).max())
+
+
+class _Reached(Exception):
+    """Raised by a stubbed first step of the slow stage: the guard let the
+    call through."""
+
+
+@pytest.mark.parametrize("kind", ["theta", "astro"])
+def test_slow_stage_refuses_gradients(kind, monkeypatch):
+    """A gradient through the full posterior raises NotImplementedError
+    before any work, on the CMB path and on the LSS-only astro path (which
+    runs K4 and K1); without a gradient the call goes through."""
+    par = TTheta() if kind == "theta" else TAstro()
+    post = TPost(par, par.default_space(), TLikes(), lmax=100,
+                 bbn_table=tbbn.synthetic_bbn_table(), use_cmb=kind == "theta",
+                 matter_power=kind == "astro", device="cpu", dtype=F64)
+    P = torch.tensor([[p.center for p in post.space.varying]], dtype=F64,
+                     requires_grad=True)
+
+    def reached(*a):
+        raise _Reached
+    monkeypatch.setattr(post.parameterization, "to_background", reached)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        torch.autograd.grad(post.logpost()(P)[0].sum(), P)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        post.stage_slow(post.embed_full(P))
+    with pytest.raises(_Reached):
+        post.stage_slow(post.embed_full(P.detach()))
+    with torch.no_grad(), pytest.raises(_Reached):
+        post.stage_slow(post.embed_full(P))
+
+
+def test_lensing_kernel_refuses_gradients(monkeypatch):
+    """lens_cls on the kernel's route (K3's wrapper, its launch stubbed)
+    raises NotImplementedError before any launch when its spectra want a
+    gradient, as the semi stage's would; without one the call reaches the
+    launch. The plain version on CPU tensors keeps its gradient."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.models import lensing as tlens
+    rng = np.random.default_rng(3)
+    ls = torch.arange(2, 81, dtype=F64)
+    spectra = torch.tensor(1.0 + rng.random((4, 2, 79)), dtype=F64,
+                           requires_grad=True)
+
+    def reached(*a):
+        raise _Reached
+    monkeypatch.setattr(tlens, "_passes_grid_plain", tlens._passes_cuda)
+    monkeypatch.setattr(kernels, "check", lambda *a: None)
+    monkeypatch.setattr(kernels, "launch", reached)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        tlens.lens_cls(ls, *spectra, lmax_lensed=60)
+    with pytest.raises(_Reached):
+        tlens.lens_cls(ls, *spectra.detach(), lmax_lensed=60)
+    with torch.no_grad(), pytest.raises(_Reached):
+        tlens.lens_cls(ls, *spectra, lmax_lensed=60)
+    monkeypatch.undo()
+    out = tlens.lens_cls(ls, *spectra, lmax_lensed=60)
+    (g,) = torch.autograd.grad(out.bb.sum() + out.tt.sum(), spectra)
+    assert bool(torch.isfinite(g).all()) and bool((g[3] != 0).any())
 
 
 def test_bisections_carry_no_graph_without_gradients():

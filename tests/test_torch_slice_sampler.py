@@ -4,9 +4,16 @@ sampler steps (slow, semi, fast) from the same state, with the JAX
 sampler's random draws recomputed from its key and injected into the
 port: identical accept decisions, points and -logL. A file of its own so
 that `--dist loadfile` runs it beside the posterior checks.
+
+On that state's slow cache (the JAX caches carried by `convert`), the
+gradient through the semi and fast stages with the slow cache held:
+finite, and nonzero along logA, ns and A_planck for every chain (the
+JAX package's tests/test_cmb_posterior.py:141-168), while the full path
+refuses a gradient.
 """
 
 import numpy as np
+import pytest
 import torch
 import jax
 import jax.numpy as jnp
@@ -40,7 +47,10 @@ def _jax_draws(jsampler, state, sched):
                           for x in (deltas, jnp.stack(radius), jnp.stack(u))))
 
 
-def test_sampler_steps_match(posts, points):
+@pytest.fixture(scope="module")
+def samplers(posts, points):
+    """Both samplers and the same start state in both: the JAX caches,
+    carried by convert."""
     jpost, tpost = posts
     jprop_ = jpost.make_proposal(oversample_fast=4)
     tprop = tpost.make_proposal(oversample_fast=4)
@@ -48,6 +58,13 @@ def test_sampler_steps_match(posts, points):
     jprop_.set_covariance(np.diag(w ** 2))
     tprop.set_covariance(np.diag(w ** 2))
     js, ts = JSampler(jprop_, jpost), TSampler(tprop, tpost)
+    jstate = js.init_state(jax.random.PRNGKey(3), jnp.asarray(points[1:3]))
+    return js, ts, jstate, convert.staged_chain_state(jstate)
+
+
+def test_sampler_steps_match(samplers):
+    js, ts, jstate, tstate = samplers
+    jprop_ = js.proposal
     np.testing.assert_array_equal(ts.block_class, js.block_class)
     # one step of each class, in block order slow, semi, fast
     sizes = jprop_.block_sizes
@@ -56,10 +73,6 @@ def test_sampler_steps_match(posts, points):
                              np.zeros(3, np.int32),
                              tuple(3 // s + 1 for s in sizes))
     assert list(js.block_class[sched.block]) == [0, 1, 2]
-    # the same start state in both: the JAX caches, carried by convert
-    P0 = points[1:3]
-    jstate = js.init_state(jax.random.PRNGKey(3), jnp.asarray(P0))
-    tstate = convert.staged_chain_state(jstate)
     draws = _jax_draws(js, jstate, sched)
     jfinal, jout = js.run_segment(jstate, sched)
     tfinal, tout = ts.run_segment(tstate, sched, draws=draws)
@@ -69,3 +82,19 @@ def test_sampler_steps_match(posts, points):
                                rtol=MLL_RTOL, atol=MLL_ATOL)
     np.testing.assert_array_equal(tfinal.num_accept.numpy(),
                                   np.asarray(jfinal.num_accept))
+
+
+def test_gradient_semi_fast(posts, samplers):
+    _, tpost = posts
+    tstate = samplers[3]
+    slow = tstate.slow
+    P = tstate.P.clone().requires_grad_(True)
+    full = tpost.embed_full(P)
+    mll, _ = tpost.stage_fast(P, slow, tpost.stage_semi(full, slow))
+    (g,) = torch.autograd.grad(mll.sum(), P)
+    assert bool(torch.isfinite(g).all())
+    names = [p.name for p in tpost.space.varying]
+    for nm in ("logA", "ns", "A_planck"):
+        assert bool((g[:, names.index(nm)] != 0).all()), nm
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        torch.autograd.grad(tpost.logpost()(P)[0].sum(), P)
