@@ -63,6 +63,15 @@ parameterization, K4 and K1 only): DES 1YR-shaped 3x2pt, Planck
 grid and DR12 BAO with f_sigma8, float32 theory and float64 likelihoods,
 32 chains, two staged segments; then the action=4 per-likelihood table on
 phase 3's flagship posterior.
+Phase 2 also holds the reverse kernels of K4 and K1 (the gradient path's)
+to autograd of their plain versions, computed on the host CPU by a
+process of this script started before phase 2 (`--plain-ref`).
+Phase 13 runs the ini driver: the CLI, actions 0, 1, 2 and 4, HMC and
+the grid CLI.
+Phase 14 runs the gradient path on phase 12's configuration: the float64
+gradient against central differences and against the host CPU's plain
+gradient (`--cpu-grad`, started before phase 2), HMC through the CLI
+(started before phase 13), action 2, and the flagship's refusals.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -170,6 +179,34 @@ DRIVER_HMC = dict(num_chains=64, hmc_warmup_segments=4, segment_steps=8,
 DRIVER_MLL_RTOL = 1e-9
 DRIVER_GRID = dict(num_chains=64, segment_steps=64, samples=512)
 
+#: the reverse kernels (phase 2): K1's checkpoint chunks (JAX's HMC
+#: default, driver.py:205), float32 within this share of each output's
+#: largest magnitude of the float64 plain gradient; the host threads of the
+#: plain references and of phase 14's CPU gradient, in processes of their
+#: own beside the card's phases (few: the card's phases are host-bound
+#: too), JOB_TIMEOUT seconds at most
+GRAD_CHUNKS = 64
+GRAD_F32_TOL = {"recfast_bwd": 1e-4, "boltzmann_bwd": 1e-3}
+JOB_THREADS, JOB_TIMEOUT = {"--plain-ref": 2, "--cpu-grad": 1}, 900
+#: phase 14's comparison with the CPU's plain gradient runs both on
+#: test_torch_lss_astro.py's reduced matter grid (36 k to 2/Mpc, 2048
+#: steps; the full grid's 6143 plain steps under autograd take ~950 s on
+#: the host, where phase 14's other checks hold the full width)
+CPU_GRAD_MATTER = dict(kmax=2.0, nk_log_lo=8, nk_lin=16, nk_log_hi=12)
+CPU_GRAD_STEPS = 2048
+#: phase 14 (the gradient path): the finite-difference step (a share of
+#: each parameter's proposal width) and the tolerance of the gradient
+#: against those differences and against the CPU's plain gradient (both
+#: relative to the largest component); the HMC run through the CLI
+#: (chains, warmup segments, segment steps, sampled steps, leapfrog steps)
+#: and its acceptance band; the minimizer's low-temperature refine steps
+#: and L-BFGS-B iterations (action 2 from the centre, cut to ~20 s)
+GRAD_FD_STEP, GRAD_FD_TOL, GRAD_CPU_TOL = 1e-6, 1e-5, 1e-8
+GRAD_HMC = dict(num_chains=8, hmc_warmup_segments=2, segment_steps=4,
+                samples=8, hmc_leapfrog_steps=4)
+GRAD_HMC_ACCEPT = (0.05, 1.0)
+GRAD_MIN_REFINE, GRAD_MIN_ITER = 16, 10
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
                 "cosmomc_tpu/models/recfast.py:279"),
@@ -190,6 +227,11 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                 "cosmomc_tpu/models/tensors.py:254"),
     "tensor_los": ("cosmomc_tpu_torch/csrc/tensor_los.cu",
                    "cosmomc_tpu/models/tensors.py:352"),
+    # the reverse passes: jax.grad over the same scans
+    "recfast_bwd": ("cosmomc_tpu_torch/csrc/recfast.cu",
+                    "cosmomc_tpu/models/recfast.py:279"),
+    "boltzmann_bwd": ("cosmomc_tpu_torch/csrc/perturbations.cu",
+                      "cosmomc_tpu/models/perturbations.py:928"),
 }
 #: the kernels each main path must launch (phase 5 "runner" is the
 #: flagship under SamplingRun; phase 6 "background" launches none; phase 7
@@ -199,8 +241,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: the flagship's kernels at the flagship's shapes under lmax 8001; phase
 #: 12 "lss_bbn" the astro configuration with DES, SZ, BBN and BAO; phase
 #: 13 "driver" action 0 of `python -m cosmomc_tpu_torch` on the flagship
-#: ini; K1's fourth instantiation, boltzmann_nu_de, is on no path: phase 2
-#: holds it to its plain version)
+#: ini; phase 14 "gradient" the gradient of phase 12's configuration and
+#: action 2 on it, the forward kernels with their reverse kernels; K1's
+#: fourth instantiation, boltzmann_nu_de, is on no path: phase 2 holds it to
+#: its plain version)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
@@ -212,7 +256,9 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "w0wa": ("recfast", "boltzmann_de", "los", "lensing"),
                 "spt": ("recfast", "boltzmann", "los", "lensing"),
                 "lss_bbn": ("recfast", "boltzmann"),
-                "driver": ("recfast", "boltzmann", "los", "lensing")}
+                "driver": ("recfast", "boltzmann", "los", "lensing"),
+                "gradient": ("recfast", "boltzmann", "recfast_bwd",
+                             "boltzmann_bwd")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -2364,27 +2410,14 @@ def abundance_by_hand(tab, ds, ombh2, dn):
     return 0.5 * t * t / (float(keys["error"]) ** 2 + terr ** 2)
 
 
-def drive_lss_bbn(dev, tmp):
-    """Phase 12, part 1: the LSS-only configuration with a BBN prior as
-    cosmomc_tpu/driver.py builds it (parameterization = astro:
-    AstroParameterization and CMBPosterior(use_cmb=False,
-    matter_power=True), use_WL, use_SZ, abundance datasets): a DES 1YR-shaped 3x2pt set, a Planck 2015-shaped
-    SZ set (dN/dz/dq, Tinker), D/H and Yp abundances on a written BBN grid
-    and the synthetic DR12 BAO set with f_sigma8 rows, each written from
-    the port's float64 theory at the centres. The matter grid at full
-    width (216 k to 8/Mpc, 6144 steps), z_pk extended by WL's
-    required_zmax and SZ's 1.2, the theory in float32, the likelihoods in
-    float64. At the centres in float64: WL's chi^2/2 is 0, each abundance
-    its Gaussian by hand, SZ's Cash sum recomputed in numpy, the
-    per-likelihood table summing to the fast stage's total; the float32
-    theory within LSS_F32_TOL of each. Then StagedMetropolisSampler on
-    LSS_NCHAINS chains: init, LSS_SEGMENTS segments of SEG_STEPS with one
-    slow step each, launching K4 and K1 once a slow step and nothing
-    else; each new likelihood's ms a call and whether it waits for the
-    card. Returns the launch counts."""
-    from cosmomc_tpu_torch import kernels
+def lss_bbn_sets(dev, tmp):
+    """Phase 12's sets, written before phase 2 (phase 14's CPU gradient
+    reads them from a process of its own while the card runs phases 2-13):
+    a DES 1YR-shaped 3x2pt set, a Planck 2015-shaped SZ set, D/H and Yp
+    abundances on a written BBN grid and the synthetic DR12 BAO set with
+    f_sigma8 rows, each written from the port's float64 theory at the
+    centres. Returns their paths and what phase 12 checks them with."""
     from cosmomc_tpu_torch.likelihoods import synthetic as sd
-    from cosmomc_tpu_torch.likelihoods.abundances import AbundanceLikelihood
     from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
     from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
     from cosmomc_tpu_torch.likelihoods.szcounts import SZCountsLikelihood
@@ -2392,13 +2425,11 @@ def drive_lss_bbn(dev, tmp):
     from cosmomc_tpu_torch.models.bbn import load_bbn_table
     from cosmomc_tpu_torch.params.parameterizations import AstroParameterization
     from cosmomc_tpu_torch.pipeline import CMBPosterior
-    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
 
-    t_phase = time.time()
     d = os.path.join(tmp, "lss_bbn")
     par = AstroParameterization()
-    table = load_bbn_table(sd.write_bbn_table(os.path.join(
-        d, sd.BBN_TABLE_NAME)))
+    table_path = sd.write_bbn_table(os.path.join(d, sd.BBN_TABLE_NAME))
+    table = load_bbn_table(table_path)
     abund = [sd.write_abundance(d, n, **sd.ABUNDANCE_SETS[n])
              for n in ("D_Cooke2017", "Yp_Aver2015")]
     des = sd.write_des_wl(d)
@@ -2438,12 +2469,56 @@ def drive_lss_bbn(dev, tmp):
     sd.write_sz_catalogue(d, counts)
     dr12 = sd.write_dr12_bao(d, bao0.theory_vector(th64)[0].cpu().numpy(),
                              fsigma8=True)
+    return dict(d=d, par=par, table=table, table_path=table_path, abund=abund,
+                des=des, dr12=dr12, counts=counts, nu_sz=nu_sz, th64=th64,
+                posterior=posterior, centres=centres)
+
+
+def lss_bbn_likes(dev, sets, nonlinear=True):
+    """Phase 12's likelihood list on `sets` (`lss_bbn_sets`): WL (on the
+    halofit P(k) unless not `nonlinear`), SZ, the two abundances and DR12
+    with f_sigma8 rows."""
+    from cosmomc_tpu_torch.likelihoods.abundances import AbundanceLikelihood
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.szcounts import SZCountsLikelihood
+    from cosmomc_tpu_torch.likelihoods.wl import WLLikelihood
     likes = LikelihoodList()
-    likes.add(WLLikelihood(des, device=dev))
-    likes.add(SZCountsLikelihood(d, device=dev))
-    for ds in abund:
+    likes.add(WLLikelihood(sets["des"], use_non_linear=nonlinear, device=dev))
+    likes.add(SZCountsLikelihood(sets["d"], device=dev))
+    for ds in sets["abund"]:
         likes.add(AbundanceLikelihood(ds, device=dev))
-    likes.add(BAOLikelihood(dr12, device=dev, dtype=F64))
+    likes.add(BAOLikelihood(sets["dr12"], device=dev, dtype=F64))
+    return likes
+
+
+def drive_lss_bbn(dev, tmp, sets):
+    """Phase 12, part 1: the LSS-only configuration with a BBN prior as
+    cosmomc_tpu/driver.py builds it (parameterization = astro:
+    AstroParameterization and CMBPosterior(use_cmb=False,
+    matter_power=True), use_WL, use_SZ, abundance datasets): a DES 1YR-shaped 3x2pt set, a Planck 2015-shaped
+    SZ set (dN/dz/dq, Tinker), D/H and Yp abundances on a written BBN grid
+    and the synthetic DR12 BAO set with f_sigma8 rows, each written from
+    the port's float64 theory at the centres. The matter grid at full
+    width (216 k to 8/Mpc, 6144 steps), z_pk extended by WL's
+    required_zmax and SZ's 1.2, the theory in float32, the likelihoods in
+    float64. At the centres in float64: WL's chi^2/2 is 0, each abundance
+    its Gaussian by hand, SZ's Cash sum recomputed in numpy, the
+    per-likelihood table summing to the fast stage's total; the float32
+    theory within LSS_F32_TOL of each. Then StagedMetropolisSampler on
+    LSS_NCHAINS chains: init, LSS_SEGMENTS segments of SEG_STEPS with one
+    slow step each, launching K4 and K1 once a slow step and nothing
+    else; each new likelihood's ms a call and whether it waits for the
+    card. Returns the launch counts."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    t_phase = time.time()
+    table, abund, counts = sets["table"], sets["abund"], sets["counts"]
+    nu_sz, th64, posterior = sets["nu_sz"], sets["th64"], sets["posterior"]
+    centres = sets["centres"]
+    likes = lss_bbn_likes(dev, sets)
     wl, sz = likes.likes[0], likes.likes[1]
     log(f"  DES: {wl.num_used} of {sd.N_DES_ROWS} rows after the cuts; SZ: "
         f"{sz.ncat} clusters at q >= 6 ({sz.nmiss} without a redshift), "
@@ -2917,6 +2992,573 @@ def drive_driver(dev, tmp, fid, bg):
     return launches, per_segment
 
 
+# ---------------------------------------------------------------------------
+# the reverse kernels (phase 2) and the gradient path (phase 14)
+# ---------------------------------------------------------------------------
+
+def _job_env(threads):
+    return dict(os.environ, OMP_NUM_THREADS=str(threads),
+                PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def start_job(mode, d):
+    """This script in `mode` (--plain-ref or --cpu-grad) on the directory
+    `d`, in a process of its own on the host's CPU, beside the card's
+    phases; its output goes to d/<mode>.log."""
+    log_f = open(os.path.join(d, mode.strip("-") + ".log"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, d],
+                            cwd=HERE, env=_job_env(JOB_THREADS[mode]),
+                            stdout=log_f, stderr=subprocess.STDOUT)
+    proc.log_f = log_f
+    return proc
+
+
+def finish_job(proc, d, name, what):
+    """Wait for a job of start_job and load its result d/<name>."""
+    t0 = time.time()
+    try:
+        rc = proc.wait(timeout=JOB_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.log_f.close()
+    with open(proc.log_f.name) as f:
+        tail = f.read().strip().splitlines()[-6:]
+    for line in tail:
+        log(f"  | {line}")
+    require(rc == 0, f"{what} (a process on the host CPU) exits 0")
+    log(f"  {what}: waited {time.time() - t0:.1f} s for it")
+    return torch.load(os.path.join(d, name))
+
+
+def reverse_inputs(dev, d):
+    """Phase 2's reverse-kernel checks, their inputs, written to
+    d/inputs.pt for the plain references' process (`plain_references`):
+    K4's z table at NCHAINS chains x 8000 nodes at phase 2's cosmologies;
+    K1's stage table on the matter grid (216 k to 8/Mpc) at NCHAINS chains x
+    K1_CMP_STEPS steps; both rounded to float32, so that the float32
+    kernels read the numbers the float64 references read. Seeded
+    cotangents: K4's on x_e and T_M; K1's dense on the 7 planes of chains
+    0-3 and, on chains 4-7, the matter path's sparse ones: dm, dmdot and
+    weyl at the two grid rows around each of Z_PK's snapshots (what
+    evolve_perturbations interpolates)."""
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models import recfast as mrec
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.utils.interp import interp
+
+    par = ThetaParameterization()
+    space = par.default_space()
+    rng = np.random.default_rng(1)
+    full = np.tile([p.center for p in space.params], (NCHAINS, 1))
+    for name in ("ombh2", "omch2", "theta", "tau"):
+        full[:, space.index(name)] = BESTFIT[name] * (
+            1 + 0.002 * rng.standard_normal(NCHAINS))
+    full = torch.as_tensor(full, dtype=F64, device=dev)
+    bg = par.to_background(full)
+    yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, synthetic_bbn_table().to(dev, F64))
+    fHe = yhe / (mrec.const.mass_ratio_He_H * (1.0 - yhe))
+    Nnow = mrec.const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
+    zt = mrec._z_tables(bg, mrec.z_grid(mrec.N_Z, dev, F64), fHe, Nnow)
+    th = mrec.compute_thermo(bg, yhe)
+    zre = zre_from_tau(bg, full[:, space.index("tau")], yhe)
+    kgrid = mpw.matter_k_grid()
+    tf, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=K1_CMP_STEPS,
+                                     kmax=float(kgrid[-1]))
+    q = mpert._stage_tables(bg, tf)
+    tf6, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=6144,
+                                      kmax=float(kgrid[-1]))
+    q6 = mpert._stage_tables(bg, tf6)
+    C, S, nk = NCHAINS, q.shape[1], len(kgrid)
+    g = torch.Generator().manual_seed(14)
+    g_out = torch.zeros(len(mpert.PLANES), C, S, nk, dtype=F64)
+    half = C // 2
+    g_out[:, :half] = torch.randn(len(mpert.PLANES), half, S, nk, generator=g,
+                                  dtype=F64)
+    # the rows the snapshots read: the nodes around tau(z), node j being the
+    # planes' step j - 1
+    lna_tab, tau_tab = mpert._conformal_time_table(bg)
+    a_out = torch.tensor([1.0 / (1.0 + z) for z in Z_PK], dtype=F64, device=dev)
+    tau_out = interp(torch.log(a_out).expand(C, -1), lna_tab.expand(C, -1),
+                     tau_tab)
+    node = torch.searchsorted(tf.tau.contiguous(), tau_out.contiguous()).cpu()
+    for c in range(half, C):
+        for j in node[c].tolist():
+            for s in (j - 2, j - 1):
+                if 0 <= s < S:
+                    for p in ("dm", "dmdot", "weyl"):
+                        g_out[mpert.PLANES.index(p), c, s] = torch.randn(
+                            nk, generator=g, dtype=F64)
+    r32 = lambda t: t.float().double().cpu().contiguous()
+    inputs = dict(zt=r32(zt), fHe=r32(fHe),
+                  g_xe=torch.randn(C, mrec.N_Z, generator=g, dtype=F64),
+                  g_tm=1e-3 * torch.randn(C, mrec.N_Z, generator=g, dtype=F64),
+                  qtab=r32(q), k=r32(torch.as_tensor(kgrid)),
+                  rnu=r32(mpert._r_nu(bg)), iso=torch.zeros(C, 3, dtype=F64),
+                  g_out=g_out, qtab6144=r32(q6))
+    torch.save(inputs, os.path.join(d, "inputs.pt"))
+    log(f"phase 2 (reverse): inputs written; K4 {C} chains x {mrec.N_Z} z, K1 "
+        f"{C} chains x {nk} k x {S} steps (matter grid), {GRAD_CHUNKS} chunks; "
+        f"the plain references run on the host CPU beside the card's phases")
+
+
+def plain_references(d):
+    """--plain-ref DIR: autograd of the plain K4 and K1 versions (float64, on
+    the host CPU: their step loops are launch-bound on the card, where K4's
+    took minutes) on DIR/inputs.pt; writes DIR/refs.pt with each
+    gradient and the seconds it took."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models import recfast as mrec
+    torch.set_num_threads(JOB_THREADS["--plain-ref"])
+    inp = torch.load(os.path.join(d, "inputs.pt"))
+    out = {}
+    t0 = time.time()
+    zt = inp["zt"].requires_grad_(True)
+    fHe = inp["fHe"].requires_grad_(True)
+    xe, tm = mrec._scan_plain(zt, fHe)
+    g_zt, g_fhe = torch.autograd.grad(
+        (xe * inp["g_xe"]).sum() + (tm * inp["g_tm"]).sum(), [zt, fHe])
+    out["recfast_bwd"] = dict(g=(g_zt, g_fhe), seconds=time.time() - t0)
+    print(f"K4 plain forward + backward {out['recfast_bwd']['seconds']:.1f} s",
+          flush=True)
+    t0 = time.time()
+    q, rnu, iso = (inp[n].requires_grad_(True) for n in ("qtab", "rnu", "iso"))
+    o = mpert._evolve_plain(q, inp["k"], rnu, mpert.RSA_KTAU, iso=iso,
+                            remat_chunks=GRAD_CHUNKS)
+    g = torch.autograd.grad((o * inp["g_out"]).sum(), [q, rnu, iso])
+    out["boltzmann_bwd"] = dict(g=g, seconds=time.time() - t0)
+    print(f"K1 plain forward + backward {out['boltzmann_bwd']['seconds']:.1f} s",
+          flush=True)
+    torch.save(out, os.path.join(d, "refs.pt"))
+    return 0
+
+
+def reverse_ops(name, inp, live=None):
+    """Operations of a reverse kernel's function, counted as reverse mode
+    costs at least: the forward's arithmetic again (the stage and Newton
+    intermediates) and twice it for the adjoint, so 3 x OPS of the forward
+    on the same work: K4 on the nodes from the first live one, K1 on every
+    (chain, k, step) at 4 RHS a step."""
+    if name == "recfast_bwd":
+        return 3 * int(live) * OPS["recfast"]
+    C, S = inp["qtab"].shape[:2]
+    rhs, step = OPS["boltzmann"]
+    return 3 * C * S * inp["k"].shape[0] * (4 * rhs + step)
+
+
+def phase2_reverse(dev, results, d, job):
+    """The reverse kernels against autograd of their plain versions on the
+    inputs of `reverse_inputs` (the references from `plain_references`):
+    float64 within 1e-9 of each output's largest magnitude, float32 within
+    GRAD_F32_TOL; each pass timed (the forward with its stores, the
+    backward) at 8 chains, K1 also at the matter path's 6144 steps, and
+    bounded by `reverse_ops` and the bytes it reads and writes once."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models import recfast as mrec
+    inp = {k: v.to(dev) for k, v in torch.load(
+        os.path.join(d, "inputs.pt")).items()}
+    got = {}
+    # K4
+    for dt in (F64, F32):
+        zt, fHe = inp["zt"].to(dt), inp["fHe"].to(dt)
+        gxe, gtm = inp["g_xe"].to(dt), inp["g_tm"].to(dt)
+        mrec._recfast_launch(zt, fHe, True)
+        fwd_ms, (xe, tm, st) = timed(lambda: mrec._recfast_launch(zt, fHe, True),
+                                     reps=5)
+        mrec._recfast_bwd(zt, fHe, st, tm, gxe, gtm)
+        bwd_ms, gk = timed(lambda: mrec._recfast_bwd(zt, fHe, st, tm, gxe, gtm),
+                           reps=5)
+        # the same through autograd (the wrapper and _ThermoScan)
+        z_, f_ = zt.clone().requires_grad_(True), fHe.clone().requires_grad_(True)
+        xa, ta = mrec._scan_cuda(z_, f_)
+        ga = torch.autograd.grad((xa * gxe).sum() + (ta * gtm).sum(), [z_, f_])
+        require(all(bool(torch.equal(a, b)) for a, b in zip(ga, gk)),
+                f"K4 reverse through autograd = the reverse kernel ({dt})")
+        got["recfast_bwd", dt] = (gk, fwd_ms, bwd_ms, st, tm)
+    # K1 on the matter grid
+    chunk = -(-inp["qtab"].shape[1] // GRAD_CHUNKS)
+    for dt in (F64, F32):
+        q, k, rnu, iso, go = (inp[n].to(dt) for n in
+                              ("qtab", "k", "rnu", "iso", "g_out"))
+        run = lambda: mpert._evolve_launch(q, k, rnu, mpert.RSA_KTAU, False,
+                                           False, iso, chunk)
+        run()
+        fwd_ms, (o, ck) = timed(run, reps=3)
+        bwd = lambda: mpert._boltzmann_bwd(q, k, rnu, iso, ck, go,
+                                           mpert.RSA_KTAU, chunk)
+        bwd()
+        bwd_ms, gk = timed(bwd, reps=2)
+        q_ = q.clone().requires_grad_(True)
+        oa = mpert._evolve_cuda(q_, k, rnu, mpert.RSA_KTAU, iso=iso,
+                                remat_chunks=GRAD_CHUNKS)
+        (ga,) = torch.autograd.grad((oa * go).sum(), [q_])
+        require(bool(torch.equal(ga, gk[0])),
+                f"K1 reverse through autograd = the reverse kernel ({dt})")
+        got["boltzmann_bwd", dt] = (gk, fwd_ms, bwd_ms, ck, o)
+    # K1 at the matter path's 6144 steps, NCHAINS chains (what HMC pays)
+    S6, q6 = 6144, inp["qtab6144"]
+    ms6 = {}
+    for dt in (F32, F64):
+        q, k, rnu, iso = (x.to(dt) for x in (q6, inp["k"], inp["rnu"], inp["iso"]))
+        c6 = -(-q.shape[1] // GRAD_CHUNKS)
+        go = torch.randn(len(mpert.PLANES), *q.shape[:2], k.shape[0],
+                         dtype=dt, device=dev)
+        o, ck = mpert._evolve_launch(q, k, rnu, mpert.RSA_KTAU, False, False,
+                                     iso, c6)
+        f_ms, _ = timed(lambda: mpert._evolve_launch(
+            q, k, rnu, mpert.RSA_KTAU, False, False, iso, c6), reps=2)
+        b_ms, _ = timed(lambda: mpert._boltzmann_bwd(
+            q, k, rnu, iso, ck, go, mpert.RSA_KTAU, c6), reps=1)
+        ms6[dt] = (f_ms, b_ms)
+    refs = finish_job(job, d, "refs.pt", "the plain references")
+    for name, outs in (("recfast_bwd", ("grad_zt", "grad_fHe")),
+                       ("boltzmann_bwd", ("grad_qtab", "grad_rnu", "grad_iso"))):
+        ref = [t.to(dev) for t in refs[name]["g"]]
+        g64, fwd64, bwd64 = got[name, F64][:3]
+        g32, fwd32, bwd32 = got[name, F32][:3]
+        e32, a32 = [], []
+        for o, a, b, r in zip(outs, g64, g32, ref):
+            e = rel_err(a, r)
+            log(f"  {name} {o}: float64 err {e:.3e}, float32 err "
+                f"{rel_err(b, r):.3e} (of the largest |grad| {float(r.abs().max()):.4g})")
+            require(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+                    f"{name} {o} finite")
+            require(e <= 1e-9, f"{name} {o} float64 within 1e-9 of its plain version")
+            e32.append(rel_err(b, r))
+            a32.append(abs_err(b, r))
+        require(max(e32) <= GRAD_F32_TOL[name],
+                f"{name} float32 within {GRAD_F32_TOL[name]} of the float64 plain")
+        if name == "recfast_bwd":
+            live = int((inp["zt"].shape[2] - mrec.first_live_node(
+                inp["zt"].float())).sum())
+            ops = reverse_ops(name, inp, live)
+            st, tm = got[name, F32][3:]
+            moved = nbytes(inp["zt"].float(), inp["fHe"].float(), st, tm,
+                           inp["g_xe"].float(), inp["g_tm"].float(),
+                           *got[name, F32][0])
+        else:
+            ops = reverse_ops(name, inp)
+            ck = got[name, F32][3]
+            moved = nbytes(inp["qtab"].float(), inp["g_out"].float(), ck,
+                           *got[name, F32][0])
+        b = bound({"fp32": ops}, moved)
+        results[name] = dict(max_abs_err=max(a32), ms=bwd32,
+                             plain_ms=1e3 * refs[name]["seconds"],
+                             fwd_with_stores_ms=fwd32, ms_f64=bwd64,
+                             fwd_with_stores_ms_f64=fwd64,
+                             plain_where="host CPU, float64, forward + backward",
+                             **b)
+        log(f"  {name}: forward with stores {fwd32:.3f} ms, backward {bwd32:.3f} "
+            f"ms (float64 {fwd64:.3f} / {bwd64:.3f} ms); bound {b['bound_ms']:.4f} "
+            f"ms ({b['bound_by']}); plain forward + backward on the host CPU "
+            f"{refs[name]['seconds']:.1f} s")
+    results["boltzmann_bwd"]["ms_6144_steps"] = ms6[F32][1]
+    results["boltzmann_bwd"]["ms_6144_steps_f64"] = ms6[F64][1]
+    log(f"  boltzmann at {S6 - 1} steps x {NCHAINS} chains x {inp['k'].shape[0]} k "
+        f"(the matter path): forward with checkpoints {ms6[F32][0]:.2f} ms, "
+        f"backward {ms6[F32][1]:.2f} ms (float64 {ms6[F64][0]:.2f} / "
+        f"{ms6[F64][1]:.2f} ms)")
+
+
+def lss_paths(sets):
+    """The file paths of `lss_bbn_sets`, for a process of its own."""
+    return {k: sets[k] for k in ("d", "des", "abund", "dr12", "table_path")}
+
+
+def gradient_posterior(dev, paths, dtype=F64, nonlinear=True):
+    """Phase 12's posterior (the astro parameterization, use_cmb=False,
+    matter power; WL, SZ, D/H, Yp, DR12 with f_sigma8) on the sets at
+    `paths`, K1 checkpointed in GRAD_CHUNKS chunks for its gradient."""
+    from cosmomc_tpu_torch.models.bbn import load_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import AstroParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    par = AstroParameterization()
+    return CMBPosterior(par, par.default_space(),
+                        lss_bbn_likes(dev, paths, nonlinear),
+                        bbn_table=load_bbn_table(paths["table_path"]),
+                        use_cmb=False, matter_power=True,
+                        remat_chunks=GRAD_CHUNKS, device=dev, dtype=dtype)
+
+
+def gradient_points(post):
+    """Phase 14's points: the centre, and the centre + 0.3 proposal widths
+    along a seeded normal draw."""
+    c = np.array([p.center for p in post.space.varying])
+    w = np.array([p.propose_width for p in post.space.varying])
+    return np.stack([c, c + 0.3 * w * np.random.default_rng(14).standard_normal(
+        len(c))])
+
+
+@contextlib.contextmanager
+def reduced_matter_grid():
+    """CMBPosterior's matter transfers on CPU_GRAD_MATTER's grid at
+    CPU_GRAD_STEPS steps while in the context."""
+    from cosmomc_tpu_torch import pipeline
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    real = pipeline.compute_matter_transfers
+
+    def reduced(*a, **k):
+        return real(*a, **{**k, "k": mpw.matter_k_grid(**CPU_GRAD_MATTER),
+                           "n_step": CPU_GRAD_STEPS})
+    pipeline.compute_matter_transfers = reduced
+    try:
+        yield
+    finally:
+        pipeline.compute_matter_transfers = real
+
+
+def gradient_at_points(post):
+    """-logL and its gradient at phase 14's two points, float64 numpy."""
+    P = torch.as_tensor(gradient_points(post), dtype=F64,
+                        device=post.device).requires_grad_(True)
+    m, _ = post.logpost()(P)
+    (g,) = torch.autograd.grad(m.sum(), P)
+    return m.detach().double().cpu().numpy(), g.double().cpu().numpy()
+
+
+def cpu_gradient(d):
+    """--cpu-grad DIR: the float64 gradient of phase 14's -logL at its two
+    points on the host CPU (the plain versions under autograd) on the sets
+    named in DIR/sets.json, on the reduced matter grid; writes
+    DIR/cpu_grad.pt."""
+    torch.set_num_threads(JOB_THREADS["--cpu-grad"])
+    with open(os.path.join(d, "sets.json")) as f:
+        paths = json.load(f)
+    post = gradient_posterior(torch.device("cpu"), paths)
+    t0 = time.time()
+    with reduced_matter_grid():
+        m, g = gradient_at_points(post)
+    out = dict(mll=torch.as_tensor(m), g=torch.as_tensor(g),
+               seconds=time.time() - t0)
+    print(f"astro gradient on the CPU in {out['seconds']:.1f} s", flush=True)
+    torch.save(out, os.path.join(d, "cpu_grad.pt"))
+    return 0
+
+
+def hmc_ini(tmp, sets, extra):
+    """The LSS + BBN configuration as an ini (`python -m cosmomc_tpu_torch`'s
+    keys), float64, with `extra` keys."""
+    d = os.path.join(tmp, "gradient")
+    os.makedirs(d, exist_ok=True)
+    keys = {"parameterization": "astro", "use_WL": "T",
+            "wl_dataset[DES]": sets["des"], "use_SZ": "T",
+            "sz_data_dir": sets["d"],
+            "abundance_dataset[D]": sets["abund"][0],
+            "abundance_dataset[Yp]": sets["abund"][1],
+            "bao_dataset[DR12]": sets["dr12"], "bbn_table": sets["table_path"],
+            "use_float64": "T", "feedback": "0", **extra}
+    return write_ini(os.path.join(d, f"lss_{extra['action']}.ini"), keys), d
+
+
+def start_hmc(tmp, sets):
+    """Phase 14 (b), started before phase 13 so that the two overlap: `python
+    -m cosmomc_tpu_torch` on the LSS + BBN ini with sampling_method = hmc."""
+    ini, d = hmc_ini(tmp, sets, {"action": "0", "sampling_method": "hmc",
+                                 "file_root": os.path.join(tmp, "gradient",
+                                                           "chains", "hmc"),
+                                 "MPI_R_Stop": "0",
+                                 **{k: str(v) for k, v in GRAD_HMC.items()}})
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "cosmomc_tpu_torch", ini],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.t0 = time.time()
+    return proc
+
+
+def drive_gradient(dev, tmp, sets, cpu_job, jobdir, hmc_proc, fid):
+    """Phase 14: the gradient path, on phase 12's LSS + BBN configuration
+    (K4 and K1 forward, their reverse kernels backward):
+      a. torch.autograd.grad of the float64 -logL at the centre: exactly
+         one launch of each of the four kernels; against central finite
+         differences of -logL (step GRAD_FD_STEP x each parameter's
+         proposal width, all points one batch, WL on the linear P(k)) within
+         GRAD_FD_TOL of the largest component; on the reduced matter grid
+         CPU_GRAD_MATTER, against the same gradient on the host CPU (the
+         plain versions, `cpu_gradient`) within GRAD_CPU_TOL; the peak
+         memory a chain of one HMC gradient at NCHAINS chains;
+      b. `python -m cosmomc_tpu_torch` with sampling_method = hmc on the
+         configuration's ini (GRAD_HMC; started before phase 13): exit 0,
+         acceptance within GRAD_HMC_ACCEPT, chains MCSamples loads, finite;
+      c. action = 2 on the same ini (in-process, the minimizer cut to
+         GRAD_MIN_ITER L-BFGS-B iterations and GRAD_MIN_REFINE refine
+         steps, as phase 13 cuts RunConfig): the .minimum
+         at or below the centre's -logL, a symmetric positive definite
+         .hessian.covmat;
+      d. on the flagship, stage_slow and K3's wrapper still raise for a
+         gradient.
+    Returns the launches of one gradient evaluation and of (a)-(c)."""
+    from cosmomc_tpu_torch import driver, kernels
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+    from cosmomc_tpu_torch.models.lensing import lens_cls
+    from cosmomc_tpu_torch.sampling import minimize
+    from cosmomc_tpu_torch.utils.ini import IniFile
+
+    t_phase = time.time()
+    # a. the gradient at the centre, and at a point off it (at the centre
+    # the sets' own theory zeroes the WL and BAO parts of it)
+    post = gradient_posterior(dev, sets)
+    names = [p.name for p in post.space.varying]
+    pts = gradient_points(post)
+    n = pts.shape[1]
+    mll_at(post, pts)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    P = torch.as_tensor(pts, dtype=F64, device=dev).requires_grad_(True)
+    m, _ = post.logpost()(P)
+    (g,) = torch.autograd.grad(m.sum(), P)
+    torch.cuda.synchronize()
+    t_grad = time.time() - t0
+    one = dict(kernels.launches)
+    for k in KERNELS:
+        want = 1 if k in PATH_KERNELS["gradient"] else 0
+        require(one[k] == want, f"one gradient launches {k} {want} time(s)")
+    g = g.double().cpu().numpy()
+    require(bool(np.isfinite(g).all()), "the gradient is finite")
+    # the same two gradients on the host CPU's plain versions, both on the
+    # reduced matter grid
+    with reduced_matter_grid():
+        m_r, g_r = gradient_at_points(post)
+    ref = finish_job(cpu_job, jobdir, "cpu_grad.pt", "the CPU plain gradient")
+    g_cpu, m_cpu = ref["g"].numpy(), ref["mll"].numpy()
+    e_cpu = float(np.abs(g_r - g_cpu).max() / np.abs(g_cpu).max())
+    log(f"  on the reduced matter grid ({CPU_GRAD_MATTER}, {CPU_GRAD_STEPS} "
+        f"steps): -logL {m_r} on the card, {m_cpu} on the host CPU's "
+        f"plain versions ({ref['seconds']:.1f} s there); gradients max rel "
+        f"{e_cpu:.3e} (tol {GRAD_CPU_TOL})")
+    require(e_cpu <= GRAD_CPU_TOL, "the card's gradient equals the CPU's")
+    # finite differences (one batch): -logL is piecewise smooth (linear
+    # interpolation on grids that move with the parameters, the TCA/RSA
+    # switches and the IC release on the tau grid, recfast's selections),
+    # and autograd, as jax.grad, differentiates the piece it is on; steps
+    # of 1e-4 widths cross kinks (~1% off along omegam and H0 on an H100,
+    # PERF.md), steps of 1e-6 widths do not. Halofit's 48-step bisection for
+    # k_sigma has no derivative in either package (JAX matterpower.py:
+    # 265-269), so the check takes WL on the linear P(k); the nonlinear
+    # posterior's differences are logged beside it.
+    h = GRAD_FD_STEP * np.array([p.propose_width for p in post.space.varying])
+
+    def differences(p_):
+        out = mll_at(p_, np.concatenate([x + s * np.diag(h) for x in pts
+                                         for s in (1.0, -1.0)]))
+        return np.stack([(out[2 * i * n:(2 * i + 1) * n]
+                          - out[(2 * i + 1) * n:(2 * i + 2) * n]) / (2.0 * h)
+                         for i in range(len(pts))])
+    lin = gradient_posterior(dev, sets, nonlinear=False)
+    Pl = torch.as_tensor(pts, dtype=F64, device=dev).requires_grad_(True)
+    (gl,) = torch.autograd.grad(lin.logpost()(Pl)[0].sum(), Pl)
+    gl = gl.double().cpu().numpy()
+    t0 = time.time()
+    fd = differences(lin)
+    t_fd = time.time() - t0
+    e_fd = float((np.abs(fd - gl).max(1) / np.abs(gl).max(1)).max())
+    fd_nl = differences(post)
+    e_nl = np.abs(fd_nl - g).max(1) / np.abs(g).max(1)
+    log(f"phase 14: -logL {m.detach().cpu().numpy()} at the centre and off it; "
+        f"the gradient of both in {t_grad:.2f} s ({n} parameters); finite "
+        f"differences (step {GRAD_FD_STEP} x the proposal widths, "
+        f"{2 * n * len(pts)} points a batch, {t_fd:.2f} s) against the gradient "
+        f"with WL on the linear P(k): max |fd - grad| / max |grad| {e_fd:.3e} "
+        f"(tol {GRAD_FD_TOL}); on halofit's P(k) {e_nl} (halofit's k_sigma "
+        f"bisection carries no derivative, as in JAX)")
+    for j in range(len(pts)):
+        for i in np.argsort(-np.abs(fd[j] - gl[j]))[:4]:
+            log(f"  [{j}] d(-logL)/d{names[i]:14s} linear WL {gl[j, i]: .9e} "
+                f"fd {fd[j, i]: .9e}; halofit {g[j, i]: .9e} fd {fd_nl[j, i]: .9e}")
+    require(e_fd <= GRAD_FD_TOL, "the gradient agrees with finite differences")
+    # the peak memory of one HMC gradient, NCHAINS chains
+    P8 = torch.as_tensor(post.start_positions(np.random.default_rng(0), NCHAINS),
+                         dtype=F64, device=dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    m8, _ = post.logpost()(P8)
+    torch.autograd.grad(m8.sum(), P8)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  one HMC gradient at {NCHAINS} chains: peak memory "
+        f"{peak / 2 ** 20:.1f} MiB ({peak / 2 ** 20 / NCHAINS:.1f} MiB a chain, "
+        f"float64, {GRAD_CHUNKS} K1 chunks)")
+
+    # b. HMC through the CLI
+    out, err = hmc_proc.communicate(timeout=JOB_TIMEOUT)
+    t_hmc = time.time() - hmc_proc.t0
+    for line in (out + err).strip().splitlines()[-8:]:
+        log(f"  | {line}")
+    require(hmc_proc.returncode == 0, "the HMC CLI exits 0")
+    acc = float(out.split("accept =")[1].split(",")[0])
+    root = os.path.join(tmp, "gradient", "chains", "hmc")
+    hmc = MCSamples.load(root, ignore_frac=0.0)
+    lo, hi = GRAD_HMC_ACCEPT
+    log(f"  HMC (CLI, {GRAD_HMC}): acceptance {acc:.3f}, {hmc.samples.shape[0]} "
+        f"rows, {t_hmc:.1f} s from start (beside phase 13)")
+    require(lo <= acc <= hi, f"HMC acceptance within {GRAD_HMC_ACCEPT}")
+    require(hmc.samples.shape[0] > 0 and bool(np.isfinite(hmc.samples).all()),
+            "MCSamples loads finite HMC chains")
+
+    # c. action 2, in-process, the refine cut short
+    ini, d = hmc_ini(tmp, sets, {"action": "2", "file_root": os.path.join(
+        tmp, "gradient", "chains", "min")})
+    real = minimize.find_best_fit
+    kernels.reset_launches()
+    t0 = time.time()
+    try:
+        minimize.find_best_fit = lambda *a, **k: real(
+            *a, **{**k, "refine_steps": GRAD_MIN_REFINE, "refine_chains": 8,
+                   "maxiter": GRAD_MIN_ITER})
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = driver.run_ini(ini)
+    finally:
+        minimize.find_best_fit = real
+    t_min = time.time() - t0
+    launches = dict(kernels.launches)
+    root2 = os.path.join(tmp, "gradient", "chains", "min")
+    with open(root2 + ".minimum") as f:
+        mll_min = float(f.read().split("-log(Like) =")[1].split()[0])
+    cov = np.loadtxt(root2 + ".hessian.covmat")
+    ev = np.linalg.eigvalsh(0.5 * (cov + cov.T))
+    mll_c = float(mll_at(driver.build_posterior(IniFile(ini)), pts[:1])[0])
+    log(f"  action 2: -logL {mll_min:.6f} (centre {mll_c:.6f}) in {t_min:.1f} s; "
+        f"Hessian covmat eigenvalues {ev.min():.3e} .. {ev.max():.3e}; launches "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    require(rc == 0 and mll_min <= mll_c + 1e-9, ".minimum at or below the centre")
+    require(np.allclose(cov, cov.T, rtol=1e-10, atol=0.0) and bool((ev > 0).all()),
+            "the Hessian covmat is symmetric positive definite")
+    for k in KERNELS:
+        require((launches[k] > 0) == (k in PATH_KERNELS["gradient"]),
+                f"action 2 launches {k} only if on the gradient path")
+
+    # d. the flagship still refuses a gradient
+    fpost = fid["post"]
+    Pf = torch.as_tensor(bestfit_vector(fpost)[None], dtype=fpost.dtype,
+                         device=dev).requires_grad_(True)
+    kernels.reset_launches()
+    try:
+        fpost.stage_slow(fpost.embed_full(Pf))
+        raised = False
+    except NotImplementedError:
+        raised = True
+    require(raised and not any(kernels.launches.values()),
+            "the flagship's stage_slow raises for a gradient before any launch")
+    ls = torch.arange(2, 81, dtype=F64, device=dev)
+    spectra = torch.ones(4, 1, 79, dtype=F64, device=dev, requires_grad=True)
+    try:
+        lens_cls(ls, *spectra, lmax_lensed=60)
+        raised = False
+    except NotImplementedError:
+        raised = True
+    require(raised and not any(kernels.launches.values()),
+            "K3's wrapper raises for a gradient before any launch")
+    log(f"phase 14 took {time.time() - t_phase:.1f} s on {smi_line()}")
+    return launches, one
+
+
 def kernel_of(line):
     """The kernel and template arguments of a ptxas "Compiling entry
     function" line: _ZN<len><namespace><len><fn>I{f,d}[Li<NPT>E][Lb<0|1>E
@@ -2938,7 +3580,84 @@ def kernel_of(line):
             + "".join(f" {k}={f}" for k, f in zip(("NU", "DE"), flags)))
 
 
+def run_phases(dev, tmp, results, launches, segment, jobs):
+    """Phases 2-14 in `tmp`; the host-CPU jobs and the HMC CLI they start go
+    to `jobs` (main stops any still running)."""
+    t0 = time.time()
+    refdir, graddir = os.path.join(tmp, "reverse"), os.path.join(tmp, "grad")
+    os.makedirs(refdir)
+    os.makedirs(graddir)
+    reverse_inputs(dev, refdir)
+    jobs.append(start_job("--plain-ref", refdir))
+    sets = lss_bbn_sets(dev, tmp)
+    with open(os.path.join(graddir, "sets.json"), "w") as f:
+        json.dump(lss_paths(sets), f)
+    jobs.append(start_job("--cpu-grad", graddir))
+    log(f"the host-CPU jobs started in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase2(dev, results)
+    phase2_matter(dev, results)
+    phase2_variants(dev, results)
+    phase2_reverse(dev, results, refdir, jobs[0])
+    log(f"phase 2 done in {time.time() - t0:.1f} s")
+    for phase, label, cfg in (
+            (3, "flagship", {}),
+            (4, "lcdm_r", dict(compute_tensors=True,
+                               los_method="recurrence"))):
+        t0 = time.time()
+        launches[label], segment[label], fid = drive_path(dev, tmp, label,
+                                                          cfg)
+        if label == "flagship":
+            flagship_fid = fid
+        log(f"phase {phase} done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["runner"], segment["runner"] = drive_runner(dev, tmp,
+                                                         flagship_fid)
+    log(f"phase 5 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["background"], bg_sets = drive_background(dev, tmp)
+    segment["background"] = dict(launches["background"])
+    log(f"phase 6 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["flagship_mp"], segment["flagship_mp"] = drive_matter_power(
+        dev, tmp, flagship_fid)
+    log(f"phase 7 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["astro"], segment["astro"] = drive_astro(dev, tmp)
+    log(f"phase 8 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    sigma8_mnu_anchors(dev)
+    launches["mnu"], segment["mnu"] = drive_extended(dev, tmp, "mnu")
+    log(f"phase 9 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["w0wa"], segment["w0wa"] = drive_extended(dev, tmp, "w0wa")
+    iso_response(dev)
+    log(f"phase 10 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["spt"], segment["spt"] = drive_spt(dev, tmp, flagship_fid)
+    log(f"phase 11 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["lss_bbn"], segment["lss_bbn"] = drive_lss_bbn(dev, tmp, sets)
+    action4_table(flagship_fid["post"])
+    log(f"phase 12 done in {time.time() - t0:.1f} s")
+    hmc_proc = start_hmc(tmp, sets)
+    jobs.append(hmc_proc)
+    t0 = time.time()
+    launches["driver"], segment["driver"] = drive_driver(
+        dev, tmp, flagship_fid, bg_sets)
+    log(f"phase 13 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["gradient"], segment["gradient"] = drive_gradient(
+        dev, tmp, sets, jobs[1], graddir, hmc_proc, flagship_fid)
+    log(f"phase 14 done in {time.time() - t0:.1f} s")
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] in ("--plain-ref", "--cpu-grad"):
+        # a process of its own on the host CPU (start_job)
+        sys.path.insert(0, HERE)
+        return {"--plain-ref": plain_references,
+                "--cpu-grad": cpu_gradient}[sys.argv[1]](sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)
@@ -2974,57 +3693,16 @@ def main() -> int:
                 log(f"  ptxas {name} [{kind}]: {line.split('info    :')[-1].strip()}")
 
     results = {}
-    t0 = time.time()
-    phase2(dev, results)
-    phase2_matter(dev, results)
-    phase2_variants(dev, results)
-    log(f"phase 2 done in {time.time() - t0:.1f} s")
     launches, segment = {}, {}
+    jobs = []
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE)) as tmp:
-        for phase, label, cfg in (
-                (3, "flagship", {}),
-                (4, "lcdm_r", dict(compute_tensors=True,
-                                   los_method="recurrence"))):
-            t0 = time.time()
-            launches[label], segment[label], fid = drive_path(dev, tmp, label,
-                                                              cfg)
-            if label == "flagship":
-                flagship_fid = fid
-            log(f"phase {phase} done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["runner"], segment["runner"] = drive_runner(dev, tmp,
-                                                             flagship_fid)
-        log(f"phase 5 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["background"], bg_sets = drive_background(dev, tmp)
-        segment["background"] = dict(launches["background"])
-        log(f"phase 6 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["flagship_mp"], segment["flagship_mp"] = drive_matter_power(
-            dev, tmp, flagship_fid)
-        log(f"phase 7 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["astro"], segment["astro"] = drive_astro(dev, tmp)
-        log(f"phase 8 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        sigma8_mnu_anchors(dev)
-        launches["mnu"], segment["mnu"] = drive_extended(dev, tmp, "mnu")
-        log(f"phase 9 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["w0wa"], segment["w0wa"] = drive_extended(dev, tmp, "w0wa")
-        iso_response(dev)
-        log(f"phase 10 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["spt"], segment["spt"] = drive_spt(dev, tmp, flagship_fid)
-        log(f"phase 11 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["lss_bbn"], segment["lss_bbn"] = drive_lss_bbn(dev, tmp)
-        action4_table(flagship_fid["post"])
-        log(f"phase 12 done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        launches["driver"], segment["driver"] = drive_driver(
-            dev, tmp, flagship_fid, bg_sets)
-        log(f"phase 13 done in {time.time() - t0:.1f} s")
+        try:
+            run_phases(dev, tmp, results, launches, segment, jobs)
+        finally:
+            for proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
     rows = []
     for n, (src, rep) in KERNELS.items():

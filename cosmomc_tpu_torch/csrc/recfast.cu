@@ -47,6 +47,28 @@
 // values with the same constants.
 //
 // The arithmetic otherwise mirrors models/recfast.py:_scan_plain.
+//
+// With a state buffer `st` (C, 2, N) the walk also stores x_H and x_He at
+// every node (T_M is the tm output itself), for the reverse kernel below.
+//
+// The reverse pass, recfast_bwd_kernel: the gradient of the unrolled map,
+// as jax.grad of the JAX scan gives it (the two Newton iterations and the
+// derivative of their closed-form Newton derivatives, the selections, the
+// clips with jnp.clip's half gradient at a tie). One warp a chain walks the
+// nodes back from N - 1 to the first live node. A step from node i to i + 1
+// is a function of 28 inputs: the state (x_H, x_He, T_M) at i, the 12
+// table rows at i and at i + 1, and fHe. Lane d evaluates the step once in
+// dual numbers (value, derivative) seeded along input d: a forward-mode
+// column of the step's Jacobian, through the same operations as the plain
+// version's step (divides and all, not the forward kernel's reciprocals).
+// Its dot with the adjoint of the step's outputs (the carried state and the
+// cotangents of x_e and T_M at i + 1) is the adjoint of input d: lanes 0-2
+// give the state's adjoint at i, passed to every lane by shuffles; lanes
+// 3-14 and 15-26 the table's at i and i + 1; lane 27 fHe's. The primal state
+// comes from `st` and tm, so nothing is recomputed along the chain. Nodes
+// before the first live one take the table's state: their adjoints go to
+// the table there, one node a lane. Bound: the 7999-step chain again, now
+// of ~3x a plain step's operations (the dual arithmetic), one step a warp.
 #include "common.cuh"
 
 namespace {
@@ -275,7 +297,7 @@ template <typename T>
 __global__ void __launch_bounds__(32)
 recfast_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
                const T* __restrict__ kc, T* __restrict__ xe_out,
-               T* __restrict__ tm_out, int C, int N) {
+               T* __restrict__ tm_out, T* __restrict__ st, int C, int N) {
   __shared__ T tile[2][N_ROWS][TILE];
   const int ch = blockIdx.x, lane = threadIdx.x;
   if (ch >= C) return;
@@ -286,6 +308,7 @@ recfast_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
   const T* Z = zt + (size_t)ch * N_ZT * N;
   T* xe_row = xe_out + (size_t)ch * N;
   T* tm_row = tm_out + (size_t)ch * N;
+  T* st_row = st == nullptr ? nullptr : st + (size_t)ch * 2 * N;
   const T fhe = fhe_in[ch];
 
   // the prefix: nodes before the first live one take the table's state
@@ -307,6 +330,10 @@ recfast_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
       xe_row[j] = j == 0 ? T(1) + T(2) * fhe
                          : (z > T(5500) ? row(Z, N, ZT_XEEARLY, j) : xH + fhe * xHe);
       tm_row[j] = row(Z, N, ZT_TMHOT, j);
+      if (st_row != nullptr) {
+        st_row[j] = j == 0 ? T(1) : xH;
+        st_row[N + j] = j == 0 ? T(1) : xHe;
+      }
     }
   }
   if (jlive == N) return;
@@ -325,7 +352,7 @@ recfast_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
                 row(Z, N, ZT_NHE, i0), T(1) / row(Z, N, ZT_HZ1, i0)};
   Coeffs<T> q0 = {};      // the coefficients at (node i, tm), when held
   bool held = false;
-  T my_xe = T(0), my_tm = T(0);
+  T my_xe = T(0), my_tm = T(0), my_xH = T(0), my_xHe = T(0);
 
   const int t_first = jlive / TILE, t_last = (N - 1) / TILE;
   stage_tile(tile[t_first & 1], Z, N, t_first, lane);
@@ -372,6 +399,8 @@ recfast_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
       if (lane == s) {
         my_xe = xe;
         my_tm = tm;
+        my_xH = xH;
+        my_xHe = xHe;
       }
       // the coefficients at (j, tm_new) are step j + 1's at (i, tm)
       held = need_he && !hot;
@@ -386,17 +415,329 @@ recfast_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
     if (node >= j_lo && node < j_hi) {
       xe_row[node] = my_xe;
       tm_row[node] = my_tm;
+      if (st_row != nullptr) {
+        st_row[node] = my_xH;
+        st_row[N + node] = my_xHe;
+      }
     }
     __syncwarp();   // all lanes are done with this buffer before it is refilled
   }
 }
 
+
+// ---- the reverse pass ------------------------------------------------------
+
+// a value and its derivative along one input direction
+template <typename T>
+struct Dual {
+  T v, d;
+};
+template <typename T>
+__device__ __forceinline__ Dual<T> cst(T v) { return {v, T(0)}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(Dual<T> a, Dual<T> b) { return {a.v + b.v, a.d + b.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a, Dual<T> b) { return {a.v - b.v, a.d - b.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a) { return {-a.v, -a.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(Dual<T> a, Dual<T> b) {
+  return {a.v * b.v, a.d * b.v + a.v * b.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, Dual<T> b) {
+  const T q = a.v / b.v;
+  return {q, (a.d - q * b.d) / b.v};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(Dual<T> a, T b) { return {a.v + b, a.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator+(T a, Dual<T> b) { return {a + b.v, b.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(Dual<T> a, T b) { return {a.v - b, a.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator-(T a, Dual<T> b) { return {a - b.v, -b.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(Dual<T> a, T b) { return {a.v * b, a.d * b}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator*(T a, Dual<T> b) { return {a * b.v, a * b.d}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(Dual<T> a, T b) { return {a.v / b, a.d / b}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> operator/(T a, Dual<T> b) {
+  const T q = a / b.v;
+  return {q, -q * b.d / b.v};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dexp(Dual<T> a) {
+  const T e = xexp(a.v);
+  return {e, e * a.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dlog(Dual<T> a) { return {xlog(a.v), a.d / a.v}; }
+template <typename T>
+__device__ __forceinline__ Dual<T> dsqrt(Dual<T> a) {
+  const T r = xsqrt(a.v);
+  return {r, a.d / (T(2) * r)};
+}
+// x ** e for a constant e: d = e x^(e-1) dx, as jax differentiates pow
+template <typename T>
+__device__ __forceinline__ Dual<T> dpow(Dual<T> a, T e) {
+  return {xpow(a.v, e), e * xpow(a.v, e - T(1)) * a.d};
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> sel(bool c, Dual<T> a, Dual<T> b) { return c ? a : b; }
+// jnp.minimum(a, b) against a constant: half the derivative at a tie
+template <typename T>
+__device__ __forceinline__ Dual<T> dmin(Dual<T> a, T b) {
+  return a.v < b ? a : (a.v == b ? Dual<T>{b, T(0.5) * a.d} : cst(b));
+}
+template <typename T>
+__device__ __forceinline__ Dual<T> dmax(Dual<T> a, T b) {
+  return a.v > b ? a : (a.v == b ? Dual<T>{b, T(0.5) * a.d} : cst(b));
+}
+// jnp.clip(x, 0, 1) = min(max(x, 0), 1) (models/recfast.py:_clip)
+template <typename T>
+__device__ __forceinline__ Dual<T> dclip01(Dual<T> x) { return dmin(dmax(x, T(0)), T(1)); }
+template <typename T>
+__device__ __forceinline__ T clip01_slope(T x) {
+  const T m = x > T(0) ? T(1) : (x == T(0) ? T(0.5) : T(0));
+  const T mx = xmax(x, T(0));
+  return m * (mx < T(1) ? T(1) : (mx == T(1) ? T(0.5) : T(0)));
+}
+
+// models/recfast.py:_rate_coeffs at T_M = t, in the plain version's order
+template <typename T>
+struct DCoeffs {
+  Dual<T> he_down, he_up, he_ecl, he_bt, h_down, h_up, h_ecl;
+};
+
+template <typename T>
+__device__ __forceinline__ DCoeffs<T> dcoeffs(Dual<T> t, const Consts<T>& c) {
+  const Dual<T> sq0 = dsqrt(t / c.k[K_T0_VF]), sq1 = dsqrt(t / c.k[K_T1_VF]);
+  const Dual<T> he_down = c.k[K_AHE] / (sq0 * dpow(T(1) + sq0, c.k[K_E0_VF]) *
+                                        dpow(T(1) + sq1, c.k[K_E1_VF]));
+  const Dual<T> tt = t / T(1e4);
+  const Dual<T> h_down = c.k[K_AH] * dpow(tt, c.k[K_B_PPB]) /
+                         (T(1) + c.k[K_C_PPB] * dpow(tt, c.k[K_D_PPB]));
+  const Dual<T> p15 = dpow(c.k[K_CR] * t, T(1.5));
+  DCoeffs<T> r;
+  r.he_down = he_down;
+  r.he_up = T(4) * he_down * p15 * dexp(-c.k[K_CDB_HE] / t);
+  r.he_ecl = dexp(-c.k[K_CL_HE] / t);
+  r.he_bt = -c.k[K_BFACT] / t;
+  r.h_down = h_down;
+  r.h_up = h_down * p15 * dexp(-c.k[K_CDB] / t);
+  r.h_ecl = dexp(-c.k[K_CL] / t);
+  return r;
+}
+
+// _dxhe: the He singlet rate (xe = x_H + fHe xx) and its derivative in xx
+template <typename T>
+__device__ __forceinline__ void ddxhe(Dual<T> xx, Dual<T> xe, Dual<T> fhe, const DCoeffs<T>& q,
+                                      const Dual<T>* r, const Consts<T>& c, Dual<T>* v,
+                                      Dual<T>* d) {
+  const Dual<T> nhe = r[ZT_NHE], n = r[ZT_N], hz1 = r[ZT_HZ1];
+  Dual<T> nhe1 = (T(1) - xx) * nhe;
+  const bool live = nhe1.v > T(1e-30);
+  nhe1 = sel(live, nhe1, cst(T(1e-30)));
+  const Dual<T> arg = q.he_bt - dlog(r[ZT_KHE] * nhe1);
+  const Dual<T> u = dexp(dmin(arg, T(80)));
+  const Dual<T> du = sel(live && arg.v < T(80), u * nhe / nhe1, cst(T(0)));
+  const Dual<T> den = u + c.k[K_LAMBDA_HE] + q.he_up;
+  const Dual<T> crate = (u + c.k[K_LAMBDA_HE]) / den;
+  const Dual<T> dcrate = du * q.he_up / (den * den);
+  const Dual<T> qq = xe * xx * n * q.he_down - q.he_up * (T(1) - xx) * q.he_ecl;
+  const Dual<T> dq = (fhe * xx + xe) * n * q.he_down + q.he_up * q.he_ecl;
+  *v = qq * crate / hz1;
+  *d = (dq * crate + qq * dcrate) / hz1;
+}
+
+// _dxh: the Peebles rate (xe = xx + fHe x_He) and its derivative in xx
+template <typename T>
+__device__ __forceinline__ void ddxh(Dual<T> xx, Dual<T> xe, const DCoeffs<T>& q,
+                                     const Dual<T>* r, const Consts<T>& c, Dual<T>* v,
+                                     Dual<T>* d) {
+  const Dual<T> n = r[ZT_N], K = r[ZT_KH], hz1 = r[ZT_HZ1];
+  Dual<T> n1s = (T(1) - xx) * n;
+  const bool live = n1s.v > T(1e-30);
+  n1s = sel(live, n1s, cst(T(1e-30)));
+  const Dual<T> den = T(1) + K * (c.k[K_LAMBDA_H] + q.h_up) * n1s;
+  const Dual<T> crate = (T(1) + K * c.k[K_LAMBDA_H] * n1s) / den;
+  const Dual<T> dcrate = sel(live, n * K * q.h_up / (den * den), cst(T(0)));
+  const Dual<T> qq = xe * xx * n * q.h_down - q.h_up * (T(1) - xx) * q.h_ecl;
+  const Dual<T> dq = (xx + xe) * n * q.h_down + q.h_up * q.h_ecl;
+  *v = qq * crate / hz1;
+  *d = (dq * crate + qq * dcrate) / hz1;
+}
+
+// _cn's Newton update from xp
+template <typename T>
+__device__ __forceinline__ Dual<T> dnewton(Dual<T> xp, Dual<T> x, Dual<T> f_prev, Dual<T> dz,
+                                           Dual<T> v, Dual<T> d) {
+  const Dual<T> g = xp - x - T(0.5) * dz * (f_prev + v);
+  const Dual<T> gp = T(1) - T(0.5) * dz * d;
+  return xp - g / sel(xabs(gp.v) > T(1e-12), gp, cst(T(1)));
+}
+
+// One step of models/recfast.py:_scan_plain from node i (state xH, xHe, tm,
+// row r0) to node i + 1 (row r1): the new state and x_e at i + 1
+template <typename T>
+__device__ __forceinline__ void dual_step(Dual<T> xH, Dual<T> xHe, Dual<T> tm, const Dual<T>* r0,
+                                          const Dual<T>* r1, Dual<T> fhe, const Consts<T>& c,
+                                          Dual<T>* xH_n, Dual<T>* xHe_n, Dual<T>* tm_n,
+                                          Dual<T>* xe_n) {
+  const Dual<T> z = r1[ZT_Z];
+  const Dual<T> dz = z - r0[ZT_Z];
+  const Dual<T> xe_tot = xH + fhe * xHe;
+  // _tm_step
+  const Dual<T> xfac = xe_tot / (T(1) + xe_tot + fhe);
+  const Dual<T> A0 = r0[ZT_CT] * xfac, A1 = r1[ZT_CT] * xfac;
+  const Dual<T> tr1 = r1[ZT_TR], zp1 = T(1) + z;
+  const Dual<T> fT = A0 * (tm - r0[ZT_TR]) + T(2) * tm / (T(1) + r0[ZT_Z]);
+  Dual<T> tm_new = tm + dz * fT;
+#pragma unroll
+  for (int it = 0; it < 2; ++it)
+    tm_new = dnewton(tm_new, tm, fT, dz, A1 * (tm_new - tr1) + T(2) * tm_new / zp1,
+                     A1 + T(2) / zp1);
+  const DCoeffs<T> c0 = dcoeffs(tm, c), c1 = dcoeffs(tm_new, c);
+  Dual<T> v, d, f_he, f_h;
+  // He singlet channel, x_H frozen
+  ddxhe(xHe, xe_tot, fhe, c0, r0, c, &f_he, &d);
+  Dual<T> xHe_ode = xHe + dz * f_he;
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    ddxhe(xHe_ode, xH + fhe * xHe_ode, fhe, c1, r1, c, &v, &d);
+    xHe_ode = dnewton(xHe_ode, xHe, f_he, dz, v, d);
+  }
+  // H with the new x_He
+  ddxh(xH, xe_tot, c0, r0, c, &f_h, &d);
+  Dual<T> xH_ode = xH + dz * f_h;
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    ddxh(xH_ode, xH_ode + fhe * xHe_ode, c1, r1, c, &v, &d);
+    xH_ode = dnewton(xH_ode, xH, f_h, dz, v, d);
+  }
+  // regime selection
+  const Dual<T> xhe_s = r1[ZT_XHESAHA], xh_s = r1[ZT_XHSAHA];
+  *xHe_n = dclip01(sel(xhe_s.v > T(0.995), xhe_s, xHe_ode));
+  *xH_n = dclip01(sel(xh_s.v > T(0.985), xh_s, xH_ode));
+  *xe_n = sel(z.v > T(5500), r1[ZT_XEEARLY], *xH_n + fhe * *xHe_n);
+  *tm_n = sel(z.v > T(3000), r1[ZT_TMHOT], tm_new);
+}
+
+// the seed of lane `dir` on input `me`
+template <typename T>
+__device__ __forceinline__ Dual<T> seed(T v, int dir, int me) {
+  return {v, dir == me ? T(1) : T(0)};
+}
+
+constexpr int DIR_XH = 0, DIR_XHE = 1, DIR_TM = 2, DIR_R0 = 3, DIR_R1 = DIR_R0 + N_ZT,
+              DIR_FHE = DIR_R1 + N_ZT;
+static_assert(DIR_FHE < 32, "one input direction a lane");
+
+template <typename T>
+__global__ void __launch_bounds__(32)
+recfast_bwd_kernel(const T* __restrict__ zt, const T* __restrict__ fhe_in,
+                   const T* __restrict__ kc, const T* __restrict__ st,
+                   const T* __restrict__ tm_in, const T* __restrict__ gxe,
+                   const T* __restrict__ gtm, T* __restrict__ gzt, T* __restrict__ gfhe,
+                   int C, int N) {
+  const int ch = blockIdx.x, lane = threadIdx.x;
+  if (ch >= C) return;
+  Consts<T> c;
+#pragma unroll
+  for (int i = 0; i < N_K; ++i) c.k[i] = kc[i];
+  const T* Z = zt + (size_t)ch * N_ZT * N;
+  T* G = gzt + (size_t)ch * N_ZT * N;
+  const T* sH = st + (size_t)ch * 2 * N;
+  const T* sHe = sH + N;
+  const T* tmr = tm_in + (size_t)ch * N;
+  const T* gx = gxe + (size_t)ch * N;
+  const T* gt = gtm + (size_t)ch * N;
+  const T fhe = fhe_in[ch];
+
+  // the first live node, as the forward kernel finds it
+  int jlive = N;
+  for (int j0 = 0; j0 < N && jlive == N; j0 += TILE) {
+    const int j = j0 + lane;
+    bool live = false;
+    if (j < N)
+      live = j > 0 && !(row(Z, N, ZT_Z, j) > T(3000) && row(Z, N, ZT_XHESAHA, j) > T(0.995) &&
+                        row(Z, N, ZT_XHSAHA, j) > T(0.985));
+    const unsigned m = __ballot_sync(FULL_WARP, live);
+    if (m) jlive = j0 + __ffs(m) - 1;
+  }
+
+  // the walk back: (a0, a1, a2) the adjoint of (x_H, x_He, T_M) at node i + 1
+  T a0 = T(0), a1 = T(0), a2 = T(0), pend = T(0), gf = T(0);
+  const int i0 = jlive - 1;
+  for (int i = N - 2; i >= i0 && jlive < N; --i) {
+    const int j = i + 1;
+    Dual<T> r0[N_ZT], r1[N_ZT];
+#pragma unroll
+    for (int f = 0; f < N_ZT; ++f) {
+      r0[f] = seed(row(Z, N, f, i), lane, DIR_R0 + f);
+      r1[f] = seed(row(Z, N, f, j), lane, DIR_R1 + f);
+    }
+    Dual<T> oH, oHe, oT, oX;
+    dual_step(seed(sH[i], lane, DIR_XH), seed(sHe[i], lane, DIR_XHE), seed(tmr[i], lane, DIR_TM),
+              r0, r1, seed(fhe, lane, DIR_FHE), c, &oH, &oHe, &oT, &oX);
+    const T contrib = a0 * oH.d + a1 * oHe.d + (a2 + gt[j]) * oT.d + gx[j] * oX.d;
+    a0 = __shfl_sync(FULL_WARP, contrib, DIR_XH);
+    a1 = __shfl_sync(FULL_WARP, contrib, DIR_XHE);
+    a2 = __shfl_sync(FULL_WARP, contrib, DIR_TM);
+    // node j: its row's part as the step's r1 (from lane DIR_R1 + f) and as
+    // the next step's r0 (held in pend since the last iteration)
+    const T as_r1 = __shfl_down_sync(FULL_WARP, contrib, DIR_R1 - DIR_R0);
+    if (lane >= DIR_R0 && lane < DIR_R1) G[(size_t)(lane - DIR_R0) * N + j] += pend + as_r1;
+    pend = contrib;
+    if (lane == DIR_FHE) gf += contrib;
+  }
+  if (jlive < N && lane >= DIR_R0 && lane < DIR_R1) G[(size_t)(lane - DIR_R0) * N + i0] += pend;
+  __syncwarp();
+
+  // the prefix: nodes before the first live one hold the table's state;
+  // node i0 also carries the walk's adjoint of the state it started from
+  for (int j = lane; j < min(jlive, N); j += 32) {
+    const T gxj = gx[j];
+    T gtmhot = gt[j] + (j == i0 ? a2 : T(0));
+    if (j == 0) {
+      gf += T(2) * gxj;
+    } else {
+      const T xhs = row(Z, N, ZT_XHSAHA, j), xhes = row(Z, N, ZT_XHESAHA, j);
+      const bool early = row(Z, N, ZT_Z, j) > T(5500);
+      const T gH = (early ? T(0) : gxj) + (j == i0 ? a0 : T(0));
+      const T gHe = (early ? T(0) : gxj * fhe) + (j == i0 ? a1 : T(0));
+      if (early) G[(size_t)ZT_XEEARLY * N + j] += gxj;
+      else gf += gxj * xclamp(xhes, T(0), T(1));
+      G[(size_t)ZT_XHSAHA * N + j] += gH * clip01_slope(xhs);
+      G[(size_t)ZT_XHESAHA * N + j] += gHe * clip01_slope(xhes);
+    }
+    G[(size_t)ZT_TMHOT * N + j] += gtmhot;
+  }
+  // fHe: a fixed-order sum over the lanes
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) gf += __shfl_xor_sync(FULL_WARP, gf, o);
+  if (lane == 0) gfhe[ch] = gf;
+}
+
 template <typename T>
 int launch(const void* zt, const void* fhe, const void* kc,
-           void* xe, void* tm, int C, int N, void* stream) {
+           void* xe, void* tm, void* st, int C, int N, void* stream) {
   recfast_kernel<T><<<C, 32, 0, (cudaStream_t)stream>>>(
-      (const T*)zt, (const T*)fhe, (const T*)kc, (T*)xe, (T*)tm,
+      (const T*)zt, (const T*)fhe, (const T*)kc, (T*)xe, (T*)tm, (T*)st,
       C, N);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* zt, const void* fhe, const void* kc, const void* st,
+               const void* tm, const void* gxe, const void* gtm, void* gzt, void* gfhe,
+               int C, int N, void* stream) {
+  recfast_bwd_kernel<T><<<C, 32, 0, (cudaStream_t)stream>>>(
+      (const T*)zt, (const T*)fhe, (const T*)kc, (const T*)st, (const T*)tm,
+      (const T*)gxe, (const T*)gtm, (T*)gzt, (T*)gfhe, C, N);
   return (int)cudaGetLastError();
 }
 
@@ -404,10 +745,34 @@ int launch(const void* zt, const void* fhe, const void* kc,
 
 extern "C" int recfast_f32(const void* zt, const void* fhe, const void* kc, void* xe, void* tm, int C, int N,
                            void* stream) {
-  return launch<float>(zt, fhe, kc, xe, tm, C, N, stream);
+  return launch<float>(zt, fhe, kc, xe, tm, nullptr, C, N, stream);
 }
 
 extern "C" int recfast_f64(const void* zt, const void* fhe, const void* kc, void* xe, void* tm, int C, int N,
                            void* stream) {
-  return launch<double>(zt, fhe, kc, xe, tm, C, N, stream);
+  return launch<double>(zt, fhe, kc, xe, tm, nullptr, C, N, stream);
+}
+
+// the forward kernel that also stores x_H, x_He at every node: st (C, 2, N)
+extern "C" int recfast_st_f32(const void* zt, const void* fhe, const void* kc, void* xe, void* tm,
+                              void* st, int C, int N, void* stream) {
+  return launch<float>(zt, fhe, kc, xe, tm, st, C, N, stream);
+}
+
+extern "C" int recfast_st_f64(const void* zt, const void* fhe, const void* kc, void* xe, void* tm,
+                              void* st, int C, int N, void* stream) {
+  return launch<double>(zt, fhe, kc, xe, tm, st, C, N, stream);
+}
+
+// the reverse kernel: gzt (C, 12, N) zeroed by the caller, gfhe (C,)
+extern "C" int recfast_bwd_f32(const void* zt, const void* fhe, const void* kc, const void* st,
+                               const void* tm, const void* gxe, const void* gtm, void* gzt,
+                               void* gfhe, int C, int N, void* stream) {
+  return launch_bwd<float>(zt, fhe, kc, st, tm, gxe, gtm, gzt, gfhe, C, N, stream);
+}
+
+extern "C" int recfast_bwd_f64(const void* zt, const void* fhe, const void* kc, const void* st,
+                               const void* tm, const void* gxe, const void* gtm, void* gzt,
+                               void* gfhe, int C, int N, void* stream) {
+  return launch_bwd<double>(zt, fhe, kc, st, tm, gxe, gtm, gzt, gfhe, C, N, stream);
 }

@@ -29,10 +29,13 @@ The port's own keys:
   parameterizations (default $COSMOMC_DATA/PArthENoPE_880.2_standard.dat,
   the JAX package's table).
 
-Until the kernels have reverse passes (ROADMAP.md queue 1 item 4), action
-2 and sampling_method = hmc raise NotImplementedError on a posterior with
-a slow stage (the theta and astro parameterizations); the
-`boltzmann_remat_chunks` key is read and has no other effect.
+Action 2 and sampling_method = hmc take gradients through the posterior:
+on the background parameterization, and on a CMBPosterior whose slow path
+has reverse kernels (`CMBPosterior.gradient_unsupported()` is None: the
+LSS-only astro configuration with K1's base instantiation). Elsewhere
+(use_cmb, the massive-neutrino hierarchy, the dark-energy fluid) they
+raise NotImplementedError before any work. `boltzmann_remat_chunks`
+(default 64 for HMC, as JAX's) sets K1's gradient checkpoints.
 
 Every accessed key is dumped to `<file_root>.inputparams` (provenance,
 driver.F90:188-202).
@@ -54,10 +57,19 @@ from cosmomc_tpu_torch.utils.ini import IniFile
 #: the JAX package's BBN table, under $COSMOMC_DATA
 DEFAULT_BBN_TABLE = "PArthENoPE_880.2_standard.dat"
 
-#: what raises until the kernels have reverse passes
-NO_GRADIENT = ("{what} on a posterior with a slow stage needs gradients "
-               "through the kernels (ROADMAP.md queue 1 item 4); the "
-               "background parameterization has them")
+#: what action 2 and HMC raise where the slow path lacks reverse kernels
+NO_GRADIENT = ("{what} needs gradients through the slow stage, and with "
+               "{why} its kernels have no reverse pass yet (ROADMAP.md "
+               "queue 1 item 4); the background parameterization and the "
+               "LSS-only astro configuration have them")
+
+
+def _require_gradient(post, what: str) -> None:
+    """Raise before any work when `post` cannot be differentiated."""
+    why = (post.gradient_unsupported()
+           if hasattr(post, "gradient_unsupported") else None)
+    if why is not None:
+        raise NotImplementedError(NO_GRADIENT.format(what=what, why=why))
 
 
 def build_likelihoods(ini: IniFile, dtype, device):
@@ -157,6 +169,13 @@ def build_likelihoods(ini: IniFile, dtype, device):
     return likes, needs_cls
 
 
+def _remat_chunks(ini: IniFile) -> int:
+    """K1's gradient checkpoints (`boltzmann_remat_chunks`): 64 by default
+    for HMC, as the JAX driver's (driver.py:202-213)."""
+    method = ini.string("sampling_method", "1").strip().lower()
+    return ini.int("boltzmann_remat_chunks", 64 if method in ("8", "hmc") else 0)
+
+
 def _bbn_table(ini: IniFile):
     """The BBN table of a CMB or LSS posterior: `bbn_table`, else the JAX
     package's default file under $COSMOMC_DATA."""
@@ -221,7 +240,8 @@ def build_posterior(ini: IniFile, dtype=None, device=None):
                 f"parameterization=astro has no tau/C_l: remove CMB "
                 f"likelihoods {[l.name for l in cmb_likes]}")
         return CMBPosterior(par, space, likes, bbn_table=_bbn_table(ini),
-                            use_cmb=False, matter_power=True, device=device,
+                            use_cmb=False, matter_power=True,
+                            remat_chunks=_remat_chunks(ini), device=device,
                             dtype=dtype)
     compute_tensors = ini.bool("compute_tensors", False)
     if compute_tensors and "r" not in space:
@@ -244,12 +264,9 @@ def build_posterior(ini: IniFile, dtype=None, device=None):
     if lmax_computed and not tmpl and os.environ.get("COSMOMC_DATA"):
         cand = os.path.join(os.environ["COSMOMC_DATA"], "HighL_lensedCls.dat")
         tmpl = cand if os.path.isfile(cand) else ""
-    # the JAX driver checkpoints the Boltzmann scan for reverse mode; read
-    # for the same .inputparams, no effect until the kernels have reverse
-    # passes
-    method = ini.string("sampling_method", "1").strip().lower()
-    ini.int("boltzmann_remat_chunks", 64 if method in ("8", "hmc") else 0)
+    remat = _remat_chunks(ini)
     return CMBPosterior(par, space, likes, bbn_table=_bbn_table(ini),
+                        remat_chunks=remat,
                         lmax=ini.int("lmax", 2508),
                         lmax_computed=lmax_computed, highl_template=tmpl,
                         matter_power=ini.bool("use_matter_power", False),
@@ -311,15 +328,21 @@ def run_ini(path: str, overrides: Optional[Dict[str, str]] = None,
         return rc
 
     if action == 2:
-        if slow_stage:
-            raise NotImplementedError(NO_GRADIENT.format(what="action = 2"))
+        _require_gradient(post, "action = 2")
         from cosmomc_tpu_torch.sampling.minimize import (estimate_covariance,
                                                          find_best_fit,
                                                          write_minimum_file)
         best = find_best_fit(post.logpost(), post.space,
                              use_grad=ini.bool("minimize_use_grad", True),
                              **on)
-        best.cov = estimate_covariance(post.logpost(), best.P, **on)
+        # the reverse kernels have no second derivative: a posterior with a
+        # slow stage takes its Hessian from differences of exact gradients
+        var = post.space.varying
+        steps = (np.array([1e-3 * p.propose_width for p in var])
+                 if slow_stage else None)
+        best.cov = estimate_covariance(
+            post.logpost(), best.P, gradient_differences=steps,
+            bounds=([p.min for p in var], [p.max for p in var]), **on)
         write_minimum_file(file_root + ".minimum", post.space, best)
         post.space.write_covmat(file_root + ".hessian.covmat", best.cov)
         print(f"best fit -logL = {best.mloglike:.6f} "
@@ -347,9 +370,7 @@ def run_ini(path: str, overrides: Optional[Dict[str, str]] = None,
     # ('hmc' also accepted)
     method = ini.string("sampling_method", "1").strip().lower()
     if method in ("8", "hmc"):
-        if slow_stage:
-            raise NotImplementedError(NO_GRADIENT.format(
-                what="sampling_method = hmc"))
+        _require_gradient(post, "sampling_method = hmc")
         from cosmomc_tpu_torch.sampling.hmc import HMCRun, HMCSampler
         seed = ini.int("seed", 0)
         sampler = HMCSampler(post.logpost(),

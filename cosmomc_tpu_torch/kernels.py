@@ -10,8 +10,11 @@ loaded with ctypes. Nothing here runs at import time.
 `launches[name]` counts the launches each wrapper makes: it is raised by
 one where the kernel is launched, and nowhere else. A source may hold
 several instantiations (`VARIANTS`: K1's massive-neutrino and dark-energy
-extensions), each with entry points `<variant>_f32|f64` and a count of
-its own.
+extensions, and the reverse kernels of K4 and K1), each with entry points
+`<variant>_f32|f64` and a count of its own. A forward kernel that also
+stores what its reverse kernel reads is launched through another entry
+point of the same kernel (`launch(..., entry=...)`) and counts as that
+kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
-#: kernel name -> source file; every source also includes common.cuh
+#: kernel name -> source file; the sources include the headers csrc/*.cuh
+#: (common.cuh; boltzmann_adjoint.cuh in perturbations.cu), which key the
+#: build too
 SOURCES = {
     "recfast": "recfast.cu",          # K4
     "boltzmann": "perturbations.cu",  # K1
@@ -40,7 +45,8 @@ SOURCES = {
 }
 #: instantiation -> the kernel (source) that holds it
 VARIANTS = {"boltzmann_nu": "boltzmann", "boltzmann_de": "boltzmann",
-            "boltzmann_nu_de": "boltzmann"}
+            "boltzmann_nu_de": "boltzmann", "recfast_bwd": "recfast",
+            "boltzmann_bwd": "boltzmann"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -80,11 +86,12 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile csrc/<source> into a shared library (once per content hash);
-    returns its path."""
+    """Compile csrc/<source> into a shared library (once per content hash of
+    the source, the headers and the flags); returns its path."""
     src = os.path.join(CSRC, SOURCES[name])
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in (src, os.path.join(CSRC, "common.cuh")):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for p in (src, *(os.path.join(CSRC, f) for f in headers)):
         with open(p, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
@@ -124,20 +131,21 @@ def check(t: torch.Tensor, what: str, shape, dtype=None) -> None:
         raise ValueError(f"{what}: float32 or float64 only, got {t.dtype}")
 
 
-def launch(name: str, dtype: torch.dtype, *args) -> None:
-    """Call `<name>_f32|f64` (see `call`) of the kernel or instantiation
-    `name` and count the launch."""
+def launch(name: str, dtype: torch.dtype, *args, entry: str = "") -> None:
+    """Call `<entry or name>_f32|f64` (see `call`) of the kernel or
+    instantiation `name` and count the launch as `name`'s."""
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"{name}: float32 or float64 only, got {dtype}")
     lib = load(VARIANTS.get(name, name))
-    call(getattr(lib, f"{name}_{'f64' if dtype == torch.float64 else 'f32'}"),
-         *args)
+    call(getattr(lib, f"{entry or name}_"
+                      f"{'f64' if dtype == torch.float64 else 'f32'}"), *args)
     launches[name] += 1
 
 
 def call(fn, *args) -> None:
-    """Call a C entry point with tensors as device pointers, ints as int and
-    floats as double, plus the current stream; raise on a CUDA error."""
+    """Call a C entry point with tensors as device pointers, None as a null
+    pointer, ints as int and floats as double, plus the current stream;
+    raise on a CUDA error."""
     name = fn.__name__
     types, vals, device = [], [], None
     for a in args:
@@ -145,6 +153,9 @@ def call(fn, *args) -> None:
             types.append(ctypes.c_void_p)
             vals.append(a.data_ptr())
             device = device or a.device
+        elif a is None:
+            types.append(ctypes.c_void_p)
+            vals.append(None)
         elif isinstance(a, (bool, int)):
             types.append(ctypes.c_int)
             vals.append(int(a))

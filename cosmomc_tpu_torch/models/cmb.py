@@ -39,10 +39,11 @@ def compute_transfers(bg: BackgroundParams, th: ThermoHistory,
                       zre: torch.Tensor, yhe: torch.Tensor, k,
                       z_outputs: Tuple[float, ...] = (0.0,), n_step: int = 0,
                       massive_nu: bool = False, de_perts: bool = False,
-                      iso_cdm_amp=0.0):
+                      iso_cdm_amp=0.0, remat_chunks: int = 0):
     """Slow stage: thermal tables + Boltzmann evolution for every chain;
     massive_nu / de_perts extend the evolved state and iso_cdm_amp (0.0
-    or one amplitude a chain) adds the CDM-isocurvature admixture
+    or one amplitude a chain) adds the CDM-isocurvature admixture, and
+    remat_chunks checkpoints the evolution's gradient
     (perturbations.evolve_perturbations). Returns (transfers, chi_star
     (C,), ThermoFuncs)."""
     kw = dict(n_step=n_step) if n_step else {}
@@ -50,7 +51,7 @@ def compute_transfers(bg: BackgroundParams, th: ThermoHistory,
     k = torch.as_tensor(np.asarray(k), dtype=tf.tau.dtype, device=tf.tau.device)
     po = evolve_perturbations(bg, tf, tau0, k, z_outputs,
                               massive_nu=massive_nu, de_perts=de_perts,
-                              iso_cdm_amp=iso_cdm_amp)
+                              iso_cdm_amp=iso_cdm_amp, remat_chunks=remat_chunks)
     ipk = torch.argmax(tf.vis, dim=-1, keepdim=True)
     chi_star = tau0 - tf.tau.gather(-1, ipk)[:, 0]
     return po, chi_star, tf

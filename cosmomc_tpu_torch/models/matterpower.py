@@ -110,10 +110,12 @@ def compute_matter_transfers(bg: BackgroundParams, th: ThermoHistory,
                              z_outputs: Sequence[float] = (0.0,),
                              k: Optional[np.ndarray] = None,
                              n_step: int = 6144, massive_nu: bool = False,
-                             de_perts: bool = False) -> MatterTransfers:
+                             de_perts: bool = False,
+                             remat_chunks: int = 0) -> MatterTransfers:
     """Slow stage: Boltzmann evolution (K1) on the wide matter k grid, from
     the recombination history `th` and reionization redshift `zre` the
-    caller computed once per slow step."""
+    caller computed once per slow step. `remat_chunks` checkpoints the
+    evolution's gradient (evolve_perturbations)."""
     zs = tuple(float(z) for z in z_outputs)
     if list(zs) != sorted(zs):
         raise ValueError("z_outputs must be ascending")
@@ -123,7 +125,7 @@ def compute_matter_transfers(bg: BackgroundParams, th: ThermoHistory,
                                   kmax=float(np.max(k)))
     kt = torch.as_tensor(np.asarray(k), dtype=tf.tau.dtype, device=tf.tau.device)
     po = evolve_perturbations(bg, tf, tau0, kt, zs, massive_nu=massive_nu,
-                              de_perts=de_perts)
+                              de_perts=de_perts, remat_chunks=remat_chunks)
     v_z = po.ddelta_m_z / po.aH_z[:, :, None]
     return MatterTransfers(po.k, torch.tensor(zs, dtype=po.k.dtype,
                                               device=po.k.device),

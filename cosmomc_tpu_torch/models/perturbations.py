@@ -43,6 +43,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
+import torch.utils.checkpoint
 
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models import constants as const
@@ -652,34 +654,70 @@ def _sources(y, dy, aux, q, k):
 def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
                   rsa_ktau: float, massive_nu: bool = False,
                   de_perts: bool = False,
-                  iso: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  iso: Optional[torch.Tensor] = None,
+                  remat_chunks: int = 0) -> torch.Tensor:
     """RK4 over the grid as batched torch; returns (7, C, N-1, nk). `iso`
     (C, 3, from `iso_inputs`) adds the CDM-isocurvature admixture to the
-    ICs."""
+    ICs.
+
+    Records a graph when grad is enabled and qtab, rnu or iso wants one;
+    otherwise runs under no_grad. With `remat_chunks` > 0 the graph is
+    checkpointed as JAX's remat_chunks does (perturbations.py:906-925):
+    the steps fall into that many chunks of ceil((N-1)/remat_chunks) steps
+    (JAX pads the last chunk with dt = 0 no-ops, which change nothing),
+    only the state at each chunk's start is kept, and each chunk's interior
+    is recomputed in the backward pass; the numbers do not depend on the
+    chunk count."""
     C, S = qtab.shape[0], qtab.shape[1]
     rn = rnu[:, None]
-    out = torch.empty(len(PLANES), C, S, k.shape[0], dtype=qtab.dtype,
-                      device=qtab.device)
     sw = dict(massive_nu=massive_nu, de_perts=de_perts)
 
-    def ics(tau):
+    def ics(tau, rn, iso):
         return adiabatic_ics(k, tau, rn, iso=iso, **sw)
-    y = ics(qtab[:, 0, 0, Q_TAU:Q_TAU + 1])
-    with torch.no_grad():
-        for i in range(S):
-            qa, qm, qb = qtab[:, i, 0], qtab[:, i, 1], qtab[:, i, 2]
-            tau_a, tau_b = qa[:, Q_TAU:Q_TAU + 1], qb[:, Q_TAU:Q_TAU + 1]
-            dt = (tau_b - tau_a)[..., None]
-            k1, _ = _rhs(y, qa, k, rsa_ktau, **sw)
-            k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau, **sw)
-            k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau, **sw)
-            k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau, **sw)
-            y_new = y + (dt / 6.0) * (k1 + 2 * k2_ + 2 * k3_ + k4_)
-            released = (k * tau_b >= IC_RELEASE_KTAU) | (tau_b >= 3.0)
-            y = torch.where(released[..., None], y_new, ics(tau_b))
-            dy, aux = _rhs(y, qb, k, rsa_ktau, **sw)
-            out[:, :, i] = torch.stack(_sources(y, dy, aux, qb, k))
-    return out
+
+    def step(y, i, qtab, rn, iso):
+        qa, qm, qb = qtab[:, i, 0], qtab[:, i, 1], qtab[:, i, 2]
+        tau_a, tau_b = qa[:, Q_TAU:Q_TAU + 1], qb[:, Q_TAU:Q_TAU + 1]
+        dt = (tau_b - tau_a)[..., None]
+        k1, _ = _rhs(y, qa, k, rsa_ktau, **sw)
+        k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau, **sw)
+        k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau, **sw)
+        k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau, **sw)
+        y_new = y + (dt / 6.0) * (k1 + 2 * k2_ + 2 * k3_ + k4_)
+        released = (k * tau_b >= IC_RELEASE_KTAU) | (tau_b >= 3.0)
+        y = torch.where(released[..., None], y_new, ics(tau_b, rn, iso))
+        dy, aux = _rhs(y, qb, k, rsa_ktau, **sw)
+        return y, torch.stack(_sources(y, dy, aux, qb, k))
+
+    record = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (qtab, rnu, iso))
+    if not record:
+        out = torch.empty(len(PLANES), C, S, k.shape[0], dtype=qtab.dtype,
+                          device=qtab.device)
+        with torch.no_grad():
+            y = ics(qtab[:, 0, 0, Q_TAU:Q_TAU + 1], rn, iso)
+            for i in range(S):
+                y, out[:, :, i] = step(y, i, qtab, rn, iso)
+        return out
+
+    def run(y, lo, hi, qtab, rn, iso):
+        outs = []
+        for i in range(lo, hi):
+            y, o = step(y, i, qtab, rn, iso)
+            outs.append(o)
+        return y, torch.stack(outs, 2)
+
+    y = ics(qtab[:, 0, 0, Q_TAU:Q_TAU + 1], rn, iso)
+    if remat_chunks <= 0:
+        return run(y, 0, S, qtab, rn, iso)[1]
+    chunk = -(-S // remat_chunks)
+    outs = []
+    for lo in range(0, S, chunk):
+        y, o = torch.utils.checkpoint.checkpoint(
+            run, y, lo, min(lo + chunk, S), qtab, rn, iso,
+            use_reentrant=False)
+        outs.append(o)
+    return torch.cat(outs, 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -695,10 +733,96 @@ VARIANTS = {(False, False): "boltzmann", (True, False): "boltzmann_nu",
             (False, True): "boltzmann_de", (True, True): "boltzmann_nu_de"}
 
 
+def _evolve_launch(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso,
+                   chunk: int = 0):
+    """The forward kernel: the planes (7, C, S, nk) and, with `chunk` > 0
+    (base instantiation), the checkpoints (C, nk, ceil(S / chunk) + 1, 37):
+    the state before every chunk-th step and after the last."""
+    C, S = qtab.shape[0], qtab.shape[1]
+    nk = k.shape[0]
+    kernels.check(qtab, "qtab", (C, S, 3, q_fields(massive_nu, de_perts)))
+    kernels.check(k, "k", (nk,), qtab.dtype)
+    kernels.check(rnu, "rnu", (C,), qtab.dtype)
+    if iso is None:
+        iso = torch.zeros(C, 3, dtype=qtab.dtype, device=qtab.device)
+    kernels.check(iso, "iso", (C, 3), qtab.dtype)
+    nuc = _nu_constants(qtab.dtype, qtab.device)
+    out = torch.empty(len(PLANES), C, S, nk, dtype=qtab.dtype,
+                      device=qtab.device)
+    name = VARIANTS[massive_nu, de_perts]
+    if chunk <= 0:
+        kernels.launch(name, qtab.dtype, qtab, k, rnu, iso, nuc, out, C, S, nk,
+                       float(rsa_ktau))
+        return out, None
+    ck = torch.empty(C, nk, -(-S // chunk) + 1, NVAR, dtype=qtab.dtype,
+                     device=qtab.device)
+    kernels.launch(name, qtab.dtype, qtab, k, rnu, iso, nuc, out, ck, C, S, nk,
+                   float(rsa_ktau), chunk, entry="boltzmann_ck")
+    return out, ck
+
+
+def _bwd_lanes(nk: int):
+    """The reverse kernel's blocks a chain and threads a block (csrc/
+    perturbations.cu bwd_blocks, bwd_threads): up to 256 k lanes a block,
+    at least 64 threads."""
+    return -(-nk // 256), max(64, -(-min(nk, 256) // 32) * 32)
+
+
+def _boltzmann_bwd(qtab, k, rnu, iso, ck, g_out, rsa_ktau, chunk):
+    """csrc/perturbations.cu's reverse kernel (base instantiation): the
+    cotangents of qtab (C, S, 3, 16), rnu (C,) and iso (C, 3) from those of
+    the planes, as `_evolve_plain` under autograd gives them. One thread a
+    (chain, k) lane, the chunks in reverse, each recomputed from its
+    checkpoint; the table's rows summed over the lanes in a fixed order."""
+    C, S = qtab.shape[0], qtab.shape[1]
+    nk = k.shape[0]
+    nblk, threads = _bwd_lanes(nk)
+    dev, dt = qtab.device, qtab.dtype
+    scratch = torch.empty(C, chunk, NVAR, nblk * threads, dtype=dt, device=dev)
+    g_q = torch.empty(C, nblk, S, 3, NQ, dtype=dt, device=dev)
+    g_rnu = torch.empty(C, nblk, dtype=dt, device=dev)
+    g_iso = torch.empty(C, nblk, 3, dtype=dt, device=dev)
+    kernels.launch("boltzmann_bwd", dt, qtab, k, rnu, iso, ck,
+                   g_out.contiguous(), scratch, g_q, g_rnu, g_iso, C, S, nk,
+                   float(rsa_ktau), chunk)
+    if nblk == 1:
+        return g_q[:, 0], g_rnu[:, 0], g_iso[:, 0]
+    return g_q.sum(1), g_rnu.sum(1), g_iso.sum(1)
+
+
+class _Boltzmann(torch.autograd.Function):
+    """K1 (base instantiation) on the card with its reverse kernel: the
+    forward kernel also writes the chunk checkpoints, the backward launches
+    `boltzmann_bwd`."""
+
+    @staticmethod
+    def forward(ctx, qtab, k, rnu, iso, rsa_ktau, chunks):
+        chunk = -(-qtab.shape[1] // chunks)
+        out, ck = _evolve_launch(qtab, k, rnu, rsa_ktau, False, False, iso,
+                                 chunk)
+        ctx.save_for_backward(qtab, k, rnu, iso, ck)
+        ctx.rsa_ktau, ctx.chunk = rsa_ktau, chunk
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        qtab, k, rnu, iso, ck = ctx.saved_tensors
+        g_q, g_rnu, g_iso = _boltzmann_bwd(qtab, k, rnu, iso, ck, g_out,
+                                           ctx.rsa_ktau, ctx.chunk)
+        return g_q, None, g_rnu, g_iso, None, None
+
+
+#: K1's checkpoint count on the card when a gradient is wanted and the
+#: caller gives none: JAX's driver's default for HMC (driver.py:205)
+DEFAULT_REMAT_CHUNKS = 64
+
+
 def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
                  rsa_ktau: float, massive_nu: bool = False,
                  de_perts: bool = False,
-                 iso: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 iso: Optional[torch.Tensor] = None,
+                 remat_chunks: int = 0) -> torch.Tensor:
     """csrc/perturbations.cu: one warp per (chain, k) lane runs the whole
     tau loop.
 
@@ -717,21 +841,25 @@ def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
     sources to store (plane, chain, step, 8 consecutive k) at once. One
     launch a call, of the instantiation `VARIANTS[massive_nu, de_perts]`;
     `iso` (C, 3, from `iso_inputs`) gives each chain its CDM-isocurvature
-    admixture in the held ICs."""
-    C, S = qtab.shape[0], qtab.shape[1]
-    nk = k.shape[0]
-    kernels.check(qtab, "qtab", (C, S, 3, q_fields(massive_nu, de_perts)))
-    kernels.check(k, "k", (nk,), qtab.dtype)
-    kernels.check(rnu, "rnu", (C,), qtab.dtype)
-    if iso is None:
-        iso = torch.zeros(C, 3, dtype=qtab.dtype, device=qtab.device)
-    kernels.check(iso, "iso", (C, 3), qtab.dtype)
-    nuc = _nu_constants(qtab.dtype, qtab.device)
-    out = torch.empty(len(PLANES), C, S, nk, dtype=qtab.dtype,
-                      device=qtab.device)
-    kernels.launch(VARIANTS[massive_nu, de_perts], qtab.dtype, qtab, k, rnu,
-                   iso, nuc, out, C, S, nk, float(rsa_ktau))
-    return out
+    admixture in the held ICs.
+
+    When qtab, rnu or iso wants a gradient (and grad is enabled), the base
+    instantiation runs as `_Boltzmann`: the forward stores the state at
+    `remat_chunks` chunk boundaries (DEFAULT_REMAT_CHUNKS when 0) and the
+    backward is `_boltzmann_bwd`. The extended instantiations have no
+    reverse kernel and raise."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (qtab, rnu, iso)):
+        if massive_nu or de_perts:
+            raise NotImplementedError(
+                f"{VARIANTS[massive_nu, de_perts]} has no reverse kernel: "
+                "gradients run through the base Boltzmann instantiation only")
+        if iso is None:
+            iso = torch.zeros(qtab.shape[0], 3, dtype=qtab.dtype,
+                              device=qtab.device)
+        return _Boltzmann.apply(qtab, k, rnu, iso, float(rsa_ktau),
+                                remat_chunks or DEFAULT_REMAT_CHUNKS)
+    return _evolve_launch(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso)[0]
 
 
 def evolve_perturbations(bg: BackgroundParams, tf: ThermoFuncs,
@@ -739,11 +867,15 @@ def evolve_perturbations(bg: BackgroundParams, tf: ThermoFuncs,
                          z_outputs: Tuple[float, ...] = (0.0,),
                          rsa_ktau: float = RSA_KTAU,
                          massive_nu: bool = False, de_perts: bool = False,
-                         iso_cdm_amp=0.0) -> PerturbationOutput:
+                         iso_cdm_amp=0.0,
+                         remat_chunks: int = 0) -> PerturbationOutput:
     """Evolve all k modes of every chain over the shared grid.
     `massive_nu` and `de_perts` extend the state (module docstring);
     `iso_cdm_amp`, 0.0 or one amplitude a chain ((C,) or a scalar), adds
-    the correlated CDM-isocurvature admixture."""
+    the correlated CDM-isocurvature admixture. `remat_chunks`: the
+    checkpoint count of the evolution's gradient (JAX's remat_chunks; 0
+    keeps every step on the CPU and takes DEFAULT_REMAT_CHUNKS on the
+    card); it changes memory, not numbers."""
     dtype = tf.tau.dtype
     k = k.to(dtype=dtype, device=tf.tau.device).contiguous()
     C, N = tf.tau.shape
@@ -752,7 +884,8 @@ def evolve_perturbations(bg: BackgroundParams, tf: ThermoFuncs,
     iso = (None if isinstance(iso_cdm_amp, float) and iso_cdm_amp == 0.0
            else iso_inputs(bg, iso_cdm_amp))
     evolve = _evolve_plain if qtab.device.type == "cpu" else _evolve_cuda
-    raw = evolve(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso)
+    raw = evolve(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso,
+                 remat_chunks)
 
     # the curvature normalisation of the PURE-ADIABATIC start state, even
     # with an isocurvature admixture (perturbations.py:812-822)

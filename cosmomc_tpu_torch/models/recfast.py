@@ -21,6 +21,12 @@ The Newton derivative of each Crank-Nicolson residual is written in
 closed form (the JAX package takes jax.grad of the same expression); it is
 exact, and both paths share it line for line.
 
+Gradients: the plain version records a graph when its input wants one,
+and autograd differentiates the unrolled map, the closed-form Newton
+derivatives included, which is what jax.grad of the JAX scan gives. The
+clips split the gradient at a tie as jnp.clip does (`_clip`). On the card
+`_ThermoScan` pairs the kernel with its reverse kernel.
+
 float32 hardening kept from the JAX package: the cancellation-free
 quadratic root (`quad_root`), the clipped decaying exponential in the He
 escape rate, and n_H from one folded prefactor (constants.n_H_today).
@@ -32,6 +38,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models import constants as const
@@ -91,6 +98,14 @@ class ThermoHistory(NamedTuple):
     tm: torch.Tensor     # (C, N) matter temperature [K]
 
 
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip as min(max(x, lo), hi): the same values as torch.clamp, but
+    at a tie (x_H = 1 from the table, the Saha solutions saturated at 1)
+    half the gradient passes, as in the JAX package; torch.clamp passes
+    all of it."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def z_grid(n_z: int, device, dtype) -> torch.Tensor:
     """The descending-z grid, log-spaced in (1+z) from Z_INIT to 0."""
     lz = torch.linspace(float(np.log(1.0 + Z_INIT)), 0.0, n_z,
@@ -132,7 +147,7 @@ def _z_tables(bg: BackgroundParams, zs: torch.Tensor, fHe: torch.Tensor,
     return torch.stack([
         z, tr, _CompT * tr ** 4 / hz1, hz1, n, c(fHe) * n, _CK_He / Hz,
         _CK * corr / Hz, torch.minimum(xe_he2, 1.0 + 2.0 * c(fHe)),
-        ((x0 - 1.0) / c(fHe)).clamp(0.0, 1.0), quad_root(rhsh, rhsh), tr],
+        _clip((x0 - 1.0) / c(fHe), 0.0, 1.0), quad_root(rhsh, rhsh), tr],
         dim=1)
 
 
@@ -200,7 +215,7 @@ def _dxhe(xx, xe, fHe, rate):
     live = nhe1 > 1e-30
     nhe1 = torch.where(live, nhe1, 1e-30)
     arg = bt - torch.log(khe * nhe1)
-    u = torch.exp(torch.clamp(arg, max=80.0))
+    u = torch.exp(torch.minimum(arg, arg.new_tensor(80.0)))
     du = torch.where(live & (arg < 80.0), u * nhe / nhe1, 0.0)
     den = u + Lambda_He + rup
     crate = (u + Lambda_He) / den
@@ -240,12 +255,16 @@ def first_live_node(zt: torch.Tensor) -> torch.Tensor:
 
 def table_prefix(zt: torch.Tensor, fHe: torch.Tensor, n: int):
     """(x_H, x_He, x_e, T_M) at nodes 0..n-1, each (C, n), where every one of
-    them lies before the first live node: the selection's table branch."""
-    xHe = zt[:, ZT_XHESAHA, :n].clamp(0.0, 1.0)
-    xH = zt[:, ZT_XHSAHA, :n].clamp(0.0, 1.0)
-    xe = torch.where(zt[:, ZT_Z, :n] > 5500.0, zt[:, ZT_XEEARLY, :n],
-                     xH + fHe[:, None] * xHe)
-    xH[:, 0], xHe[:, 0], xe[:, 0] = 1.0, 1.0, 1.0 + 2.0 * fHe
+    them lies before the first live node: the selection's table branch;
+    node 0 holds the scan's initial state (fully ionized, x_e = 1 + 2 fHe).
+    Built without writing into the clips' outputs, so autograd runs
+    through it."""
+    node0 = torch.arange(n, device=zt.device) == 0
+    xHe = torch.where(node0, 1.0, _clip(zt[:, ZT_XHESAHA, :n], 0.0, 1.0))
+    xH = torch.where(node0, 1.0, _clip(zt[:, ZT_XHSAHA, :n], 0.0, 1.0))
+    xe = torch.where(node0, 1.0 + 2.0 * fHe[:, None],
+                     torch.where(zt[:, ZT_Z, :n] > 5500.0, zt[:, ZT_XEEARLY, :n],
+                                 xH + fHe[:, None] * xHe))
     return xH, xHe, xe, zt[:, ZT_TMHOT, :n]
 
 
@@ -253,17 +272,18 @@ def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor, start: int = 1):
     """The recurrence as batched torch ops; zt (C, N_ZT, N). Returns
     (xe, tm), each (C, N). `start`: the first node the recurrence computes
     (1: all of them); nodes before it take the table's state, which is the
-    same result when start <= first_live_node(zt).min()."""
+    same result when start <= first_live_node(zt).min(). Records a graph
+    when grad is enabled and zt or fHe wants one (the unrolled map, as
+    jax.grad differentiates the scan); otherwise runs under no_grad."""
     C, _, N = zt.shape
+    record = torch.is_grad_enabled() and (zt.requires_grad or fHe.requires_grad)
     steps = zt.permute(2, 1, 0).unbind(0)          # N x (N_ZT, C)
-    xe_out = torch.empty(N, C, dtype=zt.dtype, device=zt.device)
-    tm_out = torch.empty_like(xe_out)
     start = max(1, min(int(start), N))
     xH, xHe, xe_pre, tm_pre = table_prefix(zt, fHe, start)
-    xe_out[:start], tm_out[:start] = xe_pre.T, tm_pre.T
-    xH, xHe, tm = xH[:, -1], xHe[:, -1], tm_out[start - 1]
+    xe_out, tm_out = list(xe_pre.unbind(1)), list(tm_pre.unbind(1))
+    xH, xHe, tm = xH[:, -1], xHe[:, -1], tm_out[-1]
 
-    with torch.no_grad():
+    with torch.enable_grad() if record else torch.no_grad():
         for i in range(start - 1, N - 1):
             r0, r1 = steps[i], steps[i + 1]
             z = r1[ZT_Z]
@@ -283,13 +303,66 @@ def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor, start: int = 1):
                          lambda xx: _dxh(xx, xx + fHe * xHe_ode, h1))
             # regime selection
             xhe_s, xh_s = r1[ZT_XHESAHA], r1[ZT_XHSAHA]
-            xHe = torch.where(xhe_s > 0.995, xhe_s, xHe_ode).clamp(0.0, 1.0)
-            xH = torch.where(xh_s > 0.985, xh_s, xH_ode).clamp(0.0, 1.0)
-            xe_out[i + 1] = torch.where(z > 5500.0, r1[ZT_XEEARLY],
-                                        xH + fHe * xHe)
+            xHe = _clip(torch.where(xhe_s > 0.995, xhe_s, xHe_ode), 0.0, 1.0)
+            xH = _clip(torch.where(xh_s > 0.985, xh_s, xH_ode), 0.0, 1.0)
+            xe_out.append(torch.where(z > 5500.0, r1[ZT_XEEARLY],
+                                      xH + fHe * xHe))
             tm = torch.where(z > 3000.0, r1[ZT_TMHOT], tm_new)
-            tm_out[i + 1] = tm
-    return xe_out.T.contiguous(), tm_out.T.contiguous()
+            tm_out.append(tm)
+    return torch.stack(xe_out, 1), torch.stack(tm_out, 1)
+
+
+def _recfast_launch(zt: torch.Tensor, fHe: torch.Tensor, store: bool):
+    """The forward kernel: (xe, tm) and, with `store`, the walked state
+    (x_H, x_He) of every node, (C, 2, N), for the reverse kernel."""
+    C, nzt, N = zt.shape
+    kernels.check(zt, "zt", (C, N_ZT, N))
+    kernels.check(fHe, "fHe", (C,), zt.dtype)
+    xe = torch.empty(C, N, dtype=zt.dtype, device=zt.device)
+    tm = torch.empty_like(xe)
+    kc = torch.tensor(KERNEL_CONSTS, dtype=zt.dtype, device=zt.device)
+    if not store:
+        kernels.launch("recfast", zt.dtype, zt, fHe, kc, xe, tm, C, N)
+        return xe, tm, None
+    st = torch.empty(C, 2, N, dtype=zt.dtype, device=zt.device)
+    kernels.launch("recfast", zt.dtype, zt, fHe, kc, xe, tm, st, C, N,
+                   entry="recfast_st")
+    return xe, tm, st
+
+
+def _recfast_bwd(zt, fHe, st, tm, g_xe, g_tm):
+    """csrc/recfast.cu's reverse kernel: (grad_zt (C, N_ZT, N), grad_fHe
+    (C,)) from the cotangents of xe and tm, the gradient of the unrolled
+    map as `_scan_plain` under autograd gives it. One warp a chain walks
+    back from the last node; lane d carries one column of a step's
+    Jacobian in dual numbers (28 inputs: the state, both table rows, fHe)
+    and dots it with the adjoint of the step's outputs."""
+    C, _, N = zt.shape
+    g_zt = torch.zeros_like(zt)
+    g_fhe = torch.empty_like(fHe)
+    kc = torch.tensor(KERNEL_CONSTS, dtype=zt.dtype, device=zt.device)
+    kernels.launch("recfast_bwd", zt.dtype, zt, fHe, kc, st, tm,
+                   g_xe.contiguous(), g_tm.contiguous(), g_zt, g_fhe, C, N)
+    return g_zt, g_fhe
+
+
+class _ThermoScan(torch.autograd.Function):
+    """K4 on the card with its reverse kernel: the forward kernel stores the
+    walked state, the backward launches `recfast_bwd`."""
+
+    @staticmethod
+    def forward(ctx, zt, fHe):
+        xe, tm, st = _recfast_launch(zt, fHe, store=True)
+        ctx.save_for_backward(zt, fHe, st, tm)
+        return xe, tm
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_xe, g_tm):
+        zt, fHe, st, tm = ctx.saved_tensors
+        g_xe = torch.zeros_like(tm) if g_xe is None else g_xe
+        g_tm = torch.zeros_like(tm) if g_tm is None else g_tm
+        return _recfast_bwd(zt, fHe, st, tm, g_xe, g_tm)
 
 
 def _scan_cuda(zt: torch.Tensor, fHe: torch.Tensor):
@@ -306,14 +379,12 @@ def _scan_cuda(zt: torch.Tensor, fHe: torch.Tensor):
     z alone become reciprocals taken once per 32 nodes and quotients with
     a common divisor share it (18 divides a step where the plain version
     has 47); the table rows of the next 32 nodes are staged into shared
-    memory while the current 32 are walked. One launch a call."""
-    C, nzt, N = zt.shape
-    kernels.check(zt, "zt", (C, N_ZT, N))
-    kernels.check(fHe, "fHe", (C,), zt.dtype)
-    xe = torch.empty(C, N, dtype=zt.dtype, device=zt.device)
-    tm = torch.empty_like(xe)
-    kc = torch.tensor(KERNEL_CONSTS, dtype=zt.dtype, device=zt.device)
-    kernels.launch("recfast", zt.dtype, zt, fHe, kc, xe, tm, C, N)
+    memory while the current 32 are walked. One launch a call. When zt or
+    fHe wants a gradient (and grad is enabled), `_ThermoScan`: the forward
+    also stores the state, and the backward is `_recfast_bwd`."""
+    if torch.is_grad_enabled() and (zt.requires_grad or fHe.requires_grad):
+        return _ThermoScan.apply(zt, fHe)
+    xe, tm, _ = _recfast_launch(zt, fHe, store=False)
     return xe, tm
 
 

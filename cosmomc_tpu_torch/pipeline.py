@@ -55,6 +55,7 @@ from cosmomc_tpu_torch.models.matterpower import (LENS_NL_Z,
                                                   compute_matter_transfers,
                                                   lensing_nl_ratio,
                                                   matter_power_from_transfers)
+from cosmomc_tpu_torch.models.perturbations import DEFAULT_REMAT_CHUNKS
 from cosmomc_tpu_torch.models.primordial import PrimordialParams
 from cosmomc_tpu_torch.models.recfast import compute_thermo
 from cosmomc_tpu_torch.models.reionization import zre_from_tau
@@ -251,6 +252,11 @@ class CMBPosterior:
     use_cmb: bool = True
     compute_tensors: bool = False            # r -> tensor TT/TE/EE/BB
     inflation_consistency: bool = True       # nt = -r/8, else nt = 0
+    #: checkpoints of K1's gradient (JAX's remat_chunks): the CMB evolution
+    #: takes it as JAX does; the matter path takes it too, or
+    #: DEFAULT_REMAT_CHUNKS when 0, where JAX keeps every step (ROADMAP.md
+    #: section 3); memory, not numbers
+    remat_chunks: int = 0
     #: "cuda" (the default) or "cpu"; without a card only "cpu" is accepted
     device: object = "cuda"
     dtype: torch.dtype = torch.float64
@@ -390,19 +396,37 @@ class CMBPosterior:
     # Staged theory pipeline
     # ------------------------------------------------------------------
 
+    def gradient_unsupported(self) -> Optional[str]:
+        """Why this configuration's slow stage has no gradient, or None when
+        it has one: a kernel of its slow path without a reverse pass. K4
+        and K1's base instantiation have theirs; the CMB path (K2a or K2b,
+        K5, K6, then K3 in the semi stage) and K1's massive-neutrino and
+        dark-energy instantiations have none, and their plain versions
+        run under no_grad, so a gradient would come back partial. The
+        action-2 and HMC dispatch of driver.py asks the same."""
+        why = [name for name, on in (
+            ("use_cmb (the line-of-sight, tensor and lensing kernels)",
+             self.use_cmb),
+            ("massive_nu_hierarchy", self.massive_nu_hierarchy),
+            ("de_perturbations", self.de_perturbations)) if on]
+        return None if not why else ", ".join(why)
+
     def stage_slow(self, full_P: torch.Tensor) -> dict:
         """Everything independent of the primordial power and nuisance.
 
-        Raises NotImplementedError when asked for a gradient: the plain
-        versions of K4, K1, K2a and K5 run under `torch.no_grad()` and the
-        CUDA wrappers have no backward, so a gradient through this stage
-        would hold only the background paths, silently."""
+        Differentiable where `gradient_unsupported()` is None (the LSS-only
+        path with K1's base instantiation: K4 and K1 with their reverse
+        kernels on the card, autograd of the plain versions on the CPU);
+        elsewhere raises NotImplementedError when asked for a gradient,
+        rather than return one that holds only the background paths."""
         if torch.is_grad_enabled() and full_P.requires_grad:
-            raise NotImplementedError(
-                "CMBPosterior.stage_slow has no gradient yet (the kernels' "
-                "reverse passes are ROADMAP.md queue 1 item 4); differentiate "
-                "the semi and fast stages with the slow cache held, on the "
-                "CPU")
+            why = self.gradient_unsupported()
+            if why is not None:
+                raise NotImplementedError(
+                    f"CMBPosterior.stage_slow has no gradient with {why}: "
+                    "those kernels have no reverse pass yet (ROADMAP.md "
+                    "queue 1 item 4); differentiate the semi and fast "
+                    "stages with the slow cache held, on the CPU")
         bg = self.parameterization.to_background(full_P)
         tau_re = full_P[:, self._i_tau]
         yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, self.bbn_table)
@@ -416,7 +440,8 @@ class CMBPosterior:
                 n_step=self.n_step_boltzmann,
                 massive_nu=self.massive_nu_hierarchy,
                 de_perts=self.de_perturbations,
-                iso_cdm_amp=self.iso_amplitude(full_P))
+                iso_cdm_amp=self.iso_amplitude(full_P),
+                remat_chunks=self.remat_chunks)
             if self.nonlinear_lens:
                 po = self._nonlinear_lensing(bg, po, tf, z_nl)
             los = (compute_cl_transfers_recurrence
@@ -431,10 +456,11 @@ class CMBPosterior:
                 tt_cache = compute_tensor_transfers(
                     to, lmax=min(700, self.lmax), coarse_k=kt)
         if self.matter_power:
-            mt = compute_matter_transfers(bg, th, zre, yhe,
-                                          z_outputs=tuple(sorted(self.z_pk)),
-                                          massive_nu=self.massive_nu_hierarchy,
-                                          de_perts=self.de_perturbations)
+            mt = compute_matter_transfers(
+                bg, th, zre, yhe, z_outputs=tuple(sorted(self.z_pk)),
+                massive_nu=self.massive_nu_hierarchy,
+                de_perts=self.de_perturbations,
+                remat_chunks=self.remat_chunks or DEFAULT_REMAT_CHUNKS)
         tabs = compute_thermo_tables(bg, th, yhe)
         der = thermo_derived(bg, tabs)
         bf = bgm.background_functions(bg)

@@ -58,12 +58,20 @@ def gelman_rubin_r(means: np.ndarray, covs: np.ndarray) -> float:
 
 
 def gelman_rubin_r_device(samples: torch.Tensor) -> torch.Tensor:
-    """R-1 from (nchains, nsamp, n) samples (unweighted), on their device."""
+    """R-1 from (nchains, nsamp, n) samples (unweighted), on their device;
+    NaN where the mean within-chain covariance is not positive definite
+    (fewer samples a chain than parameters), as jnp.linalg.cholesky gives
+    in the JAX package, without a host wait."""
     means = samples.mean(dim=1)
     xc = samples - means[:, None, :]
     covs = torch.einsum("csi,csj->cij", xc, xc) / samples.shape[1]
     meancov = covs.mean(dim=0)
     d = means - means.mean(dim=0)
     meanscov = d.T @ d / (means.shape[0] - 1)
-    Linv = torch.linalg.inv(torch.linalg.cholesky(meancov))
-    return torch.linalg.eigvalsh(Linv @ meanscov @ Linv.T)[-1]
+    L, info = torch.linalg.cholesky_ex(meancov)
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    ok = info == 0
+    Linv = torch.linalg.solve_triangular(torch.where(ok, L, eye), eye,
+                                         upper=False)
+    r = torch.linalg.eigvalsh(Linv @ meanscov @ Linv.T)[-1]
+    return torch.where(ok, r, torch.full_like(r, float("nan")))

@@ -10,11 +10,13 @@ BOBYQA in whitened coordinates + low-temperature MCMC refinement rounds,
   - an optional low-temperature refine: MetropolisSampler at temperature
     << 1 from the optimum, keeping the best visited point;
   - covariance = inverse of `torch.autograd.functional.hessian` at the best
-    fit.
+    fit; for a posterior whose gradient runs through the reverse kernels
+    (which have no second derivative), of the Hessian from central
+    differences of exact gradients (`gradient_differences`).
 
 The posterior is batched: `logpost(P (C, n)) -> (-logL (C,), derived)`;
-a point is a batch of one chain. A posterior with a slow stage
-(CMBPosterior) refuses gradients until its kernels have reverse passes.
+a point is a batch of one chain. A CMBPosterior takes gradients where its
+slow path has reverse kernels (`CMBPosterior.gradient_unsupported()`).
 
 Writes the `.minimum` text layout of calclike.f90 WriteBestFitParams.
 """
@@ -133,13 +135,40 @@ def find_best_fit(logpost: Callable, space: ParameterSpace,
 
 
 def estimate_covariance(logpost: Callable, P_best: np.ndarray,
-                        dtype=torch.float64, device="cuda") -> np.ndarray:
+                        dtype=torch.float64, device="cuda",
+                        gradient_differences: Optional[np.ndarray] = None,
+                        bounds: Optional[tuple] = None) -> np.ndarray:
     """Parameter covariance = inverse Hessian of -log posterior at the best
-    fit (supersedes EstCovmat.f90's finite-difference quadratic fit)."""
+    fit (supersedes EstCovmat.f90's finite-difference quadratic fit).
+
+    The Hessian is `torch.autograd.functional.hessian`'s, or, with
+    `gradient_differences` (n,) steps h, the differences of exact
+    gradients along each parameter, H_ij = (g_i(p + a_j e_j) - g_i(p - b_j
+    e_j)) / (a_j + b_j), symmetrized: central (a = b = h) inside `bounds`
+    ((lo, hi) arrays), one-sided where a step would leave them; all 2n
+    points in one batched call and one backward pass. The kernels' reverse
+    passes have no second derivative, so a posterior with a slow stage
+    takes this form (JAX's is exact, minimize.py:132; ROADMAP.md
+    section 3)."""
     device = kernels.entry_device(device, "estimate_covariance")
     p = torch.as_tensor(np.asarray(P_best, float), dtype=dtype, device=device)
-    H = torch.autograd.functional.hessian(lambda q: logpost(q[None])[0][0], p)
-    H = H.double().cpu().numpy()
+    if gradient_differences is None:
+        H = torch.autograd.functional.hessian(
+            lambda q: logpost(q[None])[0][0], p)
+        H = H.double().cpu().numpy()
+    else:
+        x = np.asarray(P_best, float)
+        h = np.asarray(gradient_differences, float)
+        lo, hi = ((np.full_like(x, -np.inf), np.full_like(x, np.inf))
+                  if bounds is None else (np.asarray(bounds[0], float),
+                                          np.asarray(bounds[1], float)))
+        up, down = np.minimum(x + h, hi) - x, x - np.maximum(x - h, lo)
+        n = len(x)
+        pts = np.concatenate([x + np.diag(up), x - np.diag(down)])
+        q = torch.as_tensor(pts, dtype=dtype, device=device).requires_grad_(True)
+        (g,) = torch.autograd.grad(logpost(q)[0].sum(), q)
+        span = torch.as_tensor(up + down, dtype=dtype, device=device)
+        H = ((g[:n] - g[n:]) / span[:, None]).double().cpu().numpy()
     # symmetrize + guard against non-PD (flat directions get prior width)
     H = 0.5 * (H + H.T)
     w, V = np.linalg.eigh(H)

@@ -52,6 +52,16 @@ N_SN = 80
 ZS = np.array([0.01, 0.106, 0.38, 0.61, 1.5, 2.3])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rtol):
     port = np.asarray(port, np.float64)
     ref = np.asarray(ref, np.float64)

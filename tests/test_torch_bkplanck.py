@@ -28,6 +28,16 @@ RTOL = 1e-10
 NCH = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def spectra(n=NCH, lmax=400, seed=0):
     """(n, 4, 4, lmax+1): EE and BB power laws, TT, TE; per chain an
     amplitude."""

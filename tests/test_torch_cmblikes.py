@@ -37,6 +37,16 @@ RTOL = 1e-10
 LMAX = 4500
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def base_stack(lmax=LMAX):
     """A smooth (4, 4, lmax+1) theory stack (tests/test_cmblikes.py's
     smooth spectra)."""

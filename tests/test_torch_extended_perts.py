@@ -49,6 +49,16 @@ FIELDS = ["s0", "s1", "s2", "slens", "r_init", "delta_m", "delta_m_z",
           "ddelta_m_z", "weyl_z", "aH_z"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rtol=RTOL, what=""):
     port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
     assert port.shape == ref.shape, (what, port.shape, ref.shape)

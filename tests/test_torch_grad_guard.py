@@ -1,0 +1,208 @@
+"""Which configurations take a gradient through the slow stage, on the CPU
+(no theory is evaluated: the first step of the slow stage is stubbed).
+
+`CMBPosterior.gradient_unsupported()` is the one predicate: the CMB path
+(use_cmb), the massive-neutrino hierarchy and the dark-energy fluid have
+kernels without a reverse pass, and there `stage_slow` and the driver's
+action 2 and sampling_method = hmc raise NotImplementedError before any
+work; the LSS-only astro configuration with K1's base instantiation lets
+the gradient through. The wrappers of the reverse kernels take no plain
+fallback on CPU tensors, and K1's extended instantiations have no reverse
+kernel.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cosmomc_tpu_torch import driver as tdriver
+from cosmomc_tpu_torch import kernels
+from cosmomc_tpu_torch import pipeline as tpipe
+from cosmomc_tpu_torch.likelihoods import synthetic as sd
+from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+from cosmomc_tpu_torch.models import perturbations as tpert
+from cosmomc_tpu_torch.models import recfast as trec
+from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+from cosmomc_tpu_torch.params.parameterizations import (AstroParameterization,
+                                                        ThetaParameterization)
+from cosmomc_tpu_torch.pipeline import CMBPosterior
+
+F64 = torch.float64
+#: the configurations: (parameterization, CMBPosterior switches)
+CONFIGS = {
+    "astro": (AstroParameterization, dict(use_cmb=False, matter_power=True)),
+    "theta": (ThetaParameterization, dict(use_cmb=True)),
+    "astro_mnu": (AstroParameterization, dict(use_cmb=False, matter_power=True,
+                                              massive_nu_hierarchy=True)),
+    "astro_de": (AstroParameterization, dict(use_cmb=False, matter_power=True,
+                                             de_perturbations=True)),
+}
+SUPPORTED = {"astro"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+class _Reached(Exception):
+    """Raised by the stubbed first step of the slow stage."""
+
+
+def _posterior(kind):
+    par, sw = CONFIGS[kind]
+    par = par()
+    return CMBPosterior(par, par.default_space(), LikelihoodList(), lmax=100,
+                        bbn_table=synthetic_bbn_table(), device="cpu",
+                        dtype=F64, **sw)
+
+
+@pytest.mark.parametrize("kind", list(CONFIGS))
+def test_stage_slow_guard(kind, monkeypatch):
+    post = _posterior(kind)
+    assert (post.gradient_unsupported() is None) == (kind in SUPPORTED)
+    P = torch.tensor([[p.center for p in post.space.varying]], dtype=F64,
+                     requires_grad=True)
+
+    def reached(*a):
+        raise _Reached
+    monkeypatch.setattr(post.parameterization, "to_background", reached)
+    if kind in SUPPORTED:
+        with pytest.raises(_Reached):
+            torch.autograd.grad(post.logpost()(P)[0].sum(), P)
+    else:
+        with pytest.raises(NotImplementedError, match="no reverse pass"):
+            torch.autograd.grad(post.logpost()(P)[0].sum(), P)
+        with pytest.raises(NotImplementedError):
+            post.stage_slow(post.embed_full(P))
+    with torch.no_grad(), pytest.raises(_Reached):
+        post.stage_slow(post.embed_full(P))
+
+
+@pytest.fixture(scope="module")
+def sets(tmp_path_factory):
+    d = tmp_path_factory.mktemp("grad_guard")
+    mpk = sd.write_lrg_mpk(str(d), sd.lrg_layout())
+    return (f"parameterization = astro\nuse_mpk = T\nmpk_numdatasets = 1\n"
+            f"mpk_dataset1 = {mpk}\n"
+            f"bbn_table = {sd.write_bbn_table(str(d / sd.BBN_TABLE_NAME))}\n")
+
+
+@pytest.mark.parametrize("body", ["action = 2", "sampling_method = hmc"])
+@pytest.mark.parametrize("extra", ["", "param[mnu] = 0.06 0 5 0.1 0.03",
+                                   "param[w] = -1 -3 1 0.1 0.05"])
+def test_driver_dispatch(tmp_path, sets, monkeypatch, body, extra):
+    """The astro ini reaches the minimizer and HMC (stubbed here); with mnu
+    or w free (the massive-neutrino hierarchy, the DE fluid) both raise
+    before any theory or kernel."""
+    from cosmomc_tpu_torch.sampling import hmc, minimize
+
+    def stub(*a, **k):
+        raise _Reached
+    monkeypatch.setattr(minimize, "find_best_fit", stub)
+    monkeypatch.setattr(hmc, "HMCSampler", stub)
+    monkeypatch.setattr(tpipe.CMBPosterior, "stage_slow", stub)
+    ini = tmp_path / "astro.ini"
+    ini.write_text(f"file_root = {tmp_path}/c/astro\n{sets}{body}\n{extra}\n")
+    post = tdriver.build_posterior(tdriver.IniFile(str(ini)), device="cpu")
+    assert post.remat_chunks == (64 if "hmc" in body else 0)
+    kernels.reset_launches()
+    if extra:
+        with pytest.raises(NotImplementedError, match="no reverse pass"):
+            tdriver.run_ini(str(ini), device="cpu")
+    else:
+        with pytest.raises(_Reached):
+            tdriver.run_ini(str(ini), device="cpu")
+    assert not any(kernels.launches.values())
+
+
+def test_remat_key_sets_the_checkpoints(tmp_path, sets):
+    ini = tmp_path / "astro.ini"
+    ini.write_text(f"{sets}sampling_method = hmc\n"
+                   "boltzmann_remat_chunks = 16\n")
+    post = tdriver.build_posterior(tdriver.IniFile(str(ini)), device="cpu")
+    assert post.remat_chunks == 16 and post.gradient_unsupported() is None
+
+
+def test_reverse_wrappers_take_no_plain_path():
+    """On CPU tensors that want a gradient the card's wrappers go to their
+    kernels, which refuse CPU tensors: no plain fallback."""
+    zt = torch.zeros(1, trec.N_ZT, 8, dtype=F64, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        trec._scan_cuda(zt, torch.ones(1, dtype=F64))
+    q = torch.zeros(1, 4, 3, tpert.NQ, dtype=F64, requires_grad=True)
+    k = torch.ones(2, dtype=F64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tpert._evolve_cuda(q, k, torch.ones(1, dtype=F64), tpert.RSA_KTAU)
+
+
+@pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True)])
+def test_extended_instantiations_have_no_reverse_kernel(sw):
+    massive_nu, de_perts = sw
+    q = torch.zeros(1, 4, 3, tpert.q_fields(massive_nu, de_perts), dtype=F64,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="no reverse kernel"):
+        tpert._evolve_cuda(q, torch.ones(2, dtype=F64),
+                           torch.ones(1, dtype=F64), tpert.RSA_KTAU,
+                           massive_nu, de_perts)
+
+
+def test_bwd_lanes_match_the_kernel_layout():
+    """csrc/perturbations.cu's blocks and threads of the reverse kernel, as
+    the wrapper sizes its scratch: up to 256 lanes a block, at least 64
+    threads (its 48-value reduction), a whole number of warps."""
+    for nk, want in ((8, (1, 64)), (216, (1, 224)), (248, (1, 256)),
+                     (256, (1, 256)), (300, (2, 256))):
+        assert tpert._bwd_lanes(nk) == want
+    assert np.all([tpert._bwd_lanes(n)[1] % 32 == 0 for n in range(1, 600)])
+
+
+def test_hessian_from_gradient_differences():
+    """estimate_covariance with `gradient_differences` (what action 2 takes
+    where the reverse kernels have no second derivative): the inverse of
+    the central differences of exact gradients, on a correlated Gaussian
+    -logL whose Hessian is known, equals its covariance."""
+    from cosmomc_tpu_torch.sampling.minimize import estimate_covariance
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((4, 4))
+    cov = A @ A.T + 4.0 * np.eye(4)
+    icov = torch.as_tensor(np.linalg.inv(cov), dtype=F64)
+    mu = torch.as_tensor(rng.standard_normal(4), dtype=F64)
+
+    def logpost(P):
+        d = P - mu
+        return 0.5 * torch.einsum("ci,ij,cj->c", d, icov, d), P[:, :0]
+    got = estimate_covariance(logpost, mu.numpy() + 0.1, device="cpu",
+                              gradient_differences=np.full(4, 1e-3))
+    np.testing.assert_allclose(got, cov, rtol=1e-9, atol=1e-12)
+    exact = estimate_covariance(logpost, mu.numpy(), device="cpu")
+    np.testing.assert_allclose(exact, cov, rtol=1e-9, atol=1e-12)
+    # at a bound the difference is one-sided, inside it
+    x = mu.numpy() + 0.1
+    lo = x - np.array([0.0, 1.0, 0.0, 1.0])
+    at_bound = estimate_covariance(logpost, x, device="cpu",
+                                   gradient_differences=np.full(4, 1e-3),
+                                   bounds=(lo, x + np.array([1.0, 0.0, 1.0, 0.0])))
+    np.testing.assert_allclose(at_bound, cov, rtol=1e-9, atol=1e-12)
+
+
+def test_r_minus_1_without_enough_samples_is_nan():
+    """HMC on the LSS-only configuration (29 parameters) computes R-1 after
+    segments shorter than that: the within-chain covariance is singular
+    there, and gelman_rubin_r_device gives NaN, as jnp.linalg.cholesky
+    does in the JAX package, instead of raising; with enough samples the
+    value is unchanged."""
+    from cosmomc_tpu_torch.sampling.convergence import (gelman_rubin_r,
+                                                        gelman_rubin_r_device)
+    rng = np.random.default_rng(1)
+    short = torch.as_tensor(rng.standard_normal((8, 4, 29)), dtype=F64)
+    assert torch.isnan(gelman_rubin_r_device(short))
+    x = rng.standard_normal((8, 64, 3))
+    xc = x - x.mean(1, keepdims=True)
+    covs = np.einsum("csi,csj->cij", xc, xc) / x.shape[1]
+    np.testing.assert_allclose(
+        float(gelman_rubin_r_device(torch.as_tensor(x, dtype=F64))),
+        gelman_rubin_r(x.mean(1), covs), rtol=1e-12)

@@ -1,0 +1,149 @@
+"""The reverse kernels against autograd of their plain versions, on the
+card. Every test here needs an NVIDIA GPU and nvcc and skips without them;
+run on the card with
+
+    python -m pytest tests/test_torch_grad_kernels.py -q --noconftest
+
+(this file imports neither jax nor cosmomc_tpu). Both versions see the
+same inputs and the same seeded cotangents on the card, at small shapes
+(chip_smoke.py phase 2 holds them at the main path's): float64 within 1e-9
+of each gradient's largest magnitude; float32 against the float64 plain
+gradient within the bound stated in each test.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cosmomc_tpu_torch import kernels
+from cosmomc_tpu_torch.models import constants as const
+from cosmomc_tpu_torch.models import perturbations as tpert
+from cosmomc_tpu_torch.models import recfast as trec
+from cosmomc_tpu_torch.models.background import BackgroundParams
+from cosmomc_tpu_torch.models.reionization import zre_from_tau
+
+pytestmark = pytest.mark.cuda
+F64, F32 = torch.float64, torch.float32
+
+
+def rel_err(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def cosmo(dev):
+    C = 2
+    bg = BackgroundParams.make(ombh2=np.linspace(0.0215, 0.0232, C),
+                               omch2=np.linspace(0.115, 0.125, C),
+                               H0=np.linspace(66.0, 69.0, C), nchains=C,
+                               device=dev, dtype=F64)
+    yhe = torch.linspace(0.242, 0.248, C, dtype=F64, device=dev)
+    return bg, yhe
+
+
+def test_recfast_reverse_kernel(dev, cosmo):
+    bg, yhe = cosmo
+    fHe = yhe / (const.mass_ratio_He_H * (1.0 - yhe))
+    Nnow = const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
+    zt = trec._z_tables(bg, trec.z_grid(1000, dev, F64), fHe,
+                        Nnow).float().double().contiguous()
+    fHe = fHe.float().double()
+    g = torch.Generator(device="cpu").manual_seed(4)
+    gxe = torch.randn(2, 1000, generator=g, dtype=F64).to(dev)
+    gtm = 1e-3 * torch.randn(2, 1000, generator=g, dtype=F64).to(dev)
+    z, f = zt.clone().requires_grad_(True), fHe.clone().requires_grad_(True)
+    xe, tm = trec._scan_plain(z, f)
+    ref = torch.autograd.grad((xe * gxe).sum() + (tm * gtm).sum(), [z, f])
+    for dt, tol in ((F64, 1e-9), (F32, 1e-4)):
+        kernels.reset_launches()
+        z = zt.to(dt).requires_grad_(True)
+        f = fHe.to(dt).requires_grad_(True)
+        xe, tm = trec._scan_cuda(z, f)
+        got = torch.autograd.grad((xe * gxe.to(dt)).sum()
+                                  + (tm * gtm.to(dt)).sum(), [z, f])
+        assert kernels.launches["recfast"] == 1
+        assert kernels.launches["recfast_bwd"] == 1
+        for a, b in zip(got, ref):
+            assert bool(torch.isfinite(a).all())
+            assert rel_err(a, b) <= tol, (dt, rel_err(a, b))
+
+
+@pytest.mark.parametrize("chunks", [4, 0])
+def test_boltzmann_reverse_kernel(dev, cosmo, chunks):
+    """256 steps, 16 k to 0.02/Mpc on a grid built for kmax 0.1, the
+    radiation-streaming switch at k tau = 40 (bounded lanes that switch; the
+    plain version's loop sets the size), an isocurvature amplitude on one
+    chain; 0 chunks takes the wrapper's default."""
+    bg, yhe = cosmo
+    with torch.no_grad():
+        th = trec.compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64, device=dev),
+                           yhe)
+        tf, _ = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=257,
+                                         kmax=0.1)
+        q = tpert._stage_tables(bg, tf).float().double().contiguous()
+    k = torch.as_tensor(np.geomspace(5e-4, 0.02, 16), dtype=F64, device=dev)
+    rnu = tpert._r_nu(bg).float().double().contiguous()
+    iso = torch.tensor([[0.2, 1.3, 0.84], [0.0, 1.3, 0.84]], dtype=F64,
+                       device=dev)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    gout = torch.randn(7, 2, q.shape[1], 16, generator=g, dtype=F64).to(dev)
+    qq, rr, ii = (t.clone().requires_grad_(True) for t in (q, rnu, iso))
+    o = tpert._evolve_plain(qq, k, rr, 40.0, iso=ii, remat_chunks=chunks)
+    ref = torch.autograd.grad((o * gout).sum(), [qq, rr, ii])
+    for dt, tol in ((F64, 1e-9), (F32, 1e-3)):
+        kernels.reset_launches()
+        qk, rk, ik = (t.to(dt).requires_grad_(True) for t in (q, rnu, iso))
+        ok = tpert._evolve_cuda(qk, k.to(dt), rk, 40.0, iso=ik,
+                                remat_chunks=chunks)
+        assert rel_err(ok, o) <= (1e-9 if dt == F64 else 1e-3)
+        got = torch.autograd.grad((ok * gout.to(dt)).sum(), [qk, rk, ik])
+        assert kernels.launches["boltzmann"] == 1
+        assert kernels.launches["boltzmann_bwd"] == 1
+        for a, b in zip(got, ref):
+            assert bool(torch.isfinite(a).all())
+            assert rel_err(a, b) <= tol, (dt, rel_err(a, b))
+
+
+def test_reverse_kernels_are_deterministic(dev, cosmo):
+    """The table's cotangent is summed over the k lanes in a fixed order:
+    two runs give the same bits."""
+    bg, yhe = cosmo
+    with torch.no_grad():
+        th = trec.compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64, device=dev),
+                           yhe)
+        tf, _ = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=129,
+                                         kmax=0.1)
+        q = tpert._stage_tables(bg, tf).contiguous()
+    k = torch.as_tensor(np.geomspace(5e-4, 0.02, 300), dtype=F64, device=dev)
+    rnu = tpert._r_nu(bg).contiguous()
+    gout = torch.ones(7, 2, q.shape[1], 300, dtype=F64, device=dev)
+    runs = []
+    for _ in range(2):
+        qk = q.clone().requires_grad_(True)
+        o = tpert._evolve_cuda(qk, k, rnu, 40.0, remat_chunks=8)
+        runs.append(torch.autograd.grad((o * gout).sum(), qk)[0])
+    assert torch.equal(runs[0], runs[1])
+
+
+def test_no_second_derivative(dev, cosmo):
+    """The reverse kernels have no derivative of their own: a second
+    derivative raises instead of coming back wrong."""
+    bg, yhe = cosmo
+    fHe = yhe / (const.mass_ratio_He_H * (1.0 - yhe))
+    Nnow = const.n_H_today(bg.ombh2, 1.0 / (1.0 - yhe))
+    zt = trec._z_tables(bg, trec.z_grid(200, dev, F64), fHe,
+                        Nnow).contiguous().requires_grad_(True)
+    xe, _ = trec._scan_cuda(zt, fHe)
+    (g,) = torch.autograd.grad(xe.sum(), zt, create_graph=True)
+    with pytest.raises(RuntimeError):
+        torch.autograd.grad(g.sum(), zt)

@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from cosmomc_tpu.grid import make_grid as jmake_grid
 from cosmomc_tpu.grid.batchjob import DataSet as JDataSet
@@ -30,6 +31,16 @@ from cosmomc_tpu_torch.grid.__main__ import main
 from cosmomc_tpu_torch.grid.jobqueue import JobQueue
 
 from test_torch_importance_minimize import write_background_sets
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -52,6 +52,16 @@ POINT = dict(ombh2=0.02237737, omch2=0.1201035, theta=1.0409020,
 CLS_TOL, MLL_RTOL = 1e-9, 1e-9
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def smooth_lensed(lmax):
     """A (4, 4, lmax+1) smooth stand-in for a lensed spectrum (muK^2)."""
     l = np.arange(lmax + 1, dtype=float)

@@ -48,6 +48,16 @@ RTOL = 1e-9
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rtol=RTOL):
     port = np.asarray(port, np.float64)
     ref = np.asarray(ref, np.float64)

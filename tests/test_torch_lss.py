@@ -55,6 +55,16 @@ DERIVED_RTOL = {"kd": 5e-3, "thetad": 5e-3}
 
 
 @pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def reduced_matter_grid():
     with pytest.MonkeyPatch.context() as m:
         m.setattr(jmp, "compute_matter_transfers", functools.partial(

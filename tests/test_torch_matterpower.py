@@ -44,6 +44,16 @@ N_STEP = 2048
 ZS = (0.0, 0.38, 0.61, 1.0, 2.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rtol=RTOL):
     port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
     assert port.shape == ref.shape, (port.shape, ref.shape)

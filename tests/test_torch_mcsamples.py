@@ -12,6 +12,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from cosmomc_tpu.analysis.mcsamples import MCSamples as JMCSamples
 from cosmomc_tpu.io.chains import ChainWriter as JChainWriter
@@ -24,6 +25,16 @@ from cosmomc_tpu_torch.utils.paramnames import ParamInfo, ParamNames
 
 RTOL = 1e-12
 NUM = re.compile(r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?|nan|inf")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_close(port, ref, rtol=RTOL):

@@ -48,6 +48,16 @@ CHAINS = np.array([[67.3, 0.120, 1.00, 0.00], [70.1, 0.115, 1.07, 0.03],
 ZS = np.array([0.0, 0.3, 0.5, 0.8, 1.2])
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rtol):
     port, ref = np.asarray(port, np.float64), np.asarray(ref, np.float64)
     assert port.shape == ref.shape, (port.shape, ref.shape)

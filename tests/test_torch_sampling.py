@@ -54,6 +54,16 @@ LO, HI = -40.0, 40.0
 
 # ---------------------------------------------------------------- helpers
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def jax_target(P):
     """Correlated Gaussian, -logL; NaN (an error point) where P[0] > 12."""
     m = 0.5 * P @ jnp.asarray(PREC) @ P

@@ -55,6 +55,16 @@ MLL_RTOL, MLL_ATOL = 1e-8, 1e-6
 DERIVED_RTOL = {"kd": 5e-3, "thetad": 5e-3}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spaces(spar, tpar_):
     js, ts = spar.default_space(), tpar_.default_space()
     for sp in (js, ts):
@@ -110,9 +120,26 @@ def points(posts):
     return np.vstack([P0, P0 + 0.7 * w * rng.standard_normal((4, len(w)))])
 
 
+def _slow_once(tpost):
+    """Make tpost.stage_slow compute once per input: the staged path in
+    test_staged_equals_monolithic then reads the slow caches of the
+    monolithic evaluation at the same points (the plain K4, K1 and K2a are
+    deterministic on the CPU, and the slow stage's parity is held to JAX
+    by the tests above), so the file runs them once."""
+    stage_slow, done = tpost.stage_slow, {}
+
+    def once(full):
+        key = full.detach().numpy().tobytes()
+        if key not in done:
+            done[key] = stage_slow(full)
+        return done[key]
+    tpost.stage_slow = once
+
+
 @pytest.fixture(scope="module")
 def evaluated(posts, points):
     jpost, tpost = posts
+    _slow_once(tpost)
     jfn = jax.jit(jpost.logpost())
     ref = [jfn(jnp.asarray(p)) for p in points]
     j_mll = np.array([float(m) for m, _ in ref])
@@ -151,7 +178,8 @@ def test_derived_matches(posts, evaluated, name):
 def test_staged_equals_monolithic(posts, points, evaluated):
     """The sampler's staged path (stage_slow -> stage_semi -> stage_fast,
     then bounds and priors) against the monolithic logpost() of
-    `evaluated`, at all 5 points."""
+    `evaluated`, at all 5 points; the slow stage's caches are the ones
+    `evaluated` computed (`_slow_once`)."""
     _, tpost = posts
     _, _, t_mll, t_der = evaluated
     prop = tpost.make_proposal()

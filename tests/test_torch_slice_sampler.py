@@ -29,6 +29,16 @@ from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler as TSample
 from test_torch_slice import F64, MLL_ATOL, MLL_RTOL, points, posts  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_draws(jsampler, state, sched):
     """The JAX segment's random numbers, recomputed from its key exactly as
     staged.py:197-202 and :146, proposal.py:314-324 draw them."""

@@ -36,6 +36,16 @@ TEEE_SPECS = {"alphaDust_TE": (-2.42, -3.0, -2.0, 0.02, 0.02),
               "alphaDust_EE": (-2.42, -3.0, -2.0, 0.02, 0.02)}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Theory:
     def __init__(self, cls):
         self.cls = cls

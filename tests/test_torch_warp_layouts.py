@@ -36,6 +36,16 @@ COSMOLOGIES = [(0.02237, 0.1200, 67.4, 0.245), (0.0215, 0.115, 66.0, 0.240),
 N_Z = 1500
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs in several worker processes on a few cores; torch's
+    own thread pool on top of them oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
