@@ -40,7 +40,8 @@ under SamplingRun, 32 chains, then resumes it bit for bit.
 Phase 2 also holds K1's extended instantiations, the massive-neutrino
 hierarchy and the dark-energy fluid (with a CDM-isocurvature chain), to
 the plain version in float64, on the source grid and (massive nu) on the
-matter grid.
+matter grid; it does so after phase 12, the plain versions computed by a
+second process on the card beside phases 3-12 (`--plain-card`).
 Phase 9 runs Planck 2018's base_mnu on the flagship (mnu free, matter
 power; K1's massive-neutrino instantiation twice a slow step): float32
 against float64, plik_lite + a DR12 set with f_sigma8 rows + the tau prior,
@@ -71,7 +72,17 @@ the grid CLI.
 Phase 14 runs the gradient path on phase 12's configuration: the float64
 gradient against central differences and against the host CPU's plain
 gradient (`--cpu-grad`, started before phase 2), HMC through the CLI
-(started before phase 13), action 2, and the flagship's refusals.
+(started before phase 13) and action 2.
+Phase 2 also holds the reverse kernels of K2a and K3 (los_bwd,
+lensing_bwd) at the flagship's shapes to autograd of their plain versions
+on the card, and K1's (boltzmann_bwd) on the CMB grid at 8191 steps to its
+plain version on the host CPU (`--plain-ref-cmb`, one chain).
+Phase 15 runs the flagship's gradient at full width in float64 through
+K4, K1, K2a, K3 and their reverse kernels: against central differences
+without halofit, against the host CPU's plain gradient at
+test_torch_slice.py's small config (`--cpu-grad-cmb`), HMC through the
+CLI on the flagship ini (started after phase 5), action 2 on it, and the
+refusals of LCDM+r and base_mnu.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -186,8 +197,14 @@ DRIVER_GRID = dict(num_chains=64, segment_steps=64, samples=512)
 #: own beside the card's phases (few: the card's phases are host-bound
 #: too), JOB_TIMEOUT seconds at most
 GRAD_CHUNKS = 64
-GRAD_F32_TOL = {"recfast_bwd": 1e-4, "boltzmann_bwd": 1e-3}
-JOB_THREADS, JOB_TIMEOUT = {"--plain-ref": 2, "--cpu-grad": 1}, 900
+GRAD_F32_TOL = {"recfast_bwd": 1e-4, "boltzmann_bwd": 1e-3, "los_bwd": 1e-3,
+                "lensing_bwd": 1e-5}
+JOB_THREADS = {"--plain-ref": 2, "--cpu-grad": 1, "--plain-ref-cmb": 2,
+               "--cpu-grad-cmb": 1, "--plain-card": 1}
+JOB_TIMEOUT = 900
+#: chains of the CMB-grid K1 reference on the host CPU (8191 plain steps
+#: under autograd there take minutes a chain)
+CMB_REF_CHAINS = 1
 #: phase 14's comparison with the CPU's plain gradient runs both on
 #: test_torch_lss_astro.py's reduced matter grid (36 k to 2/Mpc, 2048
 #: steps; the full grid's 6143 plain steps under autograd take ~950 s on
@@ -206,6 +223,17 @@ GRAD_HMC = dict(num_chains=8, hmc_warmup_segments=2, segment_steps=4,
                 samples=8, hmc_leapfrog_steps=4)
 GRAD_HMC_ACCEPT = (0.05, 1.0)
 GRAD_MIN_REFINE, GRAD_MIN_ITER = 16, 10
+#: phase 15 (the flagship's gradient): test_torch_slice.py's small config,
+#: at which the card's gradient is held to the host CPU's plain one
+#: (`--cpu-grad-cmb`, started before phase 2); the HMC run through the CLI
+#: (started after phase 5; a step of 0.01 proposal widths to start from:
+#: the synthetic plik_lite set puts the posterior's width at ~0.07 of them,
+#: and one short warmup segment does not adapt far from the start)
+FLAG_SMALL = dict(kmax=0.1, source_nk=(24, 48), n_step_boltzmann=2048)
+FLAG_HMC = dict(num_chains=8, hmc_warmup_segments=1, segment_steps=2,
+                samples=4, hmc_leapfrog_steps=4, hmc_step_size=0.01)
+#: phase 15's central differences also at these steps (logged)
+FLAG_FD_STEPS = (3e-6, 1e-5)
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
@@ -232,6 +260,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                     "cosmomc_tpu/models/recfast.py:279"),
     "boltzmann_bwd": ("cosmomc_tpu_torch/csrc/perturbations.cu",
                       "cosmomc_tpu/models/perturbations.py:928"),
+    "los_bwd": ("cosmomc_tpu_torch/csrc/cls.cu", "cosmomc_tpu/models/cls.py:285"),
+    "lensing_bwd": ("cosmomc_tpu_torch/csrc/lensing.cu",
+                    "cosmomc_tpu/models/lensing.py:136"),
 }
 #: the kernels each main path must launch (phase 5 "runner" is the
 #: flagship under SamplingRun; phase 6 "background" launches none; phase 7
@@ -242,7 +273,9 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: 12 "lss_bbn" the astro configuration with DES, SZ, BBN and BAO; phase
 #: 13 "driver" action 0 of `python -m cosmomc_tpu_torch` on the flagship
 #: ini; phase 14 "gradient" the gradient of phase 12's configuration and
-#: action 2 on it, the forward kernels with their reverse kernels; K1's
+#: action 2 on it, the forward kernels with their reverse kernels; phase 15
+#: "flagship_grad" the flagship's gradient and action 2 on its ini, the
+#: four forward kernels and their four reverse kernels; K1's
 #: fourth instantiation, boltzmann_nu_de, is on no path: phase 2 holds it to
 #: its plain version)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
@@ -258,7 +291,10 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lss_bbn": ("recfast", "boltzmann"),
                 "driver": ("recfast", "boltzmann", "los", "lensing"),
                 "gradient": ("recfast", "boltzmann", "recfast_bwd",
-                             "boltzmann_bwd")}
+                             "boltzmann_bwd"),
+                "flagship_grad": ("recfast", "boltzmann", "los", "lensing",
+                                  "recfast_bwd", "boltzmann_bwd", "los_bwd",
+                                  "lensing_bwd")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -297,6 +333,12 @@ OPS = {
     # 4 x 4-point interpolation 28, the weights 4, x, index, fraction, 1 - f
     # 4, 1/x, 1/x^2 2, the folded coefficients 5
     "los": (16, 43),
+    # its reverse (csrc/cls.cu los_bwd): per (chain, l, k, tau) point two
+    # differences of table neighbours 2, l(l+1) G_T + G_E efac 2 and eight
+    # multiply-adds 16; per (chain, k, tau) the forward's per-node terms 43
+    # and the cotangents of the sources, x and the weights from the eight
+    # sums ~45
+    "los_bwd": (20, 88),
     # the least arithmetic that computes the function (models/cls.py:
     # _los_rec_plain, counted on the data phase 2 runs): per (chain, k,
     # tau, l) point on the live lattice (x above the Airy cut) the
@@ -509,10 +551,21 @@ def check_f32_floor(name, k32, r64, floor):
     return abs_err(k32, r64)
 
 
-def k1_variant_against_plain(name, q, k, rnu, sw, iso=None):
+def k1_variant_plain(q, k, rnu, sw, iso=None):
+    """The plain version of an extended K1 instantiation, once, in float64
+    on the float32 inputs upcast: (milliseconds, planes)."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    up = (q.float().double(), k.float().double(), rnu.float().double(),
+          mpert.RSA_KTAU, *sw)
+    iso_u = None if iso is None else iso.float().double()
+    return timed(lambda: mpert._evolve_plain(*up, iso=iso_u))
+
+
+def k1_variant_against_plain(name, q, k, rnu, sw, iso=None, ref=None):
     """An extended K1 instantiation (sw = (massive_nu, de_perts)) against
     its plain version on the float32 stage table q: the plain version once,
-    in float64 on the float32 inputs upcast (timed), holds the float64
+    in float64 on the float32 inputs upcast (`k1_variant_plain`, timed; or
+    `ref`, its result from the `--plain-card` process), holds the float64
     kernel (1e-9) and the float32 kernel (K1_VARIANT_F32_FLOOR); the
     float32 kernel timed over 3 launches. Returns the float32 |kernel -
     plain| maximum, both times and the float32 inputs and kernel output."""
@@ -521,7 +574,7 @@ def k1_variant_against_plain(name, q, k, rnu, sw, iso=None):
     iso32 = None if iso is None else iso.float()
     iso_u = None if iso is None else iso32.double()
     up = (q32.double(), k32.double(), rnu32.double(), mpert.RSA_KTAU, *sw)
-    plain_ms, o_r = timed(lambda: mpert._evolve_plain(*up, iso=iso_u))
+    plain_ms, o_r = ref if ref is not None else k1_variant_plain(q, k, rnu, sw, iso)
     check_f64(name, mpert._evolve_cuda(*up, iso=iso_u), o_r)
 
     def kern():
@@ -838,6 +891,8 @@ def phase2(dev, results):
         f"alone, plain {plain_ms:.1f} ms; bound {r['bound_ms']:.4f} ms "
         f"({r['ops']['fp32']:.4e} ops), whole lattice at 40 a point "
         f"{r['bound_ms_whole_lattice']:.4f} ms")
+    # what the reverse checks of K2a and K3 read (phase2_reverse_cmb)
+    return dict(po64=po64, chi=chi, kgrid=kgrid, st64=st64, ls=raw.ls)
 
 
 def phase2_matter(dev, results):
@@ -989,7 +1044,7 @@ class VariantInputs:
                                                 kmax=kmax)[0] for n in n_step}
 
 
-def phase2_nu_de(dev, results, vi=None):
+def phase2_nu_de(dev, results, vi=None, ref=None):
     """K1's fourth instantiation (massive nu and the DE fluid together,
     `boltzmann_nu_de`) against its plain version run once in float64 on
     the float32 inputs upcast, at the width of phase2_variants' other
@@ -1008,7 +1063,7 @@ def phase2_nu_de(dev, results, vi=None):
     iso = mpert.iso_inputs(vi.bg, vi.b)
     err, ms, plain_ms, (q32, k32, rnu32, iso32, o_k) = k1_variant_against_plain(
         "boltzmann_nu_de", mpert._stage_tables(vi.bg, vi.tfs[K1_CMP_STEPS], *sw),
-        vi.k, vi.rnu, sw, iso)
+        vi.k, vi.rnu, sw, iso, ref=ref)
     cmp_bound = bound({"fp32": k1_ops(q32, nk, "boltzmann_nu_de")},
                       nbytes(q32, k32, rnu32, iso32, o_k))
     q = mpert._stage_tables(vi.bg, vi.tfs[mpert.N_STEP], *sw).float()
@@ -1027,7 +1082,72 @@ def phase2_nu_de(dev, results, vi=None):
         bound_ms_8192_steps=full_bound, **cmp_bound)
 
 
-def phase2_variants(dev, results):
+def matter_nu_case(vi):
+    """The massive-neutrino instantiation's matter-grid case: one chain at
+    mnu 0.1 eV, w0 -0.9, wa -0.3 on matter_k_grid(), at the first step
+    count of MATTER_CMP_STEPS where the kernel keeps every lane bounded in
+    both precisions. Returns (bg, thermal functions, k, r_nu, that count,
+    its stage table)."""
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    kgrid = mpw.matter_k_grid()
+    one = np.array([[{**BESTFIT, "mnu": 0.1, "w": -0.9, "wa": -0.3}.get(p.name, p.center)
+                     for p in vi.space.params]])
+    bg1, tfm = vi.inputs(one, MATTER_CMP_STEPS, float(kgrid[-1]))
+    km = torch.as_tensor(kgrid, dtype=F64, device=vi.dev)
+    rnu1 = mpert._r_nu(bg1).contiguous()
+    i_dm = mpert.PLANES.index("dm")
+    sw = (True, False)
+    for n in MATTER_CMP_STEPS:
+        q = mpert._stage_tables(bg1, tfm[n], *sw)
+        big = {}
+        for dt in (F32, F64):
+            o = mpert._evolve_cuda(q.to(dt), km.to(dt), rnu1.to(dt), mpert.RSA_KTAU, *sw)
+            big[dt] = (float(o[i_dm].abs().max()) if bool(torch.isfinite(o).all())
+                       else math.inf)
+        log(f"  boltzmann_nu, matter grid, {n} steps: max |delta_m| float32 "
+            f"{big[F32]:.4g}, float64 {big[F64]:.4g}")
+        if max(big.values()) < MATTER_BOUNDED:
+            return bg1, tfm, km, rnu1, n, q
+    require(False, "K1 boltzmann_nu bounded on the matter grid at some step count")
+
+
+#: the plain versions that phase2_variants and phase2_nu_de hold K1's
+#: extended instantiations to: (name, (massive_nu, de_perts), with the
+#: isocurvature chain)
+VARIANT_CASES = (("boltzmann_nu", (True, False), False),
+                 ("boltzmann_de", (False, True), True),
+                 ("boltzmann_nu_de", (True, True), True))
+
+
+def variant_plain_refs(d):
+    """--plain-card DIR: the plain versions of K1's extended instantiations
+    (VARIANT_CASES on VariantInputs at K1_CMP_STEPS, and the massive-nu
+    matter-grid case), float64 on the float32 inputs upcast, on the card:
+    Python loops of ~2048 steps bound by their launches, so a process of
+    their own runs them beside the main one's phases 3-12 (started after
+    phase 2, whose kernel timings it would share the card with). Writes
+    DIR/plain_card.pt: each result on the host with its milliseconds (and
+    the matter case's step count)."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    sys.path.insert(0, HERE)
+    vi = VariantInputs(torch.device("cuda"))
+    out = {}
+    for name, sw, with_iso in VARIANT_CASES:
+        iso = mpert.iso_inputs(vi.bg, vi.b) if with_iso else None
+        ms, o = k1_variant_plain(mpert._stage_tables(vi.bg, vi.tfs[K1_CMP_STEPS], *sw),
+                                 vi.k, vi.rnu, sw, iso)
+        out[name] = (ms, o.cpu())
+        print(f"{name} plain {ms:.1f} ms", flush=True)
+    _, _, km, rnu1, n, q = matter_nu_case(vi)
+    ms, o = k1_variant_plain(q, km, rnu1, (True, False))
+    out["boltzmann_nu.matter"] = (ms, o.cpu(), n)
+    print(f"boltzmann_nu.matter plain {ms:.1f} ms at {n} steps", flush=True)
+    torch.save(out, os.path.join(d, "plain_card.pt"))
+    return 0
+
+
+def phase2_variants(dev, results, refs=None):
     """K1's extended instantiations on the main paths of phases 9 and 10,
     VariantInputs' 8 chains x 248 k on the source grid (the DE fluid also
     with its isocurvature chain): against the plain version at 2048 steps,
@@ -1035,20 +1155,25 @@ def phase2_variants(dev, results):
     massive-neutrino instantiation on the matter grid (one chain at mnu
     0.1 eV) at the first bounded count of MATTER_CMP_STEPS, and both
     instantiations timed there at 6144 steps; then both extensions
-    together (phase2_nu_de)."""
-    from cosmomc_tpu_torch.models import matterpower as mpw
+    together (phase2_nu_de). `refs`: the plain versions from the
+    `--plain-card` process (computed here when None)."""
     from cosmomc_tpu_torch.models import perturbations as mpert
 
     vi = VariantInputs(dev)
-    space, bg, tfs, k, rnu, b = vi.space, vi.bg, vi.tfs, vi.k, vi.rnu, vi.b
-    inputs = vi.inputs
+    bg, tfs, k, rnu, b = vi.bg, vi.tfs, vi.k, vi.rnu, vi.b
     nk = k.shape[0]
-    for name, sw, iso in (("boltzmann_nu", (True, False), None),
-                          ("boltzmann_de", (False, True), mpert.iso_inputs(bg, b))):
+
+    def ref(name):
+        if refs is None:
+            return None
+        return refs[name][0], refs[name][1].to(dev)
+    for name, sw, with_iso in VARIANT_CASES[:2]:
+        iso = mpert.iso_inputs(bg, b) if with_iso else None
         log(f"K1 {name}: {NCHAINS} chains x {nk} k; compare at {K1_CMP_STEPS} steps"
             + (" (isocurvature b = 0.2 on chain 0)" if iso is not None else ""))
         err, ms, plain_ms, (q32, k32, rnu32, iso32, o_k) = k1_variant_against_plain(
-            name, mpert._stage_tables(bg, tfs[K1_CMP_STEPS], *sw), k, rnu, sw, iso)
+            name, mpert._stage_tables(bg, tfs[K1_CMP_STEPS], *sw), k, rnu, sw, iso,
+            ref=ref(name))
         cmp_bound = bound({"fp32": k1_ops(q32, nk, name)},
                           nbytes(q32, k32, rnu32, o_k, *([iso32] if iso is not None else [])))
         one = lambda x: None if x is None else x[:1].contiguous()
@@ -1077,30 +1202,13 @@ def phase2_variants(dev, results):
                              **cmp_bound)
 
     # the matter grid: one chain at mnu 0.1 eV, w0 -0.9, wa -0.3
-    kgrid = mpw.matter_k_grid()
-    kmax = float(kgrid[-1])
-    one = np.array([[{**BESTFIT, "mnu": 0.1, "w": -0.9, "wa": -0.3}.get(p.name, p.center)
-                     for p in space.params]])
-    bg1, tfm = inputs(one, MATTER_CMP_STEPS, kmax)
-    km = torch.as_tensor(kgrid, dtype=F64, device=dev)
-    rnu1 = mpert._r_nu(bg1).contiguous()
-    i_dm = mpert.PLANES.index("dm")
+    bg1, tfm, km, rnu1, n, q = matter_nu_case(vi)
+    kgrid, kmax = km.cpu().numpy(), float(km[-1])
     sw = (True, False)
-    for n in MATTER_CMP_STEPS:
-        q = mpert._stage_tables(bg1, tfm[n], *sw)
-        big = {}
-        for dt in (F32, F64):
-            o = mpert._evolve_cuda(q.to(dt), km.to(dt), rnu1.to(dt), mpert.RSA_KTAU, *sw)
-            big[dt] = (float(o[i_dm].abs().max()) if bool(torch.isfinite(o).all())
-                       else math.inf)
-        log(f"  boltzmann_nu, matter grid, {n} steps: max |delta_m| float32 "
-            f"{big[F32]:.4g}, float64 {big[F64]:.4g}")
-        if max(big.values()) < MATTER_BOUNDED:
-            break
-    else:
-        require(False, "K1 boltzmann_nu bounded on the matter grid at some step count")
+    require(refs is None or refs["boltzmann_nu.matter"][2] == n,
+            "the plain reference's matter-grid step count is the kernel's")
     err, ms, plain_ms, (q32, k32, rnu32, _, o_k) = k1_variant_against_plain(
-        "boltzmann_nu.matter", q, km, rnu1, sw)
+        "boltzmann_nu.matter", q, km, rnu1, sw, ref=ref("boltzmann_nu.matter"))
     mg = dict(nk=len(kgrid), kmax=kmax, compare_steps=n, max_abs_err=err, ms=ms,
               plain_ms=plain_ms, **{f: v for f, v in bound(
                   {"fp32": k1_ops(q32, len(kgrid), "boltzmann_nu")},
@@ -1118,7 +1226,7 @@ def phase2_variants(dev, results):
             f"{b6:.4f} ms; base K1 {results['boltzmann']['matter_grid']['ms_6144_steps']:.3f} ms)")
         results[name].setdefault("matter_grid", {}).update(
             ms_6144_steps=ms6, bound_ms_6144_steps=b6)
-    phase2_nu_de(dev, results, vi)
+    phase2_nu_de(dev, results, vi, ref("boltzmann_nu_de"))
 
 
 def write_theory_cl(path, cls):
@@ -2709,7 +2817,7 @@ def mll_at(post, P):
 
 
 def driver_flagship(dev, d, fid, times):
-    """Phase 13's steps 1, 2, 3 and 5 (drive_driver) on the flagship ini
+    """Phase 13's steps 1, 2 and 3 (drive_driver) on the flagship ini
     written under `d`; adds each step's wall time to `times`. Returns
     step 2's launch counts and its launches a segment."""
     from cosmomc_tpu_torch import driver, kernels
@@ -2720,7 +2828,6 @@ def driver_flagship(dev, d, fid, times):
     from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
     from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
     from cosmomc_tpu_torch.models.bbn import load_bbn_table
-    from cosmomc_tpu_torch.models.lensing import lens_cls
     from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
     from cosmomc_tpu_torch.pipeline import CMBPosterior
     from cosmomc_tpu_torch.sampling import importance, runner
@@ -2852,31 +2959,6 @@ def driver_flagship(dev, d, fid, times):
     require(os.path.isfile(os.path.join(d, "chains", "flagship_hst_post_1.txt")),
             "action 1 wrote the post chains")
 
-    # 5. the same keys on the flagship ini raise before any launch
-    t0 = time.time()
-    for over in ({"action": "2"}, {"action": "0", "sampling_method": "hmc"}):
-        kernels.reset_launches()
-        try:
-            driver.run_ini(flag, over)
-            raised = False
-        except NotImplementedError as e:
-            raised = "queue 1 item 4" in str(e)
-        require(raised and not any(kernels.launches.values()),
-                f"{over} on the flagship raises before any kernel launch")
-    # and K3's wrapper, which the semi stage runs, on spectra that want a
-    # gradient
-    ls = torch.arange(2, 81, dtype=F64, device=dev)
-    spectra = torch.ones(4, 1, 79, dtype=F64, device=dev, requires_grad=True)
-    kernels.reset_launches()
-    try:
-        lens_cls(ls, *spectra, lmax_lensed=60)
-        raised = False
-    except NotImplementedError as e:
-        raised = "queue 1 item 4" in str(e)
-    require(raised and not any(kernels.launches.values()),
-            "lens_cls on the card raises for a gradient before any launch")
-    times["5 raises"] = time.time() - t0
-
     return launches, per_segment
 
 
@@ -2975,9 +3057,8 @@ def drive_driver(dev, tmp, fid, bg):
          with autograd on the card: the .minimum at or below the centre's
          -logL, a positive definite Hessian covmat; HMC accepting > 0.4
          with omegam and H0 within 3 pooled sigma of the truth;
-      5. the same two keys on the flagship ini raising NotImplementedError
-         before any kernel launch, and K3's wrapper so on spectra that
-         want a gradient;
+      5. (since the flagship takes gradients, its action 2 and HMC are
+         phase 15's, and so are the raises of LCDM+r and base_mnu);
       6. `python -m cosmomc_tpu_torch.grid make / run / status` on a
          one-job background grid with one importance rerun (HST added).
     Returns step 2's launch counts and its launches a segment."""
@@ -3002,9 +3083,9 @@ def _job_env(threads):
 
 
 def start_job(mode, d):
-    """This script in `mode` (--plain-ref or --cpu-grad) on the directory
-    `d`, in a process of its own on the host's CPU, beside the card's
-    phases; its output goes to d/<mode>.log."""
+    """This script in `mode` (a key of JOB_THREADS) on the directory `d`,
+    in a process of its own beside the main one's phases: on the host's
+    CPU, or on the card (--plain-card); its output goes to d/<mode>.log."""
     log_f = open(os.path.join(d, mode.strip("-") + ".log"), "w")
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, d],
                             cwd=HERE, env=_job_env(JOB_THREADS[mode]),
@@ -3101,9 +3182,18 @@ def reverse_inputs(dev, d):
                   rnu=r32(mpert._r_nu(bg)), iso=torch.zeros(C, 3, dtype=F64),
                   g_out=g_out, qtab6144=r32(q6))
     torch.save(inputs, os.path.join(d, "inputs.pt"))
+    # K1 on the CMB source grid (248 k, the flagship's 8192 steps), the
+    # cotangents dense on the four source planes K2a reads
+    from cosmomc_tpu_torch.models.cmb import source_k_grid
+    kc = torch.as_tensor(source_k_grid(kmax=0.5), dtype=F64, device=dev)
+    tfc, _ = mpert.build_thermo_funcs(bg, yhe, th, zre)
+    qc = mpert._stage_tables(bg, tfc)
+    torch.save(dict(qtab=r32(qc), k=r32(kc), rnu=inputs["rnu"],
+                    iso=inputs["iso"]), os.path.join(d, "inputs_cmb.pt"))
     log(f"phase 2 (reverse): inputs written; K4 {C} chains x {mrec.N_Z} z, K1 "
-        f"{C} chains x {nk} k x {S} steps (matter grid), {GRAD_CHUNKS} chunks; "
-        f"the plain references run on the host CPU beside the card's phases")
+        f"{C} chains x {nk} k x {S} steps (matter grid) and x {len(kc)} k x "
+        f"{qc.shape[1]} steps (CMB grid), {GRAD_CHUNKS} chunks; the plain "
+        f"references run on the host CPU beside the card's phases")
 
 
 def plain_references(d):
@@ -3134,6 +3224,42 @@ def plain_references(d):
     print(f"K1 plain forward + backward {out['boltzmann_bwd']['seconds']:.1f} s",
           flush=True)
     torch.save(out, os.path.join(d, "refs.pt"))
+    return 0
+
+
+def cmb_cotangent(C, S, nk):
+    """The seeded cotangent of K1's planes on the CMB grid, (7, C, S, nk)
+    float64 on the host: dense on the four source planes K2a reads (s0,
+    s1, s2, slens), 0 on the matter planes; the same in every process."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    g = torch.Generator().manual_seed(16)
+    out = torch.zeros(len(mpert.PLANES), C, S, nk, dtype=F64)
+    for p in ("s0", "s1", "s2", "slens"):
+        out[mpert.PLANES.index(p)] = torch.randn(C, S, nk, generator=g,
+                                                 dtype=F64)
+    return out
+
+
+def plain_references_cmb(d):
+    """--plain-ref-cmb DIR: autograd of the plain K1 version on the CMB
+    grid (float64, host CPU) for the first CMB_REF_CHAINS chains of
+    DIR/inputs_cmb.pt: chains do not couple, so their cotangents are those
+    of the card's run over all NCHAINS; writes DIR/refs_cmb.pt."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    torch.set_num_threads(JOB_THREADS["--plain-ref-cmb"])
+    inp = torch.load(os.path.join(d, "inputs_cmb.pt"))
+    n = CMB_REF_CHAINS
+    t0 = time.time()
+    q, rnu, iso = (inp[k][:n].clone().requires_grad_(True)
+                   for k in ("qtab", "rnu", "iso"))
+    o = mpert._evolve_plain(q, inp["k"], rnu, mpert.RSA_KTAU, iso=iso,
+                            remat_chunks=GRAD_CHUNKS)
+    g_out = cmb_cotangent(NCHAINS, *o.shape[2:])[:, :n]
+    g = torch.autograd.grad((o * g_out).sum(), [q, rnu, iso])
+    out = dict(g=g, seconds=time.time() - t0)
+    print(f"K1 (CMB grid, {n} chain(s)) plain forward + backward "
+          f"{out['seconds']:.1f} s", flush=True)
+    torch.save(out, os.path.join(d, "refs_cmb.pt"))
     return 0
 
 
@@ -3264,6 +3390,204 @@ def phase2_reverse(dev, results, d, job):
         f"{ms6[F64][1]:.2f} ms)")
 
 
+def phase2_reverse_cmb(dev, results, cmb, d, job):
+    """The reverse kernels of the flagship's gradient at its shapes,
+    against autograd of their plain versions, float64 within 1e-9 of each
+    output's largest magnitude, float32 within GRAD_F32_TOL; each timed
+    (the forward, the backward) and bounded by its reverse-mode operations
+    and the bytes it reads and writes once:
+      - los_bwd (K2a): phase 2's 8 chains x 109 l x 4521 k x 2048 tau (the
+        8192-step sources, rounded to float32 so both precisions read the
+        same numbers), a seeded cotangent on Delta_T, Delta_E, Delta_P; the
+        plain version under autograd on the card, four chains a call;
+      - lensing_bwd (K3): phase 2's 8 chains of unlensed spectra, l 2..2658
+        -> 2508, 5315 theta, a seeded cotangent on the pass-3 sums; the
+        plain version under autograd on the card for chains 0 and 1 (its
+        graph holds ~4 GB a chain; chains do not couple);
+      - boltzmann_bwd (K1) on the CMB grid: 8 chains x 248 k x 8191 steps in
+        GRAD_CHUNKS chunks, the cotangent dense on the four source planes
+        (`cmb_cotangent`); the plain version under autograd on the host CPU
+        for the first CMB_REF_CHAINS chain(s) (`--plain-ref-cmb`)."""
+    from cosmomc_tpu_torch.models import cls as mcls
+    from cosmomc_tpu_torch.models import lensing as mlens
+    from cosmomc_tpu_torch.models import perturbations as mpert
+
+    def compare(name, names, k64, k32, ref, sub=slice(None)):
+        e64, e32, a32 = [], [], []
+        for n, a, b, r in zip(names, k64, k32, ref):
+            a, b = a[sub], b[sub]
+            require(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+                    f"{name} {n} finite")
+            e64.append(rel_err(a, r))
+            e32.append(rel_err(b, r))
+            a32.append(abs_err(b, r))
+            log(f"  {name} {n}: float64 err {e64[-1]:.3e}, float32 err "
+                f"{e32[-1]:.3e} (of the largest |grad| {float(r.abs().max()):.4g})")
+        require(max(e64) <= 1e-9, f"{name} float64 within 1e-9 of its plain version")
+        require(max(e32) <= GRAD_F32_TOL[name],
+                f"{name} float32 within {GRAD_F32_TOL[name]} of the float64 plain")
+        return max(a32), max(e64)
+
+    # ---- K2a reverse
+    po64, chi, kgrid = cmb["po64"], cmb["chi"], cmb["kgrid"]
+    key = (2658, 14200.0, 0.5, 4.0, 256, tuple(np.asarray(kgrid, np.float64).tolist()))
+    plan = mcls._plan(*key)
+    fields = ("tau", "k", "s0", "s1", "s2", "slens", "tau0")
+    po32 = po64._replace(**{f: getattr(po64, f).float().double() for f in fields})
+    ins = {}
+    for dt in (F64, F32):
+        po = po32._replace(**{f: getattr(po32, f).to(dt) for f in fields})
+        src, chi_arg, wt, wl = mcls._los_inputs(po, chi.float().to(dt), 4)
+        ins[dt] = (src, mcls._device_plan(key, str(src.device), dt), chi_arg,
+                   wt, wl, float(torch.tensor(1.0 / plan.dx, dtype=dt)))
+    src, dp, chi_arg, wt, wl, inv_dx = ins[F64]
+    C, _, nk, nt = src.shape
+    nl, nkf = dp["ls"].shape[0], dp["kf"].shape[0]
+    gen = torch.Generator().manual_seed(17)
+    g = torch.zeros(3, C, nl, nkf, dtype=F64)
+    g[:, :, :len(plan.ls), :len(plan.kf)] = torch.randn(
+        3, C, len(plan.ls), len(plan.kf), generator=gen, dtype=F64)
+    g = g.to(dev)
+    got = {}
+    for dt in (F64, F32):
+        src, dp, chi_arg, wt, wl, inv_dx = ins[dt]
+        gd = g.to(dt)
+        fwd = lambda: mcls._los_cuda(src, dp, chi_arg, wt, wl, inv_dx)
+        fwd()
+        fwd_ms, _ = timed(fwd, 3)
+        bwd = lambda: mcls._los_bwd_cuda(src, dp, chi_arg, wt, wl, inv_dx, gd)
+        bwd()
+        bwd_ms, gk = timed(bwd, 3)
+        xs = [t.clone().requires_grad_(True) for t in (src, chi_arg, wt, wl)]
+        out = mcls._Los.apply(*xs, dp, inv_dx)
+        ga = torch.autograd.grad((out * gd).sum(), xs)
+        require(all(bool(torch.equal(a, b)) for a, b in zip(ga, gk)),
+                f"K2a reverse through autograd = the reverse kernel ({dt})")
+        got[dt] = (gk, fwd_ms, bwd_ms)
+    src, dp, chi_arg, wt, wl, inv_dx = ins[F64]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = [[], [], [], []]
+    for c0 in range(0, C, 4):
+        sl = slice(c0, c0 + 4)
+        xs = [t[sl].clone().requires_grad_(True) for t in (src, chi_arg, wt, wl)]
+        out = mcls._los_plan_plain(xs[0], dp, xs[1], xs[2], xs[3], inv_dx)
+        for r, x in zip(ref, torch.autograd.grad((out * g[:, sl]).sum(), xs)):
+            r.append(x)
+        del out
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    ref = [torch.cat(r, 0) for r in ref]
+    err32, err64 = compare("los_bwd", ("grad_src", "grad_chi", "grad_wt", "grad_wl"),
+                           got[F64][0], got[F32][0], ref)
+    per_pt, per_knode = OPS["los_bwd"]
+    s32 = ins[F32]
+    b = bound({"fp32": C * nkf * nt * (nl * per_pt + per_knode)},
+              nbytes(s32[0], s32[2], s32[3], s32[4], g.float(), s32[1]["packed"],
+                     *got[F32][0]))
+    results["los_bwd"] = dict(
+        max_abs_err=err32, ms=got[F32][2], plain_ms=1e3 * plain_s,
+        fwd_ms=got[F32][1], ms_f64=got[F64][2], fwd_ms_f64=got[F64][1],
+        f64_rel_err=err64,
+        plain_where="card, float64, autograd of _los_plan_plain, 4 chains a call",
+        **b)
+    log(f"  los_bwd: forward {got[F32][1]:.3f} ms, backward {got[F32][2]:.3f} ms "
+        f"(float64 {got[F64][1]:.3f} / {got[F64][2]:.3f} ms); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); plain forward + backward on "
+        f"the card {plain_s:.1f} s")
+    del ref, got, ins
+
+    # ---- K3 reverse
+    st64, ls = cmb["st64"], cmb["ls"]
+    cl = mlens.lens_inputs(ls, *[x.float().double() for x in st64])
+    C, _, L = cl.shape
+    n_theta, nl_out = 2 * (L + 1), 2508 - 1
+    gs = torch.randn(C, nl_out, 4, generator=gen, dtype=F64).to(dev)
+    got = {}
+    for dt in (F64, F32):
+        c = cl.to(dt).contiguous()
+        fwd = lambda: mlens._passes_launch(c, n_theta, True, nl_out)
+        fwd()
+        fwd_ms, (_, sgcg) = timed(fwd, 5)
+        bwd = lambda: mlens._passes_bwd_cuda(c, sgcg, gs.to(dt), n_theta, True,
+                                             nl_out)
+        bwd()
+        bwd_ms, gk = timed(bwd, 5)
+        require(bool(torch.equal(gk, bwd())), f"lensing_bwd repeatable bit for bit ({dt})")
+        x = c.clone().requires_grad_(True)
+        (ga,) = torch.autograd.grad((mlens._passes_cuda(x, n_theta, True, nl_out)
+                                     * gs.to(dt)).sum(), [x])
+        require(bool(torch.equal(ga, gk)),
+                f"K3 reverse through autograd = the reverse kernel ({dt})")
+        got[dt] = (gk, fwd_ms, bwd_ms, sgcg)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    x = cl[:2].clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad((mlens._passes_grid_plain(x, n_theta, True, nl_out)
+                                  * gs[:2]).sum(), [x])
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    names = ("grad_CTT", "grad_CTE", "grad_CEE", "grad_Cphil3")
+    err32, err64 = compare("lensing_bwd", names,
+                           [got[F64][0][:2, q] for q in range(4)],
+                           [got[F32][0][:2, q] for q in range(4)],
+                           [ref[:, q] for q in range(4)])
+    ops = lensing_ops(C, L, n_theta - 1, nl_out)
+    b = bound({"fp64": 3 * (ops["fp64"] + ops["fp64_tensor"])},
+              nbytes(cl.float(), gs.float(), got[F32][3], got[F32][0]))
+    results["lensing_bwd"] = dict(
+        max_abs_err=err32, ms=got[F32][2], plain_ms=1e3 * plain_s,
+        fwd_ms=got[F32][1], ms_f64=got[F64][2], fwd_ms_f64=got[F64][1],
+        f64_rel_err=err64,
+        plain_where="card, float64, autograd of _passes_plain, chains 0-1",
+        **b)
+    log(f"  lensing_bwd: forward {got[F32][1]:.3f} ms, backward {got[F32][2]:.3f} "
+        f"ms (float64 {got[F64][1]:.3f} / {got[F64][2]:.3f} ms); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); plain forward + backward of "
+        f"2 chains on the card {plain_s:.1f} s")
+    del got, ref
+
+    # ---- K1 reverse on the CMB grid
+    inp = {k: v.to(dev) for k, v in torch.load(
+        os.path.join(d, "inputs_cmb.pt")).items()}
+    S, nk = inp["qtab"].shape[1], inp["k"].shape[0]
+    chunk = -(-S // GRAD_CHUNKS)
+    g_out = cmb_cotangent(NCHAINS, S, nk).to(dev)
+    got = {}
+    for dt in (F64, F32):
+        q, k, rnu, iso = (inp[n].to(dt) for n in ("qtab", "k", "rnu", "iso"))
+        go = g_out.to(dt)
+        run = lambda: mpert._evolve_launch(q, k, rnu, mpert.RSA_KTAU, False,
+                                           False, iso, chunk)
+        run()
+        fwd_ms, (o, ck) = timed(run, 2)
+        bwd = lambda: mpert._boltzmann_bwd(q, k, rnu, iso, ck, go,
+                                           mpert.RSA_KTAU, chunk)
+        bwd()
+        bwd_ms, gk = timed(bwd, 1)
+        got[dt] = (gk, fwd_ms, bwd_ms, ck)
+    refs = finish_job(job, d, "refs_cmb.pt", "the CMB-grid K1 plain reference")
+    n = CMB_REF_CHAINS
+    ref = [t.to(dev) for t in refs["g"]]
+    err32, err64 = compare("boltzmann_bwd", ("grad_qtab", "grad_rnu", "grad_iso"),
+                           got[F64][0], got[F32][0], ref, sub=slice(0, n))
+    b = bound({"fp32": reverse_ops("boltzmann_bwd", inp)},
+              nbytes(inp["qtab"].float(), g_out.float(), got[F32][3], *got[F32][0]))
+    results["boltzmann_bwd"].update(
+        ms_cmb_grid=got[F32][2], ms_cmb_grid_f64=got[F64][2],
+        fwd_with_checkpoints_ms_cmb_grid=got[F32][1],
+        fwd_with_checkpoints_ms_cmb_grid_f64=got[F64][1],
+        bound_ms_cmb_grid=b["bound_ms"], max_abs_err_cmb_grid=err32,
+        f64_rel_err_cmb_grid=err64,
+        plain_ms_cmb_grid=1e3 * refs["seconds"],
+        plain_where_cmb_grid=f"host CPU, float64, forward + backward, {n} chain(s)")
+    log(f"  boltzmann_bwd on the CMB grid ({NCHAINS} x {nk} k x {S} steps): "
+        f"forward with checkpoints {got[F32][1]:.2f} ms, backward {got[F32][2]:.2f} "
+        f"ms (float64 {got[F64][1]:.2f} / {got[F64][2]:.2f} ms); bound "
+        f"{b['bound_ms']:.4f} ms; plain on the host CPU ({n} chain(s)) "
+        f"{refs['seconds']:.1f} s")
+
+
 def lss_paths(sets):
     """The file paths of `lss_bbn_sets`, for a process of its own."""
     return {k: sets[k] for k in ("d", "des", "abund", "dr12", "table_path")}
@@ -3371,7 +3695,7 @@ def start_hmc(tmp, sets):
     return proc
 
 
-def drive_gradient(dev, tmp, sets, cpu_job, jobdir, hmc_proc, fid):
+def drive_gradient(dev, tmp, sets, cpu_job, jobdir, hmc_proc):
     """Phase 14: the gradient path, on phase 12's LSS + BBN configuration
     (K4 and K1 forward, their reverse kernels backward):
       a. torch.autograd.grad of the float64 -logL at the centre: exactly
@@ -3389,13 +3713,11 @@ def drive_gradient(dev, tmp, sets, cpu_job, jobdir, hmc_proc, fid):
          GRAD_MIN_ITER L-BFGS-B iterations and GRAD_MIN_REFINE refine
          steps, as phase 13 cuts RunConfig): the .minimum
          at or below the centre's -logL, a symmetric positive definite
-         .hessian.covmat;
-      d. on the flagship, stage_slow and K3's wrapper still raise for a
-         gradient.
+         .hessian.covmat.
+    (The flagship's gradient is phase 15's.)
     Returns the launches of one gradient evaluation and of (a)-(c)."""
     from cosmomc_tpu_torch import driver, kernels
     from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
-    from cosmomc_tpu_torch.models.lensing import lens_cls
     from cosmomc_tpu_torch.sampling import minimize
     from cosmomc_tpu_torch.utils.ini import IniFile
 
@@ -3534,28 +3856,315 @@ def drive_gradient(dev, tmp, sets, cpu_job, jobdir, hmc_proc, fid):
         require((launches[k] > 0) == (k in PATH_KERNELS["gradient"]),
                 f"action 2 launches {k} only if on the gradient path")
 
-    # d. the flagship still refuses a gradient
-    fpost = fid["post"]
-    Pf = torch.as_tensor(bestfit_vector(fpost)[None], dtype=fpost.dtype,
-                         device=dev).requires_grad_(True)
-    kernels.reset_launches()
-    try:
-        fpost.stage_slow(fpost.embed_full(Pf))
-        raised = False
-    except NotImplementedError:
-        raised = True
-    require(raised and not any(kernels.launches.values()),
-            "the flagship's stage_slow raises for a gradient before any launch")
-    ls = torch.arange(2, 81, dtype=F64, device=dev)
-    spectra = torch.ones(4, 1, 79, dtype=F64, device=dev, requires_grad=True)
-    try:
-        lens_cls(ls, *spectra, lmax_lensed=60)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    require(raised and not any(kernels.launches.values()),
-            "K3's wrapper raises for a gradient before any launch")
     log(f"phase 14 took {time.time() - t_phase:.1f} s on {smi_line()}")
+    return launches, one
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the flagship's gradient
+# ---------------------------------------------------------------------------
+
+def smooth_plik_fiducial(d):
+    """A plik_lite fiducial written from a smooth made-up spectrum (the one
+    of tests/test_torch_grad_flagship.py), for the comparison with the host
+    CPU, whose process starts before any posterior runs here."""
+    from cosmomc_tpu_torch.likelihoods.forecast import write_plik_lite_fiducial
+    l = np.arange(3001, dtype=np.float64)
+    tt = 1000.0 + 5000.0 * np.exp(-((l - 220.0) / 250.0) ** 2)
+    ee = 5.0 + 40.0 * np.exp(-((l - 1000.0) / 400.0) ** 2)
+    te = 0.1 * np.sqrt(tt * ee) * np.cos(l / 150.0)
+    theory_cl = os.path.join(d, "smooth.theory_cl")
+    np.savetxt(theory_cl, np.column_stack([l, tt, te, ee, 0.01 * ee,
+                                           1e-7 + 0 * l])[2:])
+    return write_plik_lite_fiducial(os.path.join(d, "smooth_plik"), theory_cl)
+
+
+def flagship_grad_posterior(dev, ds, dr12=None, nonlinear=True, cfg=None):
+    """The flagship's posterior in float64 (plik_lite + the tau prior, and
+    the DR12-shaped set when given), K1 checkpointed in GRAD_CHUNKS chunks."""
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    par = ThetaParameterization()
+    space = par.default_space()
+    space.get("tau").prior_mean, space.get("tau").prior_std = 0.0544, 0.0073
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(ds, name="plik_lite", device=dev, dtype=F64))
+    if dr12:
+        likes.add(BAOLikelihood(dr12, name="DR12", device=dev, dtype=F64))
+    return CMBPosterior(par, space, likes, bbn_table=synthetic_bbn_table(),
+                        nonlinear_lens=nonlinear, remat_chunks=GRAD_CHUNKS,
+                        device=dev, dtype=F64, **(cfg or {}))
+
+
+def flagship_grad_points(post):
+    """Phase 15's points: the best fit, and it + 0.3 proposal widths along
+    a seeded normal draw."""
+    c = bestfit_vector(post)
+    w = np.array([p.propose_width for p in post.space.varying])
+    return np.stack([c, c + 0.3 * w * np.random.default_rng(15).standard_normal(
+        len(c))])
+
+
+def grad_at(post, pts):
+    """-logL and its gradient at the points `pts`, float64 numpy."""
+    P = torch.as_tensor(pts, dtype=F64, device=post.device).requires_grad_(True)
+    m, _ = post.logpost()(P)
+    (g,) = torch.autograd.grad(m.sum(), P)
+    return m.detach().double().cpu().numpy(), g.double().cpu().numpy()
+
+
+def cpu_gradient_cmb(d):
+    """--cpu-grad-cmb DIR: the float64 gradient of the flagship's -logL at
+    phase 15's two points on the host CPU (the plain versions under
+    autograd) at FLAG_SMALL, on the plik_lite set named in DIR/flag.json;
+    writes DIR/cpu_grad_cmb.pt."""
+    torch.set_num_threads(JOB_THREADS["--cpu-grad-cmb"])
+    with open(os.path.join(d, "flag.json")) as f:
+        ds = json.load(f)["ds"]
+    post = flagship_grad_posterior(torch.device("cpu"), ds, nonlinear=False,
+                                   cfg=FLAG_SMALL)
+    t0 = time.time()
+    m, g = grad_at(post, flagship_grad_points(post))
+    out = dict(mll=torch.as_tensor(m), g=torch.as_tensor(g),
+               seconds=time.time() - t0)
+    print(f"flagship gradient on the CPU in {out['seconds']:.1f} s", flush=True)
+    torch.save(out, os.path.join(d, "cpu_grad_cmb.pt"))
+    return 0
+
+
+def flagship_ini(tmp, fid, extra):
+    """The flagship (plik_lite, DR12-shaped BAO, the tau prior) as an ini,
+    float64, with `extra` keys."""
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    d = os.path.join(tmp, "flagship_grad")
+    os.makedirs(d, exist_ok=True)
+    bbn = os.path.join(d, "bbn_grid.dat")
+    if not os.path.exists(bbn):
+        sd.write_bbn_table(bbn)
+    keys = {"pliklite_dataset": fid["ds"], "bao_dataset[DR12]": fid["dr12"],
+            "prior[tau]": "0.0544 0.0073", "bbn_table": bbn,
+            "use_float64": "T", "feedback": "0", **extra}
+    return write_ini(os.path.join(d, f"flagship_{len(os.listdir(d))}.ini"),
+                     keys), d
+
+
+def start_flagship_hmc(tmp, fid):
+    """Phase 15 (d), started after phase 5 so that it runs beside phases
+    6-14: `python -m cosmomc_tpu_torch` on the flagship ini with
+    sampling_method = hmc."""
+    ini, d = flagship_ini(tmp, fid, {
+        "action": "0", "sampling_method": "hmc", "MPI_R_Stop": "0",
+        "file_root": os.path.join(d_root(tmp), "chains", "hmc"),
+        **{k: str(v) for k, v in FLAG_HMC.items()}})
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "cosmomc_tpu_torch", ini],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.t0 = time.time()
+    return proc
+
+
+def d_root(tmp):
+    return os.path.join(tmp, "flagship_grad")
+
+
+def drive_flagship_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_proc):
+    """Phase 15: the flagship's gradient at full width in float64 (K4, K1,
+    K2a, K3 forward and their four reverse kernels), on phase 3's plik_lite
+    fiducial and phase 5's DR12-shaped set, the tau prior:
+      a. torch.autograd.grad of -logL (halofit lensing) at the best fit and
+         off it: exactly one launch of each of the path's eight kernels;
+      b. with nonlinear_lens=False (halofit's k_sigma bisection carries no
+         derivative, in either package) against central differences of
+         -logL (step GRAD_FD_STEP x each proposal width, one batch) within
+         GRAD_FD_TOL of the largest component;
+      c. at FLAG_SMALL (test_torch_slice.py's small config) on a smooth
+         plik_lite fiducial, against the host CPU's plain gradient
+         (`--cpu-grad-cmb`) within GRAD_CPU_TOL; the peak memory a chain of
+         one HMC gradient at NCHAINS chains;
+      d. `python -m cosmomc_tpu_torch` with sampling_method = hmc on the
+         flagship ini (FLAG_HMC, started after phase 5): exit 0, its
+         acceptance, chains that MCSamples loads;
+      e. action = 2 on the same ini (in-process, the minimizer cut as in
+         phase 14): the .minimum at or below the best fit's -logL, a
+         symmetric positive definite .hessian.covmat, only the path's
+         kernels launched;
+      f. action 2 and HMC on LCDM+r and base_mnu inis raise before any
+         launch (K5, K6 and K1's massive-neutrino instantiation have no
+         reverse kernel).
+    Returns the launches of (a)-(e) and of one gradient."""
+    from cosmomc_tpu_torch import driver, kernels
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+    from cosmomc_tpu_torch.sampling import minimize
+    from cosmomc_tpu_torch.utils.ini import IniFile
+
+    t_phase = time.time()
+    launches = {k: 0 for k in kernels.launches}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+    # a. the gradient, halofit lensing
+    post = flagship_grad_posterior(dev, fid["ds"], fid["dr12"])
+    names = [p.name for p in post.space.varying]
+    pts = flagship_grad_points(post)
+    n = pts.shape[1]
+    mll_at(post, pts)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    m, g = grad_at(post, pts)
+    torch.cuda.synchronize()
+    t_grad = time.time() - t0
+    one = dict(kernels.launches)
+    add(one)
+    for k in KERNELS:
+        want = 1 if k in PATH_KERNELS["flagship_grad"] else 0
+        require(one[k] == want, f"one flagship gradient launches {k} {want} time(s)")
+    require(bool(np.isfinite(g).all()), "the flagship gradient is finite")
+    # b. central differences, no halofit
+    h = GRAD_FD_STEP * np.array([p.propose_width for p in post.space.varying])
+
+    def differences(p_):
+        out = mll_at(p_, np.concatenate([x + s * np.diag(h) for x in pts
+                                         for s in (1.0, -1.0)]))
+        return np.stack([(out[2 * i * n:(2 * i + 1) * n]
+                          - out[(2 * i + 1) * n:(2 * i + 2) * n]) / (2.0 * h)
+                         for i in range(len(pts))])
+    lin = flagship_grad_posterior(dev, fid["ds"], fid["dr12"], nonlinear=False)
+    kernels.reset_launches()
+    _, gl = grad_at(lin, pts)
+    add(kernels.launches)
+    t0 = time.time()
+    fd = differences(lin)
+    t_fd = time.time() - t0
+    e_fd = float((np.abs(fd - gl).max(1) / np.abs(gl).max(1)).max())
+    fd_nl = differences(post)
+    e_nl = np.abs(fd_nl - g).max(1) / np.abs(g).max(1)
+    # the same at larger steps: at 1e-6 widths the differences carry
+    # -logL's float64 rounding (~1e-11 absolute here) over 2 h, which falls
+    # as the step grows, until the kinks of the piecewise-smooth -logL
+    # (K2a's table interpolation in x, the grids that move with the
+    # parameters) come within a step
+    h0, e_h = h, {}
+    for f in FLAG_FD_STEPS:
+        h = f * h0 / GRAD_FD_STEP
+        e_h[f] = float((np.abs(differences(lin) - gl).max(1) / np.abs(gl).max(1)).max())
+    h = h0
+    log(f"phase 15: -logL {m} at the best fit and off it; the gradient of both "
+        f"in {t_grad:.2f} s ({n} parameters, float64, halofit lensing); "
+        f"central differences (step {GRAD_FD_STEP} x the proposal widths, "
+        f"{2 * n * len(pts)} points a batch, {t_fd:.2f} s) against the gradient "
+        f"without halofit: max |fd - grad| / max |grad| {e_fd:.3e} (tol "
+        f"{GRAD_FD_TOL}); at larger steps " + ", ".join(
+            f"{f} widths {e:.3e}" for f, e in e_h.items())
+        + f"; with halofit {e_nl} (k_sigma's bisection carries no "
+        f"derivative, as in JAX)")
+    for j in range(len(pts)):
+        for i in np.argsort(-np.abs(fd[j] - gl[j]))[:3]:
+            log(f"  [{j}] d(-logL)/d{names[i]:10s} no halofit {gl[j, i]: .9e} "
+                f"fd {fd[j, i]: .9e}; halofit {g[j, i]: .9e} fd {fd_nl[j, i]: .9e}")
+    require(e_fd <= GRAD_FD_TOL, "the flagship gradient agrees with finite differences")
+    # c. the small config against the host CPU's plain gradient
+    with open(os.path.join(jobdir, "flag.json")) as f:
+        small_ds = json.load(f)["ds"]
+    small = flagship_grad_posterior(dev, small_ds, nonlinear=False, cfg=FLAG_SMALL)
+    kernels.reset_launches()
+    m_s, g_s = grad_at(small, flagship_grad_points(small))
+    add(kernels.launches)
+    ref = finish_job(cpu_job, jobdir, "cpu_grad_cmb.pt",
+                     "the CPU plain flagship gradient")
+    g_cpu, m_cpu = ref["g"].numpy(), ref["mll"].numpy()
+    e_cpu = float((np.abs(g_s - g_cpu).max(1) / np.abs(g_cpu).max(1)).max())
+    log(f"  at {FLAG_SMALL}: -logL {m_s} on the card, {m_cpu} on the host CPU's "
+        f"plain versions ({ref['seconds']:.1f} s there); gradients max rel "
+        f"{e_cpu:.3e} (tol {GRAD_CPU_TOL})")
+    require(e_cpu <= GRAD_CPU_TOL, "the card's flagship gradient equals the CPU's")
+    P8 = torch.as_tensor(post.start_positions(np.random.default_rng(0), NCHAINS),
+                         dtype=F64, device=dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.time()
+    torch.autograd.grad(post.logpost()(P8)[0].sum(), P8)
+    torch.cuda.synchronize()
+    t8 = time.time() - t0
+    add(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"  one HMC gradient at {NCHAINS} chains: {t8:.2f} s, peak memory "
+        f"{peak / 2 ** 20:.1f} MiB ({peak / 2 ** 20 / NCHAINS:.1f} MiB a chain, "
+        f"float64, {GRAD_CHUNKS} K1 chunks)")
+
+    # d. HMC through the CLI
+    out, err = hmc_proc.communicate(timeout=JOB_TIMEOUT)
+    t_hmc = time.time() - hmc_proc.t0
+    for line in (out + err).strip().splitlines()[-8:]:
+        log(f"  | {line}")
+    require(hmc_proc.returncode == 0, "the flagship HMC CLI exits 0")
+    acc = float(out.split("accept =")[1].split(",")[0])
+    hmc = MCSamples.load(os.path.join(d_root(tmp), "chains", "hmc"), ignore_frac=0.0)
+    log(f"  HMC (CLI, {FLAG_HMC}): acceptance {acc:.3f}, {hmc.samples.shape[0]} "
+        f"rows, {t_hmc:.1f} s from start (beside phases 6-14)")
+    require(0.0 < acc <= 1.0, "the flagship HMC accepts")
+    require(hmc.samples.shape[0] > 0 and bool(np.isfinite(hmc.samples).all()),
+            "MCSamples loads finite flagship HMC chains")
+
+    # e. action 2, in-process, the refine cut short
+    ini, _ = flagship_ini(tmp, fid, {"action": "2", "file_root": os.path.join(
+        d_root(tmp), "chains", "min")})
+    real = minimize.find_best_fit
+    kernels.reset_launches()
+    t0 = time.time()
+    try:
+        minimize.find_best_fit = lambda *a, **k: real(
+            *a, **{**k, "refine_steps": GRAD_MIN_REFINE, "refine_chains": 8,
+                   "maxiter": GRAD_MIN_ITER})
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = driver.run_ini(ini)
+    finally:
+        minimize.find_best_fit = real
+    t_min = time.time() - t0
+    run2 = dict(kernels.launches)
+    add(run2)
+    root2 = os.path.join(d_root(tmp), "chains", "min")
+    with open(root2 + ".minimum") as f:
+        mll_min = float(f.read().split("-log(Like) =")[1].split()[0])
+    cov = np.loadtxt(root2 + ".hessian.covmat")
+    ev = np.linalg.eigvalsh(0.5 * (cov + cov.T))
+    mll_c = float(mll_at(driver.build_posterior(IniFile(ini)), pts[:1])[0])
+    log(f"  action 2: -logL {mll_c:.6f} at the best fit -> {mll_min:.6f} in "
+        f"{t_min:.1f} s; Hessian covmat eigenvalues {ev.min():.3e} .. "
+        f"{ev.max():.3e}; launches " + json.dumps({k: v for k, v in run2.items() if v}))
+    require(rc == 0 and mll_min <= mll_c + 1e-9, ".minimum at or below the best fit")
+    require(np.allclose(cov, cov.T, rtol=1e-10, atol=0.0) and bool((ev > 0).all()),
+            "the Hessian covmat is symmetric positive definite")
+    for k in KERNELS:
+        require((run2[k] > 0) == (k in PATH_KERNELS["flagship_grad"]),
+                f"action 2 launches {k} only if on the flagship gradient path")
+
+    # f. LCDM+r and base_mnu refuse before any launch
+    for label, extra in (("LCDM+r", {"compute_tensors": "T",
+                                     "param[r]": "0.1 0 2 0.04 0.04"}),
+                         ("base_mnu", {"param[mnu]": "0.06 0 5 0.1 0.03"})):
+        for over in ({"action": "2"}, {"action": "0", "sampling_method": "hmc"}):
+            ini, _ = flagship_ini(tmp, fid, {**extra, **over, "file_root": os.path.join(
+                d_root(tmp), "chains", "refused")})
+            kernels.reset_launches()
+            try:
+                driver.run_ini(ini)
+                raised = False
+            except NotImplementedError as e:
+                raised = "queue 1 item 4" in str(e)
+            require(raised and not any(kernels.launches.values()),
+                    f"{over} on {label} raises before any kernel launch")
+    log(f"  action 2 and HMC on LCDM+r and base_mnu raise before any launch")
+    log(f"phase 15 took {time.time() - t_phase:.1f} s on {smi_line()}")
     return launches, one
 
 
@@ -3581,8 +4190,8 @@ def kernel_of(line):
 
 
 def run_phases(dev, tmp, results, launches, segment, jobs):
-    """Phases 2-14 in `tmp`; the host-CPU jobs and the HMC CLI they start go
-    to `jobs` (main stops any still running)."""
+    """Phases 2-15 in `tmp`; the host-CPU jobs and the HMC CLIs go to
+    `jobs` (main stops any still running)."""
     t0 = time.time()
     refdir, graddir = os.path.join(tmp, "reverse"), os.path.join(tmp, "grad")
     os.makedirs(refdir)
@@ -3593,13 +4202,26 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     with open(os.path.join(graddir, "sets.json"), "w") as f:
         json.dump(lss_paths(sets), f)
     jobs.append(start_job("--cpu-grad", graddir))
+    jobs.append(start_job("--plain-ref-cmb", refdir))
+    flagdir = os.path.join(tmp, "grad_flagship")
+    os.makedirs(flagdir)
+    with open(os.path.join(flagdir, "flag.json"), "w") as f:
+        json.dump(dict(ds=smooth_plik_fiducial(flagdir)), f)
+    jobs.append(start_job("--cpu-grad-cmb", flagdir))
     log(f"the host-CPU jobs started in {time.time() - t0:.1f} s")
     t0 = time.time()
-    phase2(dev, results)
+    cmb = phase2(dev, results)
     phase2_matter(dev, results)
-    phase2_variants(dev, results)
     phase2_reverse(dev, results, refdir, jobs[0])
-    log(f"phase 2 done in {time.time() - t0:.1f} s")
+    phase2_reverse_cmb(dev, results, cmb, refdir, jobs[2])
+    del cmb
+    log(f"phase 2 done in {time.time() - t0:.1f} s (K1's extended "
+        f"instantiations follow phase 12)")
+    carddir = os.path.join(tmp, "plain_card")
+    os.makedirs(carddir)
+    torch.cuda.synchronize()
+    card_job = start_job("--plain-card", carddir)
+    jobs.append(card_job)
     for phase, label, cfg in (
             (3, "flagship", {}),
             (4, "lcdm_r", dict(compute_tensors=True,
@@ -3614,6 +4236,8 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     launches["runner"], segment["runner"] = drive_runner(dev, tmp,
                                                          flagship_fid)
     log(f"phase 5 done in {time.time() - t0:.1f} s")
+    flag_hmc = start_flagship_hmc(tmp, flagship_fid)
+    jobs.append(flag_hmc)
     t0 = time.time()
     launches["background"], bg_sets = drive_background(dev, tmp)
     segment["background"] = dict(launches["background"])
@@ -3640,6 +4264,11 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     launches["lss_bbn"], segment["lss_bbn"] = drive_lss_bbn(dev, tmp, sets)
     action4_table(flagship_fid["post"])
     log(f"phase 12 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase2_variants(dev, results, finish_job(
+        card_job, carddir, "plain_card.pt",
+        "the plain K1 extended instantiations (on the card)"))
+    log(f"phase 2 (K1's extended instantiations) done in {time.time() - t0:.1f} s")
     hmc_proc = start_hmc(tmp, sets)
     jobs.append(hmc_proc)
     t0 = time.time()
@@ -3648,16 +4277,22 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     log(f"phase 13 done in {time.time() - t0:.1f} s")
     t0 = time.time()
     launches["gradient"], segment["gradient"] = drive_gradient(
-        dev, tmp, sets, jobs[1], graddir, hmc_proc, flagship_fid)
+        dev, tmp, sets, jobs[1], graddir, hmc_proc)
     log(f"phase 14 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    launches["flagship_grad"], segment["flagship_grad"] = drive_flagship_gradient(
+        dev, tmp, flagship_fid, jobs[3], flagdir, flag_hmc)
+    log(f"phase 15 done in {time.time() - t0:.1f} s")
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] in ("--plain-ref", "--cpu-grad"):
+    jobs = {"--plain-ref": plain_references, "--cpu-grad": cpu_gradient,
+            "--plain-ref-cmb": plain_references_cmb,
+            "--cpu-grad-cmb": cpu_gradient_cmb, "--plain-card": variant_plain_refs}
+    if len(sys.argv) == 3 and sys.argv[1] in jobs:
         # a process of its own on the host CPU (start_job)
         sys.path.insert(0, HERE)
-        return {"--plain-ref": plain_references,
-                "--cpu-grad": cpu_gradient}[sys.argv[1]](sys.argv[2])
+        return jobs[sys.argv[1]](sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need one",
               file=sys.stderr)

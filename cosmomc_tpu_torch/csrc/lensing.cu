@@ -53,7 +53,11 @@
 // and 220% of BB's).
 //
 // The arithmetic mirrors models/lensing.py:_passes_plain, with products by
-// the tabulated reciprocals where it divides.
+// the tabulated reciprocals where it divides. The file is built without FMA
+// contraction (kernels.EXTRA_FLAGS: -fmad=false), every product and sum
+// rounded on its own as in the plain version: the reverse pass's cotangent
+// of C^EE at the top l is sensitive to the rounding of the recurrences
+// (below).
 #include "common.cuh"
 
 namespace {
@@ -475,6 +479,429 @@ int launch(const void* cl, const void* th, const void* lt, const void* seeds, vo
   return (int)cudaGetLastError();
 }
 
+// ===========================================================================
+// The reverse pass (lensing_bwd): the cotangent of cl (C, 4, L) from that of
+// the pass-3 sums (C, nl_out, 4), as autograd of models/lensing.py:
+// _passes_plain gives it. JAX's three scans transposed, in reverse order:
+//
+//   3T: g_xi[c, q, theta] = tail sw sum_l g_sums[c, l, q] D_q[l, theta], a
+//       theta-major walk over l like the forward passes 1-2 (a thread a
+//       theta, a register tile of chains, l segments from the seeds, the
+//       segments added in order);
+//   2T: per (theta, l) the forward's Wigner-d's, per chain the four xi
+//       terms f_q and their derivatives in sigma^2 and C_gl2 (by hand: every
+//       X factor is exp(-l(l+1) sigma^2 / 4) or it times (1 + sigma^2));
+//       the cotangents of CTT, CTE, CEE are sums over theta of g_xi_q f_q
+//       (warp butterflies, then the block's 4 warps in order, then the theta
+//       tiles in order), those of sigma^2 and C_gl2 sums over l in
+//       registers (the segments in order);
+//   1T: the cotangent of Cphil3[l] = sum_theta g_sigma (1 - d11) + g_Cgl2
+//       dm11, reduced over theta as in 2T.
+//
+// sigma^2(theta) and C_gl2(theta) are the forward's (its sgcg buffer, which
+// the autograd Function keeps): not recomputed. Everything is float64, as
+// in the forward; no atomics, every sum in a fixed order, so a chain's
+// cotangent does not depend on the other chains and repeated runs agree bit
+// for bit.
+//
+// Bound (chip_smoke.py counts it): ~3x the forward's operations, pass 3T
+// per (chain, theta, l) in the FP64 units (no tensor cores here).
+// ===========================================================================
+
+constexpr int CH = 32;  // multipoles per staged chunk in the reverse kernels
+
+// the sum over the warp's lanes, in a fixed order (lane 0's value is used)
+__device__ __forceinline__ R warp_sum(R v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_WARP, v, o);
+  return v;
+}
+
+// The Legendre and J40 recurrences of pass 3T in the plain version's
+// operation order, each operation rounded on its own and divided where it
+// divides: g_xi sums D_l(theta) over ~2500 l, and the cotangent of C^EE at
+// the top l agrees with the plain version's to 1e-9 of its maximum only
+// when these recurrences round as the plain version's do (with the
+// table's reciprocals it did not on an H100; scripts/k3_bwd_rounding.py
+// measures the share of FMA contraction). P_l from (P_{l-2}, P_{l-1}),
+// l = lci:
+__device__ __forceinline__ R legendre_plain(int lci, R x, R pmm, R pmmp1) {
+  const R lc = R(lci);
+  return __ddiv_rn(__dsub_rn(__dmul_rn(__dmul_rn(__dsub_rn(__dmul_rn(R(2), lc), R(1)), x), pmmp1),
+                             __dmul_rn(__dsub_rn(lc, R(1)), pmm)),
+                   lc);
+}
+// P^{(4,0)}_n from (P_{n-2}, P_{n-1}); c = the table's (c2, c3, c4), exact
+// integers, and c1 = 2n (n + 4)(2n + 2), exact too
+__device__ __forceinline__ R jacobi40_plain(int n, R x, R jm1, R j, const R* c) {
+  if (n < 0) return R(0);
+  if (n == 0) return R(1);
+  if (n == 1) return __dadd_rn(R(5), __ddiv_rn(__dmul_rn(R(6), __dsub_rn(x, R(1))), R(2)));
+  const R nn = R(n);
+  const R c1 = R(2) * nn * (nn + R(4)) * (R(2) * nn + R(2));
+  return __ddiv_rn(__dsub_rn(__dmul_rn(__dadd_rn(c[0], __dmul_rn(c[1], x)), j),
+                             __dmul_rn(c[2], jm1)),
+                   c1);
+}
+
+// ---- 3T: per-segment partial g_xi (before the tail and sin weights) ----
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bwd3_kernel(const T* __restrict__ gsums, const R* __restrict__ th, const R* __restrict__ lt,
+            const R* __restrict__ seeds, R* __restrict__ p3t, int C, int nth, int nl_out,
+            int seg) {
+  __shared__ R rows[CH * N_LC];
+  __shared__ R gs[CT12][CH][4];
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  const int jj = j < nth ? j : nth - 1;
+  const int s = blockIdx.y, c0 = blockIdx.z * CT12;
+  const int il_begin = s * seg, il_end = min(nl_out, il_begin + seg);
+  const Theta t = load_theta(th, nth, jj);
+  const R x = t.x;
+  const R* sd = seeds + (size_t)(il_begin / SEG) * N_SD * nth + jj;
+  R pmm = sd[SD_PMM * nth], pmmp1 = sd[SD_PMMP1 * nth];
+  R j40m1 = sd[SD_J40M1 * nth], j40 = sd[SD_J40 * nth];
+  R acc[4][CT12];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int c = 0; c < CT12; ++c) acc[q][c] = R(0);
+  for (int il0 = il_begin; il0 < il_end; il0 += CH) {
+    const int n = min(CH, il_end - il0);
+    __syncthreads();
+    stage_rows(rows, lt, il0, n);
+    for (int e = threadIdx.x; e < CT12 * CH * 4; e += blockDim.x) {
+      const int c = e / (CH * 4), u = (e / 4) % CH, q = e % 4;
+      gs[c][u][q] = (c0 + c < C && u < n)
+                        ? R(gsums[((size_t)(c0 + c) * nl_out + il0 + u) * 4 + q])
+                        : R(0);
+    }
+    __syncthreads();
+    for (int u = 0; u < n; ++u) {
+      const R* r = rows + u * N_LC;
+      const int lci = il0 + u + 2;
+      const R llp1 = r[LC_LLP1];
+      const R P = legendre_plain(lci, x, pmm, pmmp1);
+      pmm = pmmp1;
+      pmmp1 = P;
+      const R dP = r[LC_L] * (pmm - x * P) * t.inv_sin2;
+      const R d22 = ((t.c4x8 + llp1) * P + t.fac4 * (t.fac2 + (x - R(2)) * r[LC_INV_LLP1]) * dP) *
+                    r[LC_INV_LFACS2];
+      const R J40 = jacobi40_plain(lci - 2, x, j40m1, j40, r + LC_J40);
+      j40m1 = j40;
+      j40 = J40;
+      const R d2m2 = t.s2h2 * J40;
+      const R d20 = (R(2) * x * dP - llp1 * P) * r[LC_INV_LROOT];
+#pragma unroll
+      for (int c = 0; c < CT12; ++c) {
+        acc[0][c] += gs[c][u][0] * P;
+        acc[1][c] += gs[c][u][1] * d22;
+        acc[2][c] += gs[c][u][2] * d2m2;
+        acc[3][c] += gs[c][u][3] * d20;
+      }
+    }
+  }
+  if (j >= nth) return;
+#pragma unroll
+  for (int c = 0; c < CT12; ++c) {
+    if (c0 + c >= C) break;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) p3t[(((size_t)s * C + c0 + c) * 4 + q) * nth + j] = acc[q][c];
+  }
+}
+
+// gxi[c, q, theta] = tail sw * sum over segments, in order, of p3t[s, c, q, theta]
+__global__ void bwd3_reduce_kernel(const R* __restrict__ p3t, const R* __restrict__ th,
+                                   R* __restrict__ gxi, int C, int nth, int nseg) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n = C * 4 * nth;
+  if (i >= n) return;
+  const int jt = i % nth;
+  R s = R(0);
+  for (int k = 0; k < nseg; ++k) s += p3t[(size_t)k * n + i];
+  gxi[i] = s * th[TH_TAIL * nth + jt] * th[TH_SW * nth + jt];
+}
+
+// ---- 2T: the cotangents of CTT, CTE, CEE (partial over theta tiles) and of
+// sigma^2, C_gl2 (partial over l segments) ----
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+bwd2_kernel(const T* __restrict__ cl, const R* __restrict__ th, const R* __restrict__ lt,
+            const R* __restrict__ seeds, const R* __restrict__ sgcg, const R* __restrict__ gxi,
+            R* __restrict__ p2t_sg, R* __restrict__ p2t_cl, int C, int L, int nth, int seg12) {
+  __shared__ R rows[CH * N_LC];
+  __shared__ R ct[3][CT12][CH];              // CTT, CTE, CEE
+  __shared__ R wsum[THREADS / 32][CH][CT12][3];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  const int jj = j < nth ? j : nth - 1;
+  const int s = blockIdx.y, c0 = blockIdx.z * CT12;
+  const int il_begin = s * seg12, il_end = min(L, il_begin + seg12);
+  const Theta t = load_theta(th, nth, jj);
+  const R x = t.x;
+  const R* sd = seeds + (size_t)(il_begin / SEG) * N_SD * nth + jj;
+  R pmm = sd[SD_PMM * nth], pmmp1 = sd[SD_PMMP1 * nth];
+  R j40m1 = sd[SD_J40M1 * nth], j40 = sd[SD_J40 * nth];
+  R j44m1 = sd[SD_J44M1 * nth], j44 = sd[SD_J44 * nth];
+  R j80m1 = sd[SD_J80M1 * nth], j80 = sd[SD_J80 * nth];
+  // lanes past the end carry zero cotangents, so they add nothing
+  R sg[CT12], g[CT12], gx[4][CT12], acc_s[CT12], acc_g[CT12];
+#pragma unroll
+  for (int c = 0; c < CT12; ++c) {
+    const bool on = c0 + c < C;
+    sg[c] = on ? sgcg[(size_t)(c0 + c) * nth + jj] : R(0);
+    g[c] = on ? sgcg[((size_t)C + c0 + c) * nth + jj] : R(0);
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      gx[q][c] = (on && j < nth) ? gxi[((size_t)(c0 + c) * 4 + q) * nth + j] : R(0);
+    acc_s[c] = acc_g[c] = R(0);
+  }
+  for (int il0 = il_begin; il0 < il_end; il0 += CH) {
+    const int n = min(CH, il_end - il0);
+    __syncthreads();
+    stage_rows(rows, lt, il0, n);
+    for (int e = threadIdx.x; e < 3 * CT12 * CH; e += blockDim.x) {
+      const int q = e / (CT12 * CH), c = (e / CH) % CT12, u = e % CH;
+      ct[q][c][u] = (c0 + c < C && u < n) ? R(cl[((size_t)(c0 + c) * 4 + q) * L + il0 + u])
+                                          : R(0);
+    }
+    __syncthreads();
+    for (int u = 0; u < n; ++u) {
+      const R* r = rows + u * N_LC;
+      const int lci = il0 + u + 2;
+      const R P = legendre(r, x, pmm, pmmp1);
+      pmm = pmmp1;
+      pmmp1 = P;
+      const R J40 = jacobi<4, 0>(lci - 2, x, j40m1, j40, r + LC_J40);
+      const R J44 = jacobi<4, 4>(lci - 4, x, j44m1, j44, r + LC_J44);
+      const R J80 = jacobi<8, 0>(lci - 4, x, j80m1, j80, r + LC_J80);
+      j40m1 = j40; j40 = J40;
+      j44m1 = j44; j44 = J44;
+      j80m1 = j80; j80 = J80;
+      const R llp1 = r[LC_LLP1], inv_llp1 = r[LC_INV_LLP1];
+      const R lfacs2 = r[LC_LFACS2], rf1 = r[LC_RF1], rf2 = r[LC_RF2];
+      const R inv_rf1 = r[LC_INV_RF1], inv_rf2 = r[LC_INV_RF2];
+      const R dP = r[LC_L] * (pmm - x * P) * t.inv_sin2;
+      const R d11 = t.fac1 * dP * inv_llp1 + P;
+      const R dm11 = t.fac2 * dP * inv_llp1 - P;
+      const R d22 = ((t.c4x8 + llp1) * P + t.fac4 * (t.fac2 + (x - R(2)) * inv_llp1) * dP) *
+                    r[LC_INV_LFACS2];
+      const R d2m2 = t.s2h2 * J40;
+      const R d20 = (R(2) * x * dP - llp1 * P) * r[LC_INV_LROOT];
+      const R sr1 = t.sinth * inv_rf1;
+      const R d1m2 = sr1 * (dP - R(2) * t.inv_fac1 * dm11);
+      const R d12 = sr1 * (dP - R(2) * t.inv_fac2 * d11);
+      const R sinfac = R(4) * t.inv_sinth;
+      R d1m3 = R(0), d2m3 = R(0), d3m3 = R(0), d13 = R(0);
+      if (lci >= 3) {
+        d1m3 = (-(x + R(0.5)) * d1m2 * sinfac - lfacs2 * dm11 * inv_rf1) * inv_rf2;
+        d2m3 = (-t.fac2 * d2m2 * sinfac - rf1 * d1m2) * inv_rf2;
+        d3m3 = (-(x + R(1.5)) * d2m3 * sinfac - rf1 * d1m3) * inv_rf2;
+        d13 = ((x - R(0.5)) * d12 * sinfac - lfacs2 * d11 * inv_rf1) * inv_rf2;
+      }
+      R d04 = R(0), d2m4 = R(0), d4m4 = R(0);
+      if (lci >= 4) {
+        d04 = r[LC_NORM04] * t.sc2 * J44;
+        d2m4 = (-(R(6) * x + R(4)) * d2m3 * t.inv_sinth - rf2 * d2m2) * r[LC_INV_RF3];
+        d4m4 = t.s2h4 * J80;
+      }
+      const R x220 = r[LC_X220], x121 = r[LC_X121], x132 = r[LC_X132];
+      const R x242 = r[LC_X242], dx000 = r[LC_DX000], dx022 = r[LC_DX022];
+      const R c8 = r[LC_C8], isq = r[LC_INV_SQRT_LLP1];
+#pragma unroll
+      for (int c = 0; c < CT12; ++c) {
+        const R sigmasq = sg[c], Cg2 = g[c], Cg2sq = g[c] * g[c];
+        // the X factors and their derivatives (_s) in sigma^2
+        const R X000 = xexp(-llp1 * sigmasq / R(4));
+        const R X000_s = dx000 * X000;
+        const R X022 = X000 * (R(1) + sigmasq);
+        const R X022_s = dx000 * X022 + X000;
+        const R X220 = x220 * X000, X220_s = x220 * X000_s;
+        const R X121 = x121 * X000, X121_s = x121 * X000_s;
+        const R X132 = x132 * X000, X132_s = x132 * X000_s;
+        const R X242 = x242 * X022, X242_s = x242 * X022_s;
+        const R dX000 = dx000 * X000, dX000_s = dx000 * X000_s;
+        const R dX022 = dx022 * X022, dX022_s = dx022 * X022_s;
+        const R fac1v = dX000 * dX000, fac1v_s = R(2) * dX000 * dX000_s;
+        const R fac3 = X220 * X220, fac3_s = R(2) * X220 * X220_s;
+        const R fac2v = (Cg2 * dX022) * (Cg2 * dX022) + (X022 * X022 - R(1));
+        const R fac2v_s = R(2) * Cg2sq * dX022 * dX022_s + R(2) * X022 * X022_s;
+        const R fac2v_g = R(2) * Cg2 * dX022 * dX022;
+        // TT
+        const R f0 = ((X000 * X000 - R(1)) + Cg2sq * fac1v) * P + Cg2sq * fac3 * d2m2 +
+                     c8 * fac1v * Cg2 * dm11;
+        const R f0_s = (R(2) * X000 * X000_s + Cg2sq * fac1v_s) * P + Cg2sq * fac3_s * d2m2 +
+                       c8 * fac1v_s * Cg2 * dm11;
+        const R f0_g = R(2) * Cg2 * fac1v * P + R(2) * Cg2 * fac3 * d2m2 + c8 * fac1v * dm11;
+        // Q+U
+        const R f1 = R(2) * Cg2 * X121 * X132 * d13 + fac2v * d22 + Cg2sq * X242 * X220 * d04;
+        const R f1_s = R(2) * Cg2 * (X121_s * X132 + X121 * X132_s) * d13 + fac2v_s * d22 +
+                       Cg2sq * (X242_s * X220 + X242 * X220_s) * d04;
+        const R f1_g = R(2) * X121 * X132 * d13 + fac2v_g * d22 + R(2) * Cg2 * X242 * X220 * d04;
+        // Q-U
+        const R q2 = fac3 * P + X242 * X242 * d4m4;
+        const R q2_s = fac3_s * P + R(2) * X242 * X242_s * d4m4;
+        const R m2 = X121 * X121 * dm11 + X132 * X132 * d3m3;
+        const R m2_s = R(2) * (X121 * X121_s * dm11 + X132 * X132_s * d3m3);
+        const R f2 = q2 * Cg2sq / R(2) + Cg2 * m2 + fac2v * d2m2;
+        const R f2_s = q2_s * Cg2sq / R(2) + Cg2 * m2_s + fac2v_s * d2m2;
+        const R f2_g = q2 * Cg2 + m2 + fac2v_g * d2m2;
+        // TE
+        const R h = X121 * d11 + X132 * d1m3;
+        const R h_s = X121_s * d11 + X132_s * d1m3;
+        const R k3 = X220 / R(2) * d2m4 * X242 + (fac3 / R(2) + dX022 * dX000) * d20;
+        const R k3_s = (X220_s * X242 + X220 * X242_s) / R(2) * d2m4 +
+                       (fac3_s / R(2) + dX022_s * dX000 + dX022 * dX000_s) * d20;
+        const R f3 = (X000 * X022 - R(1)) * d20 + R(2) * dX000 * Cg2 * h * isq + Cg2sq * k3;
+        const R f3_s = (X000_s * X022 + X000 * X022_s) * d20 +
+                       R(2) * Cg2 * (dX000_s * h + dX000 * h_s) * isq + Cg2sq * k3_s;
+        const R f3_g = R(2) * dX000 * h * isq + R(2) * Cg2 * k3;
+        const R ctt = ct[0][c][u], cte = ct[1][c][u], cee = ct[2][c][u];
+        acc_s[c] += ctt * gx[0][c] * f0_s + cee * (gx[1][c] * f1_s + gx[2][c] * f2_s) +
+                    cte * gx[3][c] * f3_s;
+        acc_g[c] += ctt * gx[0][c] * f0_g + cee * (gx[1][c] * f1_g + gx[2][c] * f2_g) +
+                    cte * gx[3][c] * f3_g;
+        const R vtt = warp_sum(gx[0][c] * f0);
+        const R vte = warp_sum(gx[3][c] * f3);
+        const R vee = warp_sum(gx[1][c] * f1 + gx[2][c] * f2);
+        if (lane == 0) {
+          wsum[warp][u][c][0] = vtt;
+          wsum[warp][u][c][1] = vte;
+          wsum[warp][u][c][2] = vee;
+        }
+      }
+    }
+    __syncthreads();  // every warp's sums of this chunk are in
+    for (int e = threadIdx.x; e < n * CT12 * 3; e += blockDim.x) {
+      const int u = e / (CT12 * 3), c = (e / 3) % CT12, q = e % 3;
+      if (c0 + c >= C) continue;
+      R v = R(0);
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) v += wsum[w][u][c][q];
+      p2t_cl[(((size_t)blockIdx.x * C + c0 + c) * L + il0 + u) * 3 + q] = v;
+    }
+  }
+  if (j >= nth) return;
+#pragma unroll
+  for (int c = 0; c < CT12; ++c) {
+    if (c0 + c >= C) break;
+    p2t_sg[(((size_t)s * 2 + 0) * C + c0 + c) * nth + j] = acc_s[c];
+    p2t_sg[(((size_t)s * 2 + 1) * C + c0 + c) * nth + j] = acc_g[c];
+  }
+}
+
+// ---- 1T: the cotangent of Cphil3 (partial over theta tiles) ----
+__global__ void __launch_bounds__(THREADS)
+bwd1_kernel(const R* __restrict__ th, const R* __restrict__ lt, const R* __restrict__ seeds,
+            const R* __restrict__ gsg, R* __restrict__ p1t, int C, int L, int nth, int seg12) {
+  __shared__ R rows[CH * N_LC];
+  __shared__ R wsum[THREADS / 32][CH][CT12];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x * THREADS + threadIdx.x;
+  const int jj = j < nth ? j : nth - 1;
+  const int s = blockIdx.y, c0 = blockIdx.z * CT12;
+  const int il_begin = s * seg12, il_end = min(L, il_begin + seg12);
+  const Theta t = load_theta(th, nth, jj);
+  const R* sd = seeds + (size_t)(il_begin / SEG) * N_SD * nth + jj;
+  R pmm = sd[SD_PMM * nth], pmmp1 = sd[SD_PMMP1 * nth];
+  R a[CT12], b[CT12];
+#pragma unroll
+  for (int c = 0; c < CT12; ++c) {
+    const bool on = c0 + c < C && j < nth;
+    a[c] = on ? gsg[(size_t)(c0 + c) * nth + j] : R(0);
+    b[c] = on ? gsg[((size_t)C + c0 + c) * nth + j] : R(0);
+  }
+  for (int il0 = il_begin; il0 < il_end; il0 += CH) {
+    const int n = min(CH, il_end - il0);
+    __syncthreads();
+    stage_rows(rows, lt, il0, n);
+    __syncthreads();
+    for (int u = 0; u < n; ++u) {
+      const R* r = rows + u * N_LC;
+      const R P = legendre(r, t.x, pmm, pmmp1);
+      pmm = pmmp1;
+      pmmp1 = P;
+      const R dP = r[LC_L] * (pmm - t.x * P) * t.inv_sin2;
+      const R d11 = t.fac1 * dP * r[LC_INV_LLP1] + P;
+      const R dm11 = t.fac2 * dP * r[LC_INV_LLP1] - P;
+      const R om = R(1) - d11;
+#pragma unroll
+      for (int c = 0; c < CT12; ++c) {
+        const R v = warp_sum(a[c] * om + b[c] * dm11);
+        if (lane == 0) wsum[warp][u][c] = v;
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < n * CT12; e += blockDim.x) {
+      const int u = e / CT12, c = e % CT12;
+      if (c0 + c >= C) continue;
+      R v = R(0);
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) v += wsum[w][u][c];
+      p1t[((size_t)blockIdx.x * C + c0 + c) * L + il0 + u] = v;
+    }
+  }
+}
+
+// gsg[v, c, theta] = sum over segments, in order, of p2t_sg[s, v, c, theta]
+__global__ void bwd2_reduce_kernel(const R* __restrict__ p2t_sg, R* __restrict__ gsg, int n,
+                                   int nseg) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  R s = R(0);
+  for (int k = 0; k < nseg; ++k) s += p2t_sg[(size_t)k * n + i];
+  gsg[i] = s;
+}
+
+// g_cl[c, q, l] = sum over theta tiles, in order: q < 3 from p2t_cl, q = 3 from p1t
+template <typename T>
+__global__ void bwd_cl_kernel(const R* __restrict__ p2t_cl, const R* __restrict__ p1t,
+                              T* __restrict__ g_cl, int C, int L, int ntiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C * 4 * L) return;
+  const int il = i % L, q = (i / L) % 4, c = i / (4 * L);
+  R s = R(0);
+  if (q < 3) {
+    for (int k = 0; k < ntiles; ++k) s += p2t_cl[(((size_t)k * C + c) * L + il) * 3 + q];
+  } else {
+    for (int k = 0; k < ntiles; ++k) s += p1t[((size_t)k * C + c) * L + il];
+  }
+  g_cl[i] = T(s);
+}
+
+template <typename T>
+int launch_bwd(const void* cl, const void* th, const void* lt, const void* seeds,
+               const void* sgcg, const void* gsums, void* p3t, void* gxi, void* p2t_sg,
+               void* gsg, void* p2t_cl, void* p1t, void* g_cl, int C, int L, int nth,
+               int nl_out, int seg12, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (seg12 <= 0 || seg12 % SEG != 0 || nl_out > L) return (int)cudaErrorInvalidValue;
+  const int ntiles = (nth + THREADS - 1) / THREADS;
+  const int nseg = (L + seg12 - 1) / seg12, nseg3 = (nl_out + seg12 - 1) / seg12;
+  const int groups12 = (C + CT12 - 1) / CT12;
+  cudaError_t err;
+  bwd3_kernel<T><<<dim3(ntiles, nseg3, groups12), THREADS, 0, st>>>(
+      (const T*)gsums, (const R*)th, (const R*)lt, (const R*)seeds, (R*)p3t, C, nth, nl_out,
+      seg12);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd3_reduce_kernel<<<(4 * C * nth + 255) / 256, 256, 0, st>>>((const R*)p3t, (const R*)th,
+                                                                 (R*)gxi, C, nth, nseg3);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd2_kernel<T><<<dim3(ntiles, nseg, groups12), THREADS, 0, st>>>(
+      (const T*)cl, (const R*)th, (const R*)lt, (const R*)seeds, (const R*)sgcg,
+      (const R*)gxi, (R*)p2t_sg, (R*)p2t_cl, C, L, nth, seg12);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd2_reduce_kernel<<<(2 * C * nth + 255) / 256, 256, 0, st>>>((const R*)p2t_sg, (R*)gsg,
+                                                                 2 * C * nth, nseg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd1_kernel<<<dim3(ntiles, nseg, groups12), THREADS, 0, st>>>(
+      (const R*)th, (const R*)lt, (const R*)seeds, (const R*)gsg, (R*)p1t, C, L, nth, seg12);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  bwd_cl_kernel<T><<<(C * 4 * L + 255) / 256, 256, 0, st>>>((const R*)p2t_cl, (const R*)p1t,
+                                                             (T*)g_cl, C, L, ntiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define LENS_ENTRY(NAME, T)                                                                 \
@@ -488,3 +915,15 @@ int launch(const void* cl, const void* th, const void* lt, const void* seeds, vo
 
 LENS_ENTRY(lensing_f32, float)
 LENS_ENTRY(lensing_f64, double)
+
+#define LENS_BWD_ENTRY(NAME, T)                                                              \
+  extern "C" int NAME(const void* cl, const void* th, const void* lt, const void* seeds,    \
+                      const void* sgcg, const void* gsums, void* p3t, void* gxi,             \
+                      void* p2t_sg, void* gsg, void* p2t_cl, void* p1t, void* g_cl, int C,   \
+                      int L, int nth, int nl_out, int seg12, void* stream) {                 \
+    return launch_bwd<T>(cl, th, lt, seeds, sgcg, gsums, p3t, gxi, p2t_sg, gsg, p2t_cl, p1t, \
+                         g_cl, C, L, nth, nl_out, seg12, stream);                            \
+  }
+
+LENS_BWD_ENTRY(lensing_bwd_f32, float)
+LENS_BWD_ENTRY(lensing_bwd_f64, double)

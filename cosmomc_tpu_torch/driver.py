@@ -32,9 +32,11 @@ The port's own keys:
 Action 2 and sampling_method = hmc take gradients through the posterior:
 on the background parameterization, and on a CMBPosterior whose slow path
 has reverse kernels (`CMBPosterior.gradient_unsupported()` is None: the
-LSS-only astro configuration with K1's base instantiation). Elsewhere
-(use_cmb, the massive-neutrino hierarchy, the dark-energy fluid) they
-raise NotImplementedError before any work. `boltzmann_remat_chunks`
+flagship CMB configurations with the table line of sight, with or
+without matter power, and the LSS-only astro configuration, all on K1's
+base instantiation). Elsewhere (the tensor modes, the recurrence line of
+sight, the massive-neutrino hierarchy, the dark-energy fluid) they raise
+NotImplementedError before any work. `boltzmann_remat_chunks`
 (default 64 for HMC, as JAX's) sets K1's gradient checkpoints.
 
 Every accessed key is dumped to `<file_root>.inputparams` (provenance,
@@ -57,11 +59,20 @@ from cosmomc_tpu_torch.utils.ini import IniFile
 #: the JAX package's BBN table, under $COSMOMC_DATA
 DEFAULT_BBN_TABLE = "PArthENoPE_880.2_standard.dat"
 
+#: action 2's Hessian step on a slow-stage posterior, in proposal widths.
+#: Its -logL is piecewise smooth (table interpolation, grids that move with
+#: the parameters), so its exact gradient carries small jumps; differences
+#: over 1e-3 widths gave the flagship indefinite Hessians at its best fit,
+#: 0.1 widths the same eigenvalues at two best fits
+#: (scripts/flagship_hessian_steps.py)
+HESSIAN_STEP = 0.1
+
 #: what action 2 and HMC raise where the slow path lacks reverse kernels
 NO_GRADIENT = ("{what} needs gradients through the slow stage, and with "
                "{why} its kernels have no reverse pass yet (ROADMAP.md "
-               "queue 1 item 4); the background parameterization and the "
-               "LSS-only astro configuration have them")
+               "queue 1 item 4); the background parameterization, the "
+               "flagship CMB configurations and the LSS-only astro "
+               "configuration have them")
 
 
 def _require_gradient(post, what: str) -> None:
@@ -338,7 +349,7 @@ def run_ini(path: str, overrides: Optional[Dict[str, str]] = None,
         # the reverse kernels have no second derivative: a posterior with a
         # slow stage takes its Hessian from differences of exact gradients
         var = post.space.varying
-        steps = (np.array([1e-3 * p.propose_width for p in var])
+        steps = (np.array([HESSIAN_STEP * p.propose_width for p in var])
                  if slow_stage else None)
         best.cov = estimate_covariance(
             post.logpost(), best.P, gradient_differences=steps,

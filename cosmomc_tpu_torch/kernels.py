@@ -10,11 +10,11 @@ loaded with ctypes. Nothing here runs at import time.
 `launches[name]` counts the launches each wrapper makes: it is raised by
 one where the kernel is launched, and nowhere else. A source may hold
 several instantiations (`VARIANTS`: K1's massive-neutrino and dark-energy
-extensions, and the reverse kernels of K4 and K1), each with entry points
-`<variant>_f32|f64` and a count of its own. A forward kernel that also
-stores what its reverse kernel reads is launched through another entry
-point of the same kernel (`launch(..., entry=...)`) and counts as that
-kernel.
+extensions, and the reverse kernels of K4, K1, K2a and K3), each with
+entry points `<variant>_f32|f64` and a count of its own. A forward kernel
+that also stores what its reverse kernel reads is launched through another
+entry point of the same kernel (`launch(..., entry=...)`) and counts as
+that kernel.
 """
 
 from __future__ import annotations
@@ -46,9 +46,17 @@ SOURCES = {
 #: instantiation -> the kernel (source) that holds it
 VARIANTS = {"boltzmann_nu": "boltzmann", "boltzmann_de": "boltzmann",
             "boltzmann_nu_de": "boltzmann", "recfast_bwd": "recfast",
-            "boltzmann_bwd": "boltzmann"}
+            "boltzmann_bwd": "boltzmann", "los_bwd": "los",
+            "lensing_bwd": "lensing"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: flags of one source beyond NVCC_FLAGS. K3 rounds every product and sum
+#: on its own, as the plain version does (no FMA contraction): its reverse
+#: pass's cotangent of C^EE at the top l reads the rounding of the Wigner
+#: recurrences, 7.9e-10 of its maximum from autograd of the plain version
+#: with contraction on an H100, 7.3e-11 without
+#: (scripts/k3_bwd_rounding.py)
+EXTRA_FLAGS = {"lensing": ["-fmad=false"]}
 
 launches = {name: 0 for name in (*SOURCES, *VARIANTS)}
 #: ptxas report (registers, spills) and build seconds of each built kernel
@@ -89,7 +97,8 @@ def build(name: str) -> str:
     """Compile csrc/<source> into a shared library (once per content hash of
     the source, the headers and the flags); returns its path."""
     src = os.path.join(CSRC, SOURCES[name])
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    h = hashlib.sha1(" ".join(flags).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
     for p in (src, *(os.path.join(CSRC, f) for f in headers)):
         with open(p, "rb") as f:
@@ -100,7 +109,7 @@ def build(name: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = out + f".{os.getpid()}.tmp"
     t0 = time.time()
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, src],
+    res = subprocess.run([_nvcc(), *flags, "-I", CSRC, "-o", tmp, src],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr[-4000:]}")

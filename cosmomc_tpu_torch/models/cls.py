@@ -34,12 +34,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models.bessel import build_bessel_table, default_l_samples
 from cosmomc_tpu_torch.models.perturbations import PerturbationOutput
 from cosmomc_tpu_torch.models.primordial import PrimordialParams, scalar_power
 from cosmomc_tpu_torch.utils.interp import spline_eval, spline_fit
+from cosmomc_tpu_torch.utils.remat import remat
 
 L_BATCH = 4        # sampled l's of the table plan padded to a multiple of this
 REC_THREADS = 256          # threads of a recurrence kernel block (8 warps)
@@ -155,20 +157,44 @@ def row_span(idx: np.ndarray, nkf: int) -> int:
     return int((idx[ends, 3] - idx[starts, 0]).max()) + 1
 
 
+def transposed_stencil(idx: np.ndarray, nk: int):
+    """The reverse kernel's scatter from the fine k to the coarse source
+    rows (csrc/cls.cu los_bwd): k block b (LOS_KT consecutive fine k)
+    writes its share of each coarse row it touches, rows idx[b's first k,
+    0] .. idx[b's last k, 3], to partial rows blk_off[b] ..; row r is the
+    sum over blocks row_kb[r, 0] .. row_kb[r, 1] (0, -1 where no stencil
+    reaches it), added in block order. Returns (blk_off (nkb + 1,) int32,
+    row_kb (nk, 2) int32); blk_off[-1] is the partial rows in all."""
+    nkf = idx.shape[0]
+    starts = np.arange(0, nkf, LOS_KT)
+    ends = np.minimum(starts + LOS_KT - 1, nkf - 1)
+    lo, hi = idx[starts, 0], idx[ends, 3]
+    blk_off = np.concatenate([[0], np.cumsum(hi - lo + 1)]).astype(np.int32)
+    row_kb = np.tile(np.array([0, -1], np.int32), (nk, 1))
+    for r in range(nk):
+        b = np.nonzero((lo <= r) & (r <= hi))[0]
+        if len(b):
+            row_kb[r] = b[0], b[-1]
+    return blk_off, row_kb
+
+
 @lru_cache(maxsize=8)
 def _device_plan(key: tuple, device: str, dtype: torch.dtype) -> dict:
     """A plan's arrays on a device (the Bessel tables stay float32). The
     tables are stored once, packed as `packed_bessel` (what the kernel
     reads); `jl` and `jlp` are strided views of it, what the plain version
-    indexes. `rspan` is the kernel's row_span."""
+    indexes. `rspan` is the kernel's row_span; `blk_off` and `row_kb` the
+    reverse kernel's `transposed_stencil`."""
     plan = _plan(*key)
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
     packed = torch.as_tensor(packed_bessel(plan.jl, plan.jlp), device=device)
-    return dict(ls=f(plan.ls_pad), kf=f(plan.kf_pad),
-                idx=torch.as_tensor(plan.idx, dtype=torch.int32, device=device),
+    blk_off, row_kb = transposed_stencil(plan.idx, len(key[5]))
+    return dict(ls=f(plan.ls_pad), kf=f(plan.kf_pad), idx=i32(plan.idx),
                 w=f(plan.w), jl=packed[..., 0], jlp=packed[..., 1],
                 packed=packed, rspan=row_span(plan.idx, len(plan.kf_pad)),
-                k_chunk=key[4])
+                k_chunk=key[4], blk_off=i32(blk_off), row_kb=i32(row_kb),
+                rtot=int(blk_off[-1]))
 
 
 def compute_cls(po: PerturbationOutput, pp: PrimordialParams,
@@ -194,14 +220,18 @@ def _strided_sources(po: PerturbationOutput, tau_stride: int):
 
 def _los_plain(src, idx, w, kf, chi_arg, wt, wl, jl_tab, jlp_tab, ls, inv_dx,
                k_chunk: int):
-    """Batched torch LOS: src (C, 4, nk, nt) -> (3, C, nl_pad, nkf_pad)."""
+    """Batched torch LOS: src (C, 4, nk, nt) -> (3, C, nl_pad, nkf_pad).
+    Under autograd (grad enabled and an input wanting one) each k chunk is
+    rematerialized (utils/remat.py: its per-l intermediates are recomputed
+    in the backward pass rather than kept, which bounds the graph's memory
+    to one chunk's; the numbers do not change)."""
     C, nt = chi_arg.shape
     nl, nx = jl_tab.shape
     dtype = src.dtype
     jl_t = jl_tab.to(dtype)
     jlp_t = jlp_tab.to(dtype)
-    out = torch.empty(3, C, nl, kf.shape[0], dtype=dtype, device=src.device)
-    for k0 in range(0, kf.shape[0], k_chunk):
+
+    def chunk(k0, src, chi_arg, wt, wl):     # -> (3, C, nl, kc)
         sl = slice(k0, k0 + k_chunk)
         ki, kw = idx[sl].long(), w[sl]
 
@@ -218,16 +248,27 @@ def _los_plain(src, idx, w, kf, chi_arg, wt, wl, jl_tab, jlp_tab, ls, inv_dx,
         f = t - i.to(dtype)
         inv_xs = 1.0 / torch.clamp(x, min=1e-8)
         inv_xs2 = inv_xs * inv_xs
+        out_t, out_e, out_p = [], [], []
         for il in range(nl):
             l = ls[il]
             jl = jl_t[il][i] * (1 - f) + jl_t[il][i + 1] * f
             jp = jlp_t[il][i] * (1 - f) + jlp_t[il][i + 1] * f
             jpp = -2.0 * jp * inv_xs + (l * (l + 1) * inv_xs2 - 1.0) * jl
-            out[0, :, il, sl] = torch.sum(S0w * jl + S1w * jp + S2w * jpp, -1)
+            out_t.append(torch.sum(S0w * jl + S1w * jp + S2w * jpp, -1))
             efac = torch.sqrt(torch.clamp((l + 2) * (l + 1) * l * (l - 1),
                                           min=0.0))
-            out[1, :, il, sl] = efac * torch.sum(S2w * jl * inv_xs2, -1)
-            out[2, :, il, sl] = torch.sum(SLw * jl, -1)
+            out_e.append(efac * torch.sum(S2w * jl * inv_xs2, -1))
+            out_p.append(torch.sum(SLw * jl, -1))
+        return torch.stack([torch.stack(o, 1) for o in (out_t, out_e, out_p)])
+
+    starts = range(0, kf.shape[0], k_chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (src, chi_arg, wt, wl)):
+        return torch.cat([remat(lambda *a: (chunk(*a),), k0, src, chi_arg,
+                                wt, wl)[0] for k0 in starts], -1)
+    out = torch.empty(3, C, nl, kf.shape[0], dtype=dtype, device=src.device)
+    for k0 in starts:
+        out[..., k0:k0 + k_chunk] = chunk(k0, src, chi_arg, wt, wl)
     return out
 
 
@@ -269,6 +310,59 @@ def _los_cuda(src, dp: dict, chi_arg, wt, wl, inv_dx):
     return out
 
 
+def _los_bwd_cuda(src, dp: dict, chi_arg, wt, wl, inv_dx, g):
+    """csrc/cls.cu's reverse kernel: the cotangents of src (C, 4, nk, nt),
+    chi_arg, wt and wl (C, nt) from that of the output g (3, C, nl, nkf),
+    as autograd of `_los_plan_plain` gives them: the derivative of j_l and
+    j_l' in x is the slope of the table's linear interpolant (the index is
+    truncated, as in JAX), the source cotangent goes back to the coarse k
+    grid through the transposed cubic stencil. A block owns (chain, 32
+    fine k, a tile of tau nodes), its lanes walk the sampled l; the sums
+    over k and the scatter to the coarse rows go through partial buffers
+    added in a fixed order (no atomics)."""
+    C, _, nk, nt = src.shape
+    idx, w, kf, ls, packed = dp["idx"], dp["w"], dp["kf"], dp["ls"], dp["packed"]
+    nl, nx, _ = packed.shape
+    nkf = kf.shape[0]
+    dtype = src.dtype
+    g = g.contiguous()
+    kernels.check(src, "sources", (C, 4, nk, nt))
+    for name, t in (("chi", chi_arg), ("wt", wt), ("wl", wl)):
+        kernels.check(t, name, (C, nt), dtype)
+    kernels.check(g, "g", (3, C, nl, nkf), dtype)
+    blk_off, row_kb = dp["blk_off"], dp["row_kb"]
+    nkb = -(-nkf // LOS_KT)
+    kernels.check(blk_off, "blk_off", (nkb + 1,), torch.int32)
+    kernels.check(row_kb, "row_kb", (nk, 2), torch.int32)
+    rtot = dp["rtot"]
+    part_src = torch.empty(C, 4, rtot, nt, dtype=dtype, device=src.device)
+    part_w = torch.empty(C, nkb, 3, nt, dtype=dtype, device=src.device)
+    g_src = torch.empty_like(src)
+    g_chi, g_wt, g_wl = (torch.empty_like(chi_arg) for _ in range(3))
+    kernels.launch("los_bwd", dtype, src, idx, w, kf, chi_arg, wt, wl, packed,
+                   ls, g, blk_off, row_kb, part_src, part_w, g_src, g_chi, g_wt,
+                   g_wl, C, nk, nt, nl, nx, nkf, float(inv_dx), dp["rspan"],
+                   rtot)
+    return g_src, g_chi, g_wt, g_wl
+
+
+class _Los(torch.autograd.Function):
+    """K2a on the card with its reverse kernel (`_los_bwd_cuda`)."""
+
+    @staticmethod
+    def forward(ctx, src, chi_arg, wt, wl, dp, inv_dx):
+        ctx.save_for_backward(src, chi_arg, wt, wl)
+        ctx.dp, ctx.inv_dx = dp, inv_dx
+        return _los_cuda(src, dp, chi_arg, wt, wl, inv_dx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        src, chi_arg, wt, wl = ctx.saved_tensors
+        return (*_los_bwd_cuda(src, ctx.dp, chi_arg, wt, wl, ctx.inv_dx, g),
+                None, None)
+
+
 def _los_inputs(po: PerturbationOutput, chi_star: torch.Tensor,
                 tau_stride: int):
     """The strided sources (C, 4, nk, nt) and, per chain, tau0 - tau, the
@@ -304,8 +398,13 @@ def compute_cl_transfers(po: PerturbationOutput, chi_star: torch.Tensor,
     dp = _device_plan(key, str(dev), dtype)
     src, chi_arg, wt, wl = _los_inputs(po, chi_star, tau_stride)
     inv_dx = float(torch.tensor(1.0 / plan.dx, dtype=dtype))
-    los = _los_plan_plain if dev.type == "cpu" else _los_cuda
-    out = los(src, dp, chi_arg, wt, wl, inv_dx)
+    if dev.type == "cpu":
+        out = _los_plan_plain(src, dp, chi_arg, wt, wl, inv_dx)
+    elif torch.is_grad_enabled() and any(
+            t.requires_grad for t in (src, chi_arg, wt, wl)):
+        out = _Los.apply(src, chi_arg, wt, wl, dp, inv_dx)
+    else:
+        out = _los_cuda(src, dp, chi_arg, wt, wl, inv_dx)
     nl, nkf = len(plan.ls), len(plan.kf)
     out = out[:, :, :nl, :nkf]
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from cosmomc_tpu_torch import kernels
 
@@ -40,6 +41,7 @@ TH_X, TH_SIN, TH_SIN2, TH_FAC1, TH_FAC2, TH_TAIL, TH_SW = range(7)
 N_TH = 7
 
 SEG = 64            # multipoles per recurrence segment (csrc/lensing.cu SEG)
+LENS_THREADS = 128  # theta lanes a block (csrc/lensing.cu THREADS)
 THETA_SPLITS = 6    # pass 3: theta ranges summed separately, then in order
 #: seed rows per (segment, theta): the recurrence state before its first l
 SEED_ROWS = ("pmm", "pmmp1", "j40m1", "j40", "j44m1", "j44", "j80m1", "j80")
@@ -317,6 +319,93 @@ def _passes_grid_plain(cl: torch.Tensor, n_theta: int, apodize: bool,
     return _passes_plain(cl, theta_table(n_theta, apodize, cl.device), nl_out)
 
 
+def _segments(L: int, n_seeds: int) -> tuple:
+    """(seg12, nseg): csrc/lensing.cu's l segments, ~14 of them, each a
+    multiple of SEG so that it starts from a seed."""
+    seg12 = SEG * max(1, round(n_seeds / 14))
+    return seg12, -(-L // seg12)
+
+
+def _passes_launch(cl: torch.Tensor, n_theta: int, apodize: bool,
+                   nl_out: int):
+    """The forward kernel: the pass-3 sums (C, nl_out, 4) in cl's dtype and
+    sigma^2, C_gl2 (2, C, n_theta - 1) float64, which the reverse kernel
+    reads."""
+    C, _, L = cl.shape
+    kernels.check(cl, "cl", (C, 4, L))
+    if nl_out > L:
+        raise ValueError(f"nl_out {nl_out} > L {L}")
+    th = theta_table(n_theta, apodize, cl.device)
+    nth = n_theta - 1
+    lt, seeds = _kernel_tables(L, n_theta, str(th.device))
+    seg12, nseg = _segments(L, seeds.shape[0])
+    f64 = dict(dtype=torch.float64, device=cl.device)
+    part1 = torch.empty(nseg, 2, C, nth, **f64)
+    sgcg = torch.empty(2, C, nth, **f64)
+    part2 = torch.empty(nseg, C, 4, nth, **f64)
+    xi = torch.empty(4, nth, C, **f64)
+    part3 = torch.empty(THETA_SPLITS, C, nl_out, 4, **f64)
+    sums = torch.empty(C, nl_out, 4, dtype=cl.dtype, device=cl.device)
+    kernels.launch("lensing", cl.dtype, cl, th, lt, seeds, part1, sgcg, part2,
+                   xi, part3, sums, C, L, nth, nl_out, seg12, THETA_SPLITS)
+    return sums, sgcg
+
+
+def _passes_bwd_cuda(cl: torch.Tensor, sgcg: torch.Tensor,
+                     g_sums: torch.Tensor, n_theta: int, apodize: bool,
+                     nl_out: int) -> torch.Tensor:
+    """csrc/lensing.cu's reverse kernel: the cotangent of cl (C, 4, L) from
+    that of the pass-3 sums (C, nl_out, 4), as autograd of `_passes_plain`
+    gives it. JAX's three scans transposed: pass 3T walks l per theta
+    (g_xi = sum_l g_sums D_l(theta) tail sw), pass 2T gives the cotangents
+    of CTT, CTE, CEE (sums over theta) and of sigma^2 and C_gl2 (sums over
+    l), pass 1T that of Cphil3. sigma^2 and C_gl2 are the forward's
+    (`sgcg`), stored, not recomputed; float64 inside for float32 spectra
+    too, as the forward; every sum in a fixed order, no atomics."""
+    C, _, L = cl.shape
+    nth = n_theta - 1
+    kernels.check(cl, "cl", (C, 4, L))
+    kernels.check(sgcg, "sgcg", (2, C, nth), torch.float64)
+    g_sums = g_sums.contiguous()
+    kernels.check(g_sums, "g_sums", (C, nl_out, 4), cl.dtype)
+    th = theta_table(n_theta, apodize, cl.device)
+    lt, seeds = _kernel_tables(L, n_theta, str(th.device))
+    seg12, nseg = _segments(L, seeds.shape[0])
+    nseg3 = -(-nl_out // seg12)
+    ntiles = -(-nth // LENS_THREADS)
+    f64 = dict(dtype=torch.float64, device=cl.device)
+    p3t = torch.empty(nseg3, C, 4, nth, **f64)
+    gxi = torch.empty(C, 4, nth, **f64)
+    p2t_sg = torch.empty(nseg, 2, C, nth, **f64)
+    gsg = torch.empty(2, C, nth, **f64)
+    p2t_cl = torch.empty(ntiles, C, L, 3, **f64)
+    p1t = torch.empty(ntiles, C, L, **f64)
+    g_cl = torch.empty_like(cl)
+    kernels.launch("lensing_bwd", cl.dtype, cl, th, lt, seeds, sgcg, g_sums,
+                   p3t, gxi, p2t_sg, gsg, p2t_cl, p1t, g_cl, C, L, nth,
+                   nl_out, seg12)
+    return g_cl
+
+
+class _Lensing(torch.autograd.Function):
+    """K3 on the card with its reverse kernel: the forward kernel, whose
+    sigma^2 and C_gl2 the backward (`_passes_bwd_cuda`) reads."""
+
+    @staticmethod
+    def forward(ctx, cl, n_theta, apodize, nl_out):
+        sums, sgcg = _passes_launch(cl, n_theta, apodize, nl_out)
+        ctx.save_for_backward(cl, sgcg)
+        ctx.args = (n_theta, apodize, nl_out)
+        return sums
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_sums):
+        cl, sgcg = ctx.saved_tensors
+        return (_passes_bwd_cuda(cl, sgcg, g_sums, *ctx.args),
+                None, None, None)
+
+
 def _passes_cuda(cl: torch.Tensor, n_theta: int, apodize: bool, nl_out: int
                  ) -> torch.Tensor:
     """csrc/lensing.cu, six launches on the stream: passes 1 and 2 give a
@@ -335,32 +424,25 @@ def _passes_cuda(cl: torch.Tensor, n_theta: int, apodize: bool, nl_out: int
     Replaces cosmomc_tpu/models/lensing.py:lens_cls (the lax.scans at
     :136, :247 and :287); the bound and the design are in the source.
 
-    Raises NotImplementedError when asked for a gradient: the kernel has
-    no reverse pass, so the lensing deltas would carry none, silently."""
+    When cl wants a gradient (and grad is enabled) it runs as `_Lensing`,
+    whose backward is the reverse kernel `lensing_bwd`."""
     if torch.is_grad_enabled() and cl.requires_grad:
-        raise NotImplementedError(
-            "lens_cls has no gradient on the card yet (K3's reverse pass is "
-            "ROADMAP.md queue 1 item 4); the plain version on CPU tensors "
-            "has one")
-    C, _, L = cl.shape
-    kernels.check(cl, "cl", (C, 4, L))
-    if nl_out > L:
-        raise ValueError(f"nl_out {nl_out} > L {L}")
-    th = theta_table(n_theta, apodize, cl.device)
-    nth = n_theta - 1
-    lt, seeds = _kernel_tables(L, n_theta, str(th.device))
-    seg12 = SEG * max(1, round(seeds.shape[0] / 14))
-    nseg = -(-L // seg12)
-    f64 = dict(dtype=torch.float64, device=cl.device)
-    part1 = torch.empty(nseg, 2, C, nth, **f64)
-    sgcg = torch.empty(2, C, nth, **f64)
-    part2 = torch.empty(nseg, C, 4, nth, **f64)
-    xi = torch.empty(4, nth, C, **f64)
-    part3 = torch.empty(THETA_SPLITS, C, nl_out, 4, **f64)
-    sums = torch.empty(C, nl_out, 4, dtype=cl.dtype, device=cl.device)
-    kernels.launch("lensing", cl.dtype, cl, th, lt, seeds, part1, sgcg, part2,
-                   xi, part3, sums, C, L, nth, nl_out, seg12, THETA_SPLITS)
-    return sums
+        return _Lensing.apply(cl, n_theta, apodize, nl_out)
+    return _passes_launch(cl, n_theta, apodize, nl_out)[0]
+
+
+def lens_inputs(ls: torch.Tensor, tt: torch.Tensor, te: torch.Tensor,
+                ee: torch.Tensor, pp: torch.Tensor) -> torch.Tensor:
+    """(C, 4, L) CTT, CTE, CEE, Cphil3 as the passes read them, from the
+    spectra in lens_cls's units (lensing.f90:209-216)."""
+    lf = ls.to(tt.dtype)
+    llp1 = lf * (lf + 1.0)
+    two_l1_4pi = (2.0 * lf + 1.0) / (4.0 * torch.pi)
+    conv = 2.0 * torch.pi / llp1
+    return torch.stack([tt * conv * two_l1_4pi, te * conv * two_l1_4pi,
+                        ee * conv * two_l1_4pi,
+                        pp * (2.0 * torch.pi / llp1 ** 2) * llp1 * two_l1_4pi],
+                       1).contiguous()
 
 
 def lens_cls(ls: torch.Tensor, tt: torch.Tensor, te: torch.Tensor,
@@ -376,15 +458,7 @@ def lens_cls(ls: torch.Tensor, tt: torch.Tensor, te: torch.Tensor,
         n_theta = 2 * lmax
     nl_out = lmax_lensed - 1
 
-    lf = ls.to(dtype)
-    llp1 = lf * (lf + 1.0)
-    two_l1_4pi = (2.0 * lf + 1.0) / (4.0 * torch.pi)
-    conv = 2.0 * torch.pi / llp1
-    cl = torch.stack([tt * conv * two_l1_4pi, te * conv * two_l1_4pi,
-                      ee * conv * two_l1_4pi,
-                      pp * (2.0 * torch.pi / llp1 ** 2) * llp1 * two_l1_4pi],
-                     1).contiguous()
-
+    cl = lens_inputs(ls, tt, te, ee, pp)
     passes = _passes_grid_plain if dev.type == "cpu" else _passes_cuda
     s = passes(cl, n_theta, apodize, nl_out)
     dctt = 2.0 * torch.pi * s[..., 0]

@@ -44,7 +44,6 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
-import torch.utils.checkpoint
 
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models import constants as const
@@ -54,6 +53,7 @@ from cosmomc_tpu_torch.models.neutrino import nu_pres, nu_rho
 from cosmomc_tpu_torch.models.recfast import ThermoHistory
 from cosmomc_tpu_torch.models.reionization import xe_reion
 from cosmomc_tpu_torch.utils.interp import cumsum, gradient, interp, linspace
+from cosmomc_tpu_torch.utils.remat import remat
 
 LMAXG = 12        # photon temperature 0..LMAXG
 LMAXGP = 8        # photon polarization 0..LMAXGP
@@ -666,8 +666,8 @@ def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
     the steps fall into that many chunks of ceil((N-1)/remat_chunks) steps
     (JAX pads the last chunk with dt = 0 no-ops, which change nothing),
     only the state at each chunk's start is kept, and each chunk's interior
-    is recomputed in the backward pass; the numbers do not depend on the
-    chunk count."""
+    is recomputed in the backward pass (utils/remat.py); the numbers do not
+    depend on the chunk count."""
     C, S = qtab.shape[0], qtab.shape[1]
     rn = rnu[:, None]
     sw = dict(massive_nu=massive_nu, de_perts=de_perts)
@@ -713,9 +713,7 @@ def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
     chunk = -(-S // remat_chunks)
     outs = []
     for lo in range(0, S, chunk):
-        y, o = torch.utils.checkpoint.checkpoint(
-            run, y, lo, min(lo + chunk, S), qtab, rn, iso,
-            use_reentrant=False)
+        y, o = remat(run, y, lo, min(lo + chunk, S), qtab, rn, iso)
         outs.append(o)
     return torch.cat(outs, 2)
 

@@ -43,6 +43,7 @@ from torch.autograd.function import once_differentiable
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models import constants as const
 from cosmomc_tpu_torch.models.background import BackgroundParams, hubble_mpc
+from cosmomc_tpu_torch.utils.remat import remat
 
 # ---- atomic data (recfast 1.5.2 table) ------------------------------------
 Lambda_H = 8.2245809
@@ -268,24 +269,34 @@ def table_prefix(zt: torch.Tensor, fHe: torch.Tensor, n: int):
     return xH, xHe, xe, zt[:, ZT_TMHOT, :n]
 
 
+#: nodes a rematerialized chunk of `_scan_plain`'s recorded graph holds
+SCAN_REMAT_NODES = 500
+
+
 def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor, start: int = 1):
     """The recurrence as batched torch ops; zt (C, N_ZT, N). Returns
     (xe, tm), each (C, N). `start`: the first node the recurrence computes
     (1: all of them); nodes before it take the table's state, which is the
     same result when start <= first_live_node(zt).min(). Records a graph
     when grad is enabled and zt or fHe wants one (the unrolled map, as
-    jax.grad differentiates the scan); otherwise runs under no_grad."""
+    jax.grad differentiates the scan), rematerialized in chunks of
+    SCAN_REMAT_NODES nodes (utils/remat.py: only each chunk's starting
+    state is kept and its interior is recomputed in the backward pass,
+    which bounds the graph's host memory and changes no number); otherwise
+    runs under no_grad."""
     C, _, N = zt.shape
     record = torch.is_grad_enabled() and (zt.requires_grad or fHe.requires_grad)
-    steps = zt.permute(2, 1, 0).unbind(0)          # N x (N_ZT, C)
     start = max(1, min(int(start), N))
     xH, xHe, xe_pre, tm_pre = table_prefix(zt, fHe, start)
-    xe_out, tm_out = list(xe_pre.unbind(1)), list(tm_pre.unbind(1))
-    xH, xHe, tm = xH[:, -1], xHe[:, -1], tm_out[-1]
+    state = (xH[:, -1], xHe[:, -1], tm_pre[:, -1])
+    xe_out, tm_out = [xe_pre], [tm_pre]
 
-    with torch.enable_grad() if record else torch.no_grad():
-        for i in range(start - 1, N - 1):
-            r0, r1 = steps[i], steps[i + 1]
+    def run(i0, i1, xH, xHe, tm, zt, fHe):
+        """Nodes i0 + 1 .. i1 from the state at node i0."""
+        steps = zt[:, :, i0:i1 + 1].permute(2, 1, 0).unbind(0)
+        xe_c, tm_c = [], []
+        for j in range(i1 - i0):
+            r0, r1 = steps[j], steps[j + 1]
             z = r1[ZT_Z]
             dz = z - r0[ZT_Z]
             xe_tot = xH + fHe * xHe
@@ -305,11 +316,24 @@ def _scan_plain(zt: torch.Tensor, fHe: torch.Tensor, start: int = 1):
             xhe_s, xh_s = r1[ZT_XHESAHA], r1[ZT_XHSAHA]
             xHe = _clip(torch.where(xhe_s > 0.995, xhe_s, xHe_ode), 0.0, 1.0)
             xH = _clip(torch.where(xh_s > 0.985, xh_s, xH_ode), 0.0, 1.0)
-            xe_out.append(torch.where(z > 5500.0, r1[ZT_XEEARLY],
-                                      xH + fHe * xHe))
+            xe_c.append(torch.where(z > 5500.0, r1[ZT_XEEARLY],
+                                    xH + fHe * xHe))
             tm = torch.where(z > 3000.0, r1[ZT_TMHOT], tm_new)
-            tm_out.append(tm)
-    return torch.stack(xe_out, 1), torch.stack(tm_out, 1)
+            tm_c.append(tm)
+        return xH, xHe, tm, torch.stack(xe_c, 1), torch.stack(tm_c, 1)
+
+    if record:
+        for i0 in range(start - 1, N - 1, SCAN_REMAT_NODES):
+            *state, xe_c, tm_c = remat(
+                run, i0, min(i0 + SCAN_REMAT_NODES, N - 1), *state, zt, fHe)
+            xe_out.append(xe_c)
+            tm_out.append(tm_c)
+    elif start < N:
+        with torch.no_grad():
+            *_, xe_c, tm_c = run(start - 1, N - 1, *state, zt, fHe)
+        xe_out.append(xe_c)
+        tm_out.append(tm_c)
+    return torch.cat(xe_out, 1), torch.cat(tm_out, 1)
 
 
 def _recfast_launch(zt: torch.Tensor, fHe: torch.Tensor, store: bool):

@@ -398,15 +398,19 @@ class CMBPosterior:
 
     def gradient_unsupported(self) -> Optional[str]:
         """Why this configuration's slow stage has no gradient, or None when
-        it has one: a kernel of its slow path without a reverse pass. K4
-        and K1's base instantiation have theirs; the CMB path (K2a or K2b,
-        K5, K6, then K3 in the semi stage) and K1's massive-neutrino and
-        dark-energy instantiations have none, and their plain versions
-        run under no_grad, so a gradient would come back partial. The
-        action-2 and HMC dispatch of driver.py asks the same."""
+        it has one: a kernel of its slow path without a reverse pass. K4,
+        K1's base instantiation, K2a (the table line of sight) and K3 (in
+        the semi stage) have theirs, so the flagship CMB path and the
+        LSS-only path take gradients; the tensor modes (K5, K6), the
+        recurrence line of sight (K2b) and K1's massive-neutrino and
+        dark-energy instantiations have none, and their plain versions run
+        under no_grad, so a gradient would come back partial. The action-2
+        and HMC dispatch of driver.py asks the same."""
         why = [name for name, on in (
-            ("use_cmb (the line-of-sight, tensor and lensing kernels)",
-             self.use_cmb),
+            ("compute_tensors (the tensor kernels K5, K6)",
+             self.use_cmb and self.compute_tensors),
+            ("los_method = recurrence (K2b)",
+             self.use_cmb and self.los_method == "recurrence"),
             ("massive_nu_hierarchy", self.massive_nu_hierarchy),
             ("de_perturbations", self.de_perturbations)) if on]
         return None if not why else ", ".join(why)
@@ -414,11 +418,13 @@ class CMBPosterior:
     def stage_slow(self, full_P: torch.Tensor) -> dict:
         """Everything independent of the primordial power and nuisance.
 
-        Differentiable where `gradient_unsupported()` is None (the LSS-only
-        path with K1's base instantiation: K4 and K1 with their reverse
-        kernels on the card, autograd of the plain versions on the CPU);
-        elsewhere raises NotImplementedError when asked for a gradient,
-        rather than return one that holds only the background paths."""
+        Differentiable where `gradient_unsupported()` is None (the flagship
+        CMB path and the LSS-only path with K1's base instantiation: K4,
+        K1 and K2a with their reverse kernels on the card, autograd of the
+        plain versions on the CPU; halofit's k_sigma bisection carries no
+        derivative, as in JAX); elsewhere raises NotImplementedError when
+        asked for a gradient, rather than return one that holds only part
+        of the slow path."""
         if torch.is_grad_enabled() and full_P.requires_grad:
             why = self.gradient_unsupported()
             if why is not None:
@@ -506,8 +512,10 @@ class CMBPosterior:
 
     def stage_semi(self, full_P: torch.Tensor, slow: dict) -> dict:
         """Primordial power on the cached transfers, then lensing, and the
-        P(k, z) / sigma8 tables. Differentiable on the CPU only: on the card
-        lens_cls raises when asked for a gradient (K3 has no reverse pass)."""
+        P(k, z) / sigma8 tables. Differentiable (on the card K3's reverse
+        kernel carries the gradient through lens_cls); the tensor C_l's
+        transfers come from the slow stage, which refuses a gradient with
+        compute_tensors."""
         pp = self._primordial(full_P)
         A9 = torch.exp(full_P[:, self._i_logA]) / 10.0        # 10^9 A_s
         mp = (matter_power_from_transfers(slow["bg"], pp, slow["mt"])

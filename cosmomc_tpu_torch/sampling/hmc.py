@@ -17,8 +17,9 @@ between segments on the host. Randomness comes from the sampler's own
 `torch.Generator`, drawn a segment at a time (`draw_segment`); a caller
 may pass the draws in instead (`HMCDraws`).
 
-A posterior with a slow stage (CMBPosterior) refuses gradients until its
-kernels have reverse passes (ROADMAP.md queue 1 item 4).
+A posterior with a slow stage (CMBPosterior) refuses gradients where a
+kernel of its slow path has no reverse pass yet
+(`CMBPosterior.gradient_unsupported()`, ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -173,7 +173,9 @@ def estimate_covariance(logpost: Callable, P_best: np.ndarray,
     H = 0.5 * (H + H.T)
     w, V = np.linalg.eigh(H)
     w = np.maximum(w, 1e-12 * max(w.max(), 1e-30))
-    return (V / w) @ V.T
+    C = (V / w) @ V.T
+    # (V / w) @ V.T rounds its two triangles apart; the .covmat is symmetric
+    return 0.5 * (C + C.T)
 
 
 def write_minimum_file(path: str, space: ParameterSpace, best: BestFit,

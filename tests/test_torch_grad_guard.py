@@ -1,14 +1,16 @@
 """Which configurations take a gradient through the slow stage, on the CPU
 (no theory is evaluated: the first step of the slow stage is stubbed).
 
-`CMBPosterior.gradient_unsupported()` is the one predicate: the CMB path
-(use_cmb), the massive-neutrino hierarchy and the dark-energy fluid have
-kernels without a reverse pass, and there `stage_slow` and the driver's
-action 2 and sampling_method = hmc raise NotImplementedError before any
-work; the LSS-only astro configuration with K1's base instantiation lets
-the gradient through. The wrappers of the reverse kernels take no plain
-fallback on CPU tensors, and K1's extended instantiations have no reverse
-kernel.
+`CMBPosterior.gradient_unsupported()` is the one predicate: the tensor
+modes (K5, K6), the recurrence line of sight (K2b), the massive-neutrino
+hierarchy and the dark-energy fluid have kernels without a reverse pass,
+and there `stage_slow` and the driver's action 2 and sampling_method = hmc
+raise NotImplementedError before any work; the flagship CMB path (K4, K1,
+K2a, K3), with matter power or under the SPT configuration's high-l
+splice, and the LSS-only astro configuration, all on K1's base
+instantiation, let the gradient through. The wrappers of the reverse
+kernels take no plain fallback on CPU tensors, and K1's extended
+instantiations have no reverse kernel.
 """
 
 import numpy as np
@@ -20,6 +22,8 @@ from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch import pipeline as tpipe
 from cosmomc_tpu_torch.likelihoods import synthetic as sd
 from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+from cosmomc_tpu_torch.models import cls as tcls
+from cosmomc_tpu_torch.models import lensing as tlens
 from cosmomc_tpu_torch.models import perturbations as tpert
 from cosmomc_tpu_torch.models import recfast as trec
 from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
@@ -32,12 +36,20 @@ F64 = torch.float64
 CONFIGS = {
     "astro": (AstroParameterization, dict(use_cmb=False, matter_power=True)),
     "theta": (ThetaParameterization, dict(use_cmb=True)),
+    "theta_mp": (ThetaParameterization, dict(use_cmb=True, matter_power=True)),
+    "spt": (ThetaParameterization, dict(use_cmb=True, lmax=400,
+                                        lmax_computed=200)),
+    "lcdm_r": (ThetaParameterization, dict(use_cmb=True, compute_tensors=True)),
+    "recurrence": (ThetaParameterization, dict(use_cmb=True,
+                                               los_method="recurrence")),
+    "theta_mnu": (ThetaParameterization, dict(use_cmb=True,
+                                              massive_nu_hierarchy=True)),
     "astro_mnu": (AstroParameterization, dict(use_cmb=False, matter_power=True,
                                               massive_nu_hierarchy=True)),
     "astro_de": (AstroParameterization, dict(use_cmb=False, matter_power=True,
                                              de_perturbations=True)),
 }
-SUPPORTED = {"astro"}
+SUPPORTED = {"astro", "theta", "theta_mp", "spt"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -52,17 +64,30 @@ class _Reached(Exception):
     """Raised by the stubbed first step of the slow stage."""
 
 
-def _posterior(kind):
+@pytest.fixture(scope="module")
+def highl_template(tmp_path_factory):
+    """A flat high-l template (the SPT configuration's splice)."""
+    path = tmp_path_factory.mktemp("guard") / "highl.dat"
+    ls = np.arange(2, 501)
+    np.savetxt(path, np.column_stack([ls] + [c + 0 * ls for c in
+                                             (1000.0, 10.0, 0.1, 1.0)]))
+    return str(path)
+
+
+def _posterior(kind, template=""):
     par, sw = CONFIGS[kind]
     par = par()
-    return CMBPosterior(par, par.default_space(), LikelihoodList(), lmax=100,
+    sw = dict(dict(lmax=100), **sw)
+    return CMBPosterior(par, par.default_space(), LikelihoodList(),
                         bbn_table=synthetic_bbn_table(), device="cpu",
-                        dtype=F64, **sw)
+                        dtype=F64, highl_template=template, **sw)
 
 
 @pytest.mark.parametrize("kind", list(CONFIGS))
-def test_stage_slow_guard(kind, monkeypatch):
-    post = _posterior(kind)
+def test_stage_slow_guard(kind, monkeypatch, highl_template):
+    post = _posterior(kind, highl_template)
+    if kind == "spt":
+        assert 0 < post.lmax_computed < post.lmax
     assert (post.gradient_unsupported() is None) == (kind in SUPPORTED)
     P = torch.tensor([[p.center for p in post.space.varying]], dtype=F64,
                      requires_grad=True)
@@ -137,6 +162,16 @@ def test_reverse_wrappers_take_no_plain_path():
     k = torch.ones(2, dtype=F64)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tpert._evolve_cuda(q, k, torch.ones(1, dtype=F64), tpert.RSA_KTAU)
+    # K2a and K3, through their autograd Functions
+    key = (60, 14200.0, 0.01, 4.0, 256, tuple(np.geomspace(1e-4, 0.01, 6)))
+    dp = tcls._device_plan(key, "cpu", F64)
+    src = torch.zeros(1, 4, 6, 8, dtype=F64, requires_grad=True)
+    w = torch.ones(1, 8, dtype=F64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tcls._Los.apply(src, w, w, w, dp, 5.0)
+    cl = torch.ones(1, 4, 79, dtype=F64, requires_grad=True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tlens._passes_cuda(cl, 160, True, 59)
 
 
 @pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True)])
@@ -187,6 +222,39 @@ def test_hessian_from_gradient_differences():
                                    gradient_differences=np.full(4, 1e-3),
                                    bounds=(lo, x + np.array([1.0, 0.0, 1.0, 0.0])))
     np.testing.assert_allclose(at_bound, cov, rtol=1e-9, atol=1e-12)
+
+
+def test_hessian_step_spans_gradient_jumps():
+    """Action 2's step (driver.HESSIAN_STEP proposal widths) on a -logL
+    whose exact gradient jumps, as a table interpolant's slope does: a
+    correlated Gaussian plus a triangle wave of period 1e-4 whose slope
+    flips by 2a. At a point just below a downward flip in every
+    coordinate, differences over 1e-3 widths read the flip as curvature;
+    over HESSIAN_STEP widths each diagonal element moves by at most
+    a / h, which bounds the covariance's error by 3% of its maximum. The
+    covariance written is symmetric bit for bit."""
+    from cosmomc_tpu_torch.sampling.minimize import estimate_covariance
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((4, 4))
+    cov = A @ A.T + 4.0 * np.eye(4)
+    icov = torch.as_tensor(np.linalg.inv(cov), dtype=F64)
+    mu = rng.standard_normal(4)
+    width = np.sqrt(np.diag(cov))
+    a, period = 3e-4, 1e-4
+
+    def logpost(P):
+        d = P - torch.as_tensor(mu, dtype=F64)
+        wave = period * torch.abs(torch.frac(P / period) - 0.5).sum(1)
+        return 0.5 * torch.einsum("ci,ij,cj->c", d, icov, d) + a * wave, P[:, :0]
+    x = (np.floor(mu / period) + 1.0 - 1e-3) * period
+
+    def error(step):
+        got = estimate_covariance(logpost, x, device="cpu",
+                                  gradient_differences=step * width)
+        assert np.array_equal(got, got.T)
+        return np.abs(got - cov).max() / np.abs(cov).max()
+    assert error(tdriver.HESSIAN_STEP) <= 0.03
+    assert error(1e-3) > 0.5
 
 
 def test_r_minus_1_without_enough_samples_is_nan():

@@ -1,6 +1,6 @@
 """The reverse kernels against autograd of their plain versions, on the
-card. Every test here needs an NVIDIA GPU and nvcc and skips without them;
-run on the card with
+card (K4, K1, K2a, K3). Every test here needs an NVIDIA GPU and nvcc and
+skips without them; run on the card with
 
     python -m pytest tests/test_torch_grad_kernels.py -q --noconftest
 
@@ -147,3 +147,74 @@ def test_no_second_derivative(dev, cosmo):
     (g,) = torch.autograd.grad(xe.sum(), zt, create_graph=True)
     with pytest.raises(RuntimeError):
         torch.autograd.grad(g.sum(), zt)
+
+
+def test_los_reverse_kernel(dev):
+    """K2a's reverse (los_bwd) through `_Los` against autograd of
+    `_los_plan_plain`: 2 chains, 24 coarse k to 0.05/Mpc, 128 tau nodes,
+    lmax 600, the second chain's last node at x = 0."""
+    from cosmomc_tpu_torch.models import cls as tcls
+    kgrid = np.geomspace(2e-4, 0.05, 24)
+    key = (600, 14200.0, 0.05, 4.0, 256, tuple(kgrid.tolist()))
+    plan = tcls._plan(*key)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    C, nt = 2, 128
+    tau = torch.linspace(200.0, 14000.0, nt, dtype=F64)
+    kk = torch.as_tensor(kgrid)[:, None]
+    src = torch.stack([torch.exp(-((tau - 280.0) / 40.0) ** 2)
+                       * torch.cos(kk * tau / (3.0 + i)) for i in range(4)])
+    src = torch.stack([src, 1.1 * src]).float().double().to(dev).contiguous()
+    chi = (torch.tensor([[14100.0], [14000.0]], dtype=F64) - tau).to(dev)
+    chi[1, -1] = 0.0
+    wt = torch.full((C, nt), float(tau[1] - tau[0]), dtype=F64, device=dev)
+    wl = 1e-4 * wt
+    dp64 = tcls._device_plan(key, str(src.device), F64)
+    G = torch.randn(3, C, *dp64["ls"].shape, dp64["kf"].shape[0],
+                    generator=g, dtype=F64).to(dev)
+    inv_dx = 1.0 / plan.dx
+    xs = [t.clone().requires_grad_(True) for t in (src, chi, wt, wl)]
+    ref = torch.autograd.grad((tcls._los_plan_plain(xs[0], dp64, *xs[1:], inv_dx)
+                               * G).sum(), xs)
+    for dt, tol in ((F64, 1e-9), (F32, 1e-3)):
+        dp = tcls._device_plan(key, str(src.device), dt)
+        kernels.reset_launches()
+        xs = [t.to(dt).requires_grad_(True) for t in (src, chi, wt, wl)]
+        out = tcls._Los.apply(*xs, dp, float(torch.tensor(inv_dx, dtype=dt)))
+        got = torch.autograd.grad((out * G.to(dt)).sum(), xs)
+        assert kernels.launches["los"] == 1 and kernels.launches["los_bwd"] == 1
+        for a, b in zip(got, ref):
+            assert bool(torch.isfinite(a).all())
+            assert rel_err(a, b) <= tol, (dt, rel_err(a, b))
+
+
+def test_lensing_reverse_kernel(dev):
+    """K3's reverse (lensing_bwd) through `_Lensing` against autograd of
+    `_passes_plain`: 2 chains, l 2..600 -> 450, 1200 theta."""
+    from cosmomc_tpu_torch.models import lensing as tlens
+    L = 599
+    l = np.arange(2, L + 2, dtype=np.float64)
+    cl = []
+    for a in (1.0, 1.1):
+        damp = np.exp(-(l / 1400.0) ** 2)
+        tt = a * 5800.0 * damp * (0.35 + np.cos(np.pi * l / 300.0) ** 2)
+        ee = a * 40.0 * damp * (l / 1000.0) * (1 + np.sin(np.pi * l / 300.0) ** 2)
+        te = 0.4 * np.sqrt(tt * ee) * np.cos(np.pi * l / 150.0)
+        pp = a * 1.8e-7 * (l / 40.0) / (1.0 + (l / 40.0) ** 2) ** 1.2
+        cl.append(tlens.lens_inputs(torch.as_tensor(l), *(torch.as_tensor(x)[None]
+                                                          for x in (tt, te, ee, pp)))[0])
+    cl = torch.stack(cl).float().double().to(dev)
+    n_theta, nl_out = 2 * (L + 1), 449
+    gs = torch.randn(2, nl_out, 4, generator=torch.Generator().manual_seed(6),
+                     dtype=F64).to(dev)
+    x = cl.clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad((tlens._passes_grid_plain(x, n_theta, True, nl_out)
+                                  * gs).sum(), [x])
+    for dt, tol in ((F64, 1e-9), (F32, 1e-5)):
+        kernels.reset_launches()
+        x = cl.to(dt).requires_grad_(True)
+        (got,) = torch.autograd.grad((tlens._passes_cuda(x, n_theta, True, nl_out)
+                                      * gs.to(dt)).sum(), [x])
+        assert kernels.launches["lensing"] == 1
+        assert kernels.launches["lensing_bwd"] == 1
+        for q in range(4):
+            assert rel_err(got[:, q], ref[:, q]) <= tol, (dt, q)

@@ -1,9 +1,9 @@
 """The port's repaired faults against the JAX package: the implicit
 derivatives of the two bisections (H0 from theta, z_re from tau), the
-slow stage and K3's wrapper refusing a gradient they cannot give (the
-kernels have no reverse pass yet; the semi + fast gradient with the slow
-cache held, on the CPU, is tested in test_torch_slice_sampler.py, on that
-file's slow cache), and the
+slow stage refusing a gradient it cannot give (where a kernel has no
+reverse pass yet) and K3's wrapper giving one through its reverse kernel
+(the gradients themselves are held to JAX in test_torch_grad_lensing.py
+and test_torch_grad_flagship.py), and the
 public functions of ported modules that the port lacked (the spline
 derivative and integral, clamped spline ends, the bicubic grid, linear
 interpolation, the BBN Yp^BBN and error lookups, compute_cmb_theory).
@@ -101,17 +101,18 @@ class _Reached(Exception):
     call through."""
 
 
-@pytest.mark.parametrize("kind", ["theta", "astro"])
+@pytest.mark.parametrize("kind", ["theta", "astro", "lcdm_r"])
 def test_slow_stage_refuses_gradients(kind, monkeypatch):
     """A gradient through the full posterior raises NotImplementedError
-    before any work on the CMB path, whose line-of-sight and lensing
-    kernels have no reverse pass; the LSS-only astro path (K4 and K1's
-    base instantiation, which have theirs) lets it through, as every path
-    does without a gradient."""
-    par = TTheta() if kind == "theta" else TAstro()
+    before any work where a kernel of the slow path has no reverse pass:
+    LCDM+r's tensor kernels (K5, K6). The flagship CMB path (K4, K1, K2a,
+    and K3 in the semi stage) and the LSS-only astro path (K4, K1) have
+    theirs and let it through, as every path does without a gradient."""
+    par = TAstro() if kind == "astro" else TTheta()
     post = TPost(par, par.default_space(), TLikes(), lmax=100,
-                 bbn_table=tbbn.synthetic_bbn_table(), use_cmb=kind == "theta",
-                 matter_power=kind == "astro", device="cpu", dtype=F64)
+                 bbn_table=tbbn.synthetic_bbn_table(), use_cmb=kind != "astro",
+                 matter_power=kind == "astro",
+                 compute_tensors=kind == "lcdm_r", device="cpu", dtype=F64)
     P = torch.tensor([[p.center for p in post.space.varying]], dtype=F64,
                      requires_grad=True)
 
@@ -120,7 +121,7 @@ def test_slow_stage_refuses_gradients(kind, monkeypatch):
     monkeypatch.setattr(post.parameterization, "to_background", reached)
     def refused():
         return (pytest.raises(NotImplementedError, match="queue 1 item 4")
-                if kind == "theta" else pytest.raises(_Reached))
+                if kind == "lcdm_r" else pytest.raises(_Reached))
     with refused():
         torch.autograd.grad(post.logpost()(P)[0].sum(), P)
     with refused():
@@ -132,28 +133,33 @@ def test_slow_stage_refuses_gradients(kind, monkeypatch):
 
 
 def test_lensing_kernel_refuses_gradients(monkeypatch):
-    """lens_cls on the kernel's route (K3's wrapper, its launch stubbed)
-    raises NotImplementedError before any launch when its spectra want a
-    gradient, as the semi stage's would; without one the call reaches the
-    launch. The plain version on CPU tensors keeps its gradient."""
+    """lens_cls on the kernel's route (K3's wrapper, its launches stubbed)
+    takes a gradient through its reverse kernel: with spectra that want
+    one, the forward launches `lensing` and the backward `lensing_bwd`, on
+    the forward's sigma^2 and C_gl2; without one the forward alone. The
+    plain version on CPU tensors keeps its gradient."""
     from cosmomc_tpu_torch import kernels
     from cosmomc_tpu_torch.models import lensing as tlens
     rng = np.random.default_rng(3)
     ls = torch.arange(2, 81, dtype=F64)
     spectra = torch.tensor(1.0 + rng.random((4, 2, 79)), dtype=F64,
                            requires_grad=True)
+    calls = []
 
-    def reached(*a):
-        raise _Reached
+    def launch(name, dtype, *args):
+        calls.append(name)
     monkeypatch.setattr(tlens, "_passes_grid_plain", tlens._passes_cuda)
     monkeypatch.setattr(kernels, "check", lambda *a: None)
-    monkeypatch.setattr(kernels, "launch", reached)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    monkeypatch.setattr(kernels, "launch", launch)
+    out = tlens.lens_cls(ls, *spectra, lmax_lensed=60)
+    assert calls == ["lensing"]
+    (g,) = torch.autograd.grad(out.bb.sum() + out.tt.sum(), spectra)
+    assert calls == ["lensing", "lensing_bwd"] and g.shape == spectra.shape
+    calls.clear()
+    tlens.lens_cls(ls, *spectra.detach(), lmax_lensed=60)
+    with torch.no_grad():
         tlens.lens_cls(ls, *spectra, lmax_lensed=60)
-    with pytest.raises(_Reached):
-        tlens.lens_cls(ls, *spectra.detach(), lmax_lensed=60)
-    with torch.no_grad(), pytest.raises(_Reached):
-        tlens.lens_cls(ls, *spectra, lmax_lensed=60)
+    assert calls == ["lensing", "lensing"]
     monkeypatch.undo()
     out = tlens.lens_cls(ls, *spectra, lmax_lensed=60)
     (g,) = torch.autograd.grad(out.bb.sum() + out.tt.sum(), spectra)
