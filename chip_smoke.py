@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Phase 1 builds the seven hand-written kernels (csrc/, nvcc, sm_90a), one
-nvcc process per source, all started together.
-Phase 2 holds each kernel against its plain PyTorch version at the main
+Phase 1 builds the seven hand-written kernels and their instantiations
+(csrc/, nvcc, sm_90a), one nvcc process per source, all started together.
+Phase 2 runs in a process of its own on the card (`--phase2`), beside
+phases 3-16 of the main one, which prints its log after phase 16: the
+plain versions it holds the kernels to are Python loops bound by their
+launches on the host. It holds each kernel against its plain PyTorch version at the main
 paths' shapes, in float32 and float64, times both, and computes each
 kernel's bound from shape-based counts (OPS): the larger of its operations
 over the card's peak rate for their type and its bytes over the memory
@@ -40,8 +43,9 @@ under SamplingRun, 32 chains, then resumes it bit for bit.
 Phase 2 also holds K1's extended instantiations, the massive-neutrino
 hierarchy and the dark-energy fluid (with a CDM-isocurvature chain), to
 the plain version in float64, on the source grid and (massive nu) on the
-matter grid; it does so after phase 12, the plain versions computed by a
-second process on the card beside phases 3-12 (`--plain-card`).
+matter grid; the main process does so after phase 12, the plain versions
+computed by two more processes on the card beside phases 3-12
+(`--plain-card`, `--plain-card-de`).
 Phase 9 runs Planck 2018's base_mnu on the flagship (mnu free, matter
 power; K1's massive-neutrino instantiation twice a slow step): float32
 against float64, plik_lite + a DR12 set with f_sigma8 rows + the tau prior,
@@ -66,12 +70,12 @@ grid and DR12 BAO with f_sigma8, float32 theory and float64 likelihoods,
 phase 3's flagship posterior.
 Phase 2 also holds the reverse kernels of K4 and K1 (the gradient path's)
 to autograd of their plain versions, computed on the host CPU by a
-process of this script started before phase 2 (`--plain-ref`).
+process that phase 2's starts (`--plain-ref`).
 Phase 13 runs the ini driver: the CLI, actions 0, 1, 2 and 4, HMC and
 the grid CLI.
 Phase 14 runs the gradient path on phase 12's configuration: the float64
 gradient against central differences and against the host CPU's plain
-gradient (`--cpu-grad`, started before phase 2), HMC through the CLI
+gradient (`--cpu-grad`, started before phase 3), HMC through the CLI
 (started before phase 13) and action 2.
 Phase 2 also holds the reverse kernels of K2a and K3 (los_bwd,
 lensing_bwd) at the flagship's shapes to autograd of their plain versions
@@ -82,7 +86,21 @@ K4, K1, K2a, K3 and their reverse kernels: against central differences
 without halofit, against the host CPU's plain gradient at
 test_torch_slice.py's small config (`--cpu-grad-cmb`), HMC through the
 CLI on the flagship ini (started after phase 5), action 2 on it, and the
-refusals of LCDM+r and base_mnu.
+refusals of LCDM+r (also with mnu free).
+Phase 2 also holds the reverse kernels of K1's extended instantiations
+(boltzmann_nu_bwd, boltzmann_de_bwd, boltzmann_nu_de_bwd) to autograd of
+their plain versions on the host CPU at a reduced shape that crosses every
+switch (`--plain-ref-nu|de|nu-de`, started before phase 3), in the main
+process after phase 12, and times them at the main paths' shapes.
+Phase 16 runs the gradients of base_mnu and of base_w_wa with alpha1 free
+at full width in float64 (K1's extended instantiations with their reverse
+kernels, on the source and the matter grids): against central
+differences, against the host CPU's plain gradient at a small config
+(`--cpu-grad-ext`, a process a configuration, started before phase 3), HMC
+through the CLI on the base_mnu ini (started before phase 13) and action
+2 on the base_w_wa ini (`--ext-min`, a process on the card beside phases
+14 and 15). Phase 13's two CLI processes of action 4 start after phase
+12, beside the main process's part of phase 2.
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -97,6 +115,7 @@ import json
 import math
 import os
 import re
+import signal
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
@@ -198,9 +217,12 @@ DRIVER_GRID = dict(num_chains=64, segment_steps=64, samples=512)
 #: too), JOB_TIMEOUT seconds at most
 GRAD_CHUNKS = 64
 GRAD_F32_TOL = {"recfast_bwd": 1e-4, "boltzmann_bwd": 1e-3, "los_bwd": 1e-3,
-                "lensing_bwd": 1e-5}
-JOB_THREADS = {"--plain-ref": 2, "--cpu-grad": 1, "--plain-ref-cmb": 2,
-               "--cpu-grad-cmb": 1, "--plain-card": 1}
+                "lensing_bwd": 1e-5, "boltzmann_nu_bwd": 1e-3,
+                "boltzmann_de_bwd": 1e-3, "boltzmann_nu_de_bwd": 1e-3}
+JOB_THREADS = {"--plain-ref": 2, "--cpu-grad": 1, "--plain-ref-cmb": 1,
+               "--cpu-grad-cmb": 1, "--plain-card": 1, "--plain-card-de": 1,
+               "--plain-ref-nu": 1, "--plain-ref-de": 1, "--plain-ref-nu-de": 1,
+               "--cpu-grad-ext": 1, "--ext-min": 1, "--phase2": 1}
 JOB_TIMEOUT = 900
 #: chains of the CMB-grid K1 reference on the host CPU (8191 plain steps
 #: under autograd there take minutes a chain)
@@ -225,7 +247,7 @@ GRAD_HMC_ACCEPT = (0.05, 1.0)
 GRAD_MIN_REFINE, GRAD_MIN_ITER = 16, 10
 #: phase 15 (the flagship's gradient): test_torch_slice.py's small config,
 #: at which the card's gradient is held to the host CPU's plain one
-#: (`--cpu-grad-cmb`, started before phase 2); the HMC run through the CLI
+#: (`--cpu-grad-cmb`, started before phase 3); the HMC run through the CLI
 #: (started after phase 5; a step of 0.01 proposal widths to start from:
 #: the synthetic plik_lite set puts the posterior's width at ~0.07 of them,
 #: and one short warmup segment does not adapt far from the start)
@@ -234,6 +256,38 @@ FLAG_HMC = dict(num_chains=8, hmc_warmup_segments=1, segment_steps=2,
                 samples=4, hmc_leapfrog_steps=4, hmc_step_size=0.01)
 #: phase 15's central differences also at these steps (logged)
 FLAG_FD_STEPS = (3e-6, 1e-5)
+#: K1's extended reverse kernels (phase 2): their instantiation and switches,
+#: and the reduced shape at which they are held to autograd of the plain
+#: version on the host CPU (`--plain-ref-nu|de|nu-de`, started before phase 3):
+#: VariantInputs' first and last chains (mnu 0.06 and 0.3 eV, w0 -0.8 and
+#: -1.2, wa -0.4 and 0.3; isocurvature 0.2 on the first) x every
+#: EXT_REF_K_STRIDE-th k of the source grid (31 of 248, to 0.5/Mpc) x
+#: K1_CMP_STEPS steps, a seeded cotangent dense on all 7 planes: lanes and
+#: steps that cross tight coupling, RSA (the DE fluid's freeze), nu_rel_rsa
+#: by (am < 2) and by k dt_loc > 0.9, and the ICs' release
+EXT_BWD = {"boltzmann_nu_bwd": ("boltzmann_nu", (True, False)),
+           "boltzmann_de_bwd": ("boltzmann_de", (False, True)),
+           "boltzmann_nu_de_bwd": ("boltzmann_nu_de", (True, True))}
+EXT_REF_CHAINS, EXT_REF_K_STRIDE = (0, NCHAINS - 1), 8
+#: the host process that computes each one's plain reference
+PLAIN_REF_EXT_PARTS = {"--plain-ref-nu": "boltzmann_nu_bwd",
+                       "--plain-ref-de": "boltzmann_de_bwd",
+                       "--plain-ref-nu-de": "boltzmann_nu_de_bwd"}
+#: phase 16 (base_mnu and base_w_wa with alpha1 free): the gradient's
+#: comparison with the host CPU's plain one (`--cpu-grad-ext`, started
+#: before phase 3) at FLAG_SMALL with the reduced matter grid of phase 14,
+#: one point a configuration; the HMC run through the CLI on the base_mnu
+#: ini (started before phase 13)
+EXT_GRAD = {"mnu": dict(alpha1=False), "w0wa": dict(alpha1=True)}
+EXT_HMC = dict(num_chains=8, hmc_warmup_segments=1, segment_steps=2,
+               samples=4, hmc_leapfrog_steps=2, hmc_step_size=0.01)
+#: phase 16's central differences, at each point the closer of these
+#: steps (proposal widths) to the gradient: -logL is piecewise smooth, so
+#: the differences carry its float64 rounding at the smaller step and a
+#: kink within the larger one where one lies there (base_mnu's offset
+#: point along omch2: 2.46e-5 of the largest component at 1e-6 widths,
+#: 7.8e-6 at 3e-7; scripts/ext_fd_steps.py)
+EXT_FD_STEPS = (3e-7, GRAD_FD_STEP)
 
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
@@ -258,11 +312,17 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     # the reverse passes: jax.grad over the same scans
     "recfast_bwd": ("cosmomc_tpu_torch/csrc/recfast.cu",
                     "cosmomc_tpu/models/recfast.py:279"),
-    "boltzmann_bwd": ("cosmomc_tpu_torch/csrc/perturbations.cu",
+    "boltzmann_bwd": ("cosmomc_tpu_torch/csrc/boltzmann_bwd.cu",
                       "cosmomc_tpu/models/perturbations.py:928"),
     "los_bwd": ("cosmomc_tpu_torch/csrc/cls.cu", "cosmomc_tpu/models/cls.py:285"),
     "lensing_bwd": ("cosmomc_tpu_torch/csrc/lensing.cu",
                     "cosmomc_tpu/models/lensing.py:136"),
+    "boltzmann_nu_bwd": ("cosmomc_tpu_torch/csrc/boltzmann_bwd.cu",
+                         "cosmomc_tpu/models/perturbations.py:928"),
+    "boltzmann_de_bwd": ("cosmomc_tpu_torch/csrc/boltzmann_bwd.cu",
+                         "cosmomc_tpu/models/perturbations.py:928"),
+    "boltzmann_nu_de_bwd": ("cosmomc_tpu_torch/csrc/boltzmann_bwd.cu",
+                            "cosmomc_tpu/models/perturbations.py:928"),
 }
 #: the kernels each main path must launch (phase 5 "runner" is the
 #: flagship under SamplingRun; phase 6 "background" launches none; phase 7
@@ -275,9 +335,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: ini; phase 14 "gradient" the gradient of phase 12's configuration and
 #: action 2 on it, the forward kernels with their reverse kernels; phase 15
 #: "flagship_grad" the flagship's gradient and action 2 on its ini, the
-#: four forward kernels and their four reverse kernels; K1's
-#: fourth instantiation, boltzmann_nu_de, is on no path: phase 2 holds it to
-#: its plain version)
+#: four forward kernels and their four reverse kernels; phase 16
+#: "mnu_grad" and "w0wa_grad" the gradients of base_mnu and of base_w_wa
+#: with alpha1, K1's instantiation and its reverse kernel twice a gradient
+#: (the source and the matter grids); K1's fourth instantiation,
+#: boltzmann_nu_de, and its reverse kernel are on no path: phase 2 holds
+#: them to their plain versions)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
@@ -294,7 +357,13 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                              "boltzmann_bwd"),
                 "flagship_grad": ("recfast", "boltzmann", "los", "lensing",
                                   "recfast_bwd", "boltzmann_bwd", "los_bwd",
-                                  "lensing_bwd")}
+                                  "lensing_bwd"),
+                "mnu_grad": ("recfast", "boltzmann_nu", "los", "lensing",
+                             "recfast_bwd", "boltzmann_nu_bwd", "los_bwd",
+                             "lensing_bwd"),
+                "w0wa_grad": ("recfast", "boltzmann_de", "los", "lensing",
+                              "recfast_bwd", "boltzmann_de_bwd", "los_bwd",
+                              "lensing_bwd")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -1023,6 +1092,7 @@ class VariantInputs:
         for name, lo, hi in (("mnu", 0.06, 0.3), ("w", -0.8, -1.2),
                              ("wa", -0.4, 0.3)):
             full[:, space.index(name)] = np.linspace(lo, hi, NCHAINS)
+        self.full = full
         self.bg, self.tfs = self.inputs(full, (K1_CMP_STEPS, mpert.N_STEP))
         self.k = torch.as_tensor(source_k_grid(kmax=0.5), dtype=F64, device=dev)
         self.rnu = mpert._r_nu(self.bg).contiguous()
@@ -1120,30 +1190,42 @@ VARIANT_CASES = (("boltzmann_nu", (True, False), False),
                  ("boltzmann_nu_de", (True, True), True))
 
 
-def variant_plain_refs(d):
-    """--plain-card DIR: the plain versions of K1's extended instantiations
+#: the plain versions each `--plain-card*` process computes: two
+#: processes on the card beside phases 3-12, each loop bound by its
+#: launches on the host
+PLAIN_CARD_PARTS = {"--plain-card": ("boltzmann_nu", "boltzmann_nu.matter"),
+                    "--plain-card-de": ("boltzmann_de", "boltzmann_nu_de")}
+
+
+def variant_plain_refs(d, mode="--plain-card"):
+    """--plain-card DIR (and --plain-card-de DIR): the plain versions of
+    K1's extended instantiations named in PLAIN_CARD_PARTS[mode]
     (VARIANT_CASES on VariantInputs at K1_CMP_STEPS, and the massive-nu
     matter-grid case), float64 on the float32 inputs upcast, on the card:
-    Python loops of ~2048 steps bound by their launches, so a process of
-    their own runs them beside the main one's phases 3-12 (started after
-    phase 2, whose kernel timings it would share the card with). Writes
-    DIR/plain_card.pt: each result on the host with its milliseconds (and
-    the matter case's step count)."""
+    Python loops of ~2048 steps bound by their launches, so processes of
+    their own run them beside the main one's phases 3-12 (started after
+    phase 2, whose kernel timings they would share the card with). Writes
+    DIR/plain_card.pt (DIR/plain_card_de.pt): each result on the host with
+    its milliseconds (and the matter case's step count)."""
     from cosmomc_tpu_torch.models import perturbations as mpert
     sys.path.insert(0, HERE)
     vi = VariantInputs(torch.device("cuda"))
+    want = PLAIN_CARD_PARTS[mode]
     out = {}
     for name, sw, with_iso in VARIANT_CASES:
+        if name not in want:
+            continue
         iso = mpert.iso_inputs(vi.bg, vi.b) if with_iso else None
         ms, o = k1_variant_plain(mpert._stage_tables(vi.bg, vi.tfs[K1_CMP_STEPS], *sw),
                                  vi.k, vi.rnu, sw, iso)
         out[name] = (ms, o.cpu())
         print(f"{name} plain {ms:.1f} ms", flush=True)
-    _, _, km, rnu1, n, q = matter_nu_case(vi)
-    ms, o = k1_variant_plain(q, km, rnu1, (True, False))
-    out["boltzmann_nu.matter"] = (ms, o.cpu(), n)
-    print(f"boltzmann_nu.matter plain {ms:.1f} ms at {n} steps", flush=True)
-    torch.save(out, os.path.join(d, "plain_card.pt"))
+    if "boltzmann_nu.matter" in want:
+        _, _, km, rnu1, n, q = matter_nu_case(vi)
+        ms, o = k1_variant_plain(q, km, rnu1, (True, False))
+        out["boltzmann_nu.matter"] = (ms, o.cpu(), n)
+        print(f"boltzmann_nu.matter plain {ms:.1f} ms at {n} steps", flush=True)
+    torch.save(out, os.path.join(d, mode.strip("-").replace("-", "_") + ".pt"))
     return 0
 
 
@@ -1193,8 +1275,7 @@ def phase2_variants(dev, results, refs=None):
         log(f"  {name}@{K1_CMP_STEPS} kernel {ms:.3f} ms (bound "
             f"{cmp_bound['bound_ms']:.4f} ms), plain (float64) {plain_ms:.1f} ms, one "
             f"lane {serial_ms:.3f} ms; @8192 kernel f32 {ms_full[F32]:.3f} ms (bound "
-            f"{full_bound:.4f} ms), f64 {ms_full[F64]:.3f} ms; base K1 @8192 "
-            f"{results['boltzmann']['ms_8192_steps']:.3f} ms")
+            f"{full_bound:.4f} ms), f64 {ms_full[F64]:.3f} ms")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              plain_dtype="float64", ms_8192_steps=ms_full[F32],
                              ms_8192_steps_f64=ms_full[F64],
@@ -1223,7 +1304,7 @@ def phase2_variants(dev, results, refs=None):
         ms6, _ = timed(lambda: mpert._evolve_cuda(q, k32, r32, mpert.RSA_KTAU, *sw), 5)
         b6 = bound({"fp32": k1_ops(q, len(kgrid), name)}, 0)["bound_ms"]
         log(f"  {name}, matter grid @{MATTER_CMP_STEPS[-1]}: {ms6:.3f} ms (bound "
-            f"{b6:.4f} ms; base K1 {results['boltzmann']['matter_grid']['ms_6144_steps']:.3f} ms)")
+            f"{b6:.4f} ms)")
         results[name].setdefault("matter_grid", {}).update(
             ms_6144_steps=ms6, bound_ms_6144_steps=b6)
     phase2_nu_de(dev, results, vi, ref("boltzmann_nu_de"))
@@ -2005,10 +2086,10 @@ def drive_astro(dev, tmp):
     return launches, per_segment
 
 
-def ext_posterior(dev, label, likes, dtype, alpha1=False):
+def ext_posterior(dev, label, likes, dtype, alpha1=False, **kw):
     """CMBPosterior of phase 9 or 10 at full width: the flagship's
     parameterization with EXT_FREE[label] (and alpha1) freed by ini
-    overrides, the tau prior, matter power."""
+    overrides, the tau prior, matter power; `kw` to CMBPosterior."""
     from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table
     from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
     from cosmomc_tpu_torch.pipeline import CMBPosterior
@@ -2021,7 +2102,7 @@ def ext_posterior(dev, label, likes, dtype, alpha1=False):
     space.get("tau").prior_mean = 0.0544
     space.get("tau").prior_std = 0.0073
     return CMBPosterior(par, space, likes, bbn_table=synthetic_bbn_table(),
-                        matter_power=True, device=dev, dtype=dtype)
+                        matter_power=True, device=dev, dtype=dtype, **kw)
 
 
 def drive_extended(dev, tmp, label):
@@ -2034,7 +2115,8 @@ def drive_extended(dev, tmp, label):
     -logL there with the tau prior; then init and one 16-step segment with
     one slow step under StagedMetropolisSampler, which must launch K4, K2a
     once and the path's K1 instantiation twice a slow step and K3 once a
-    semi step, nothing else. Returns the launch counts."""
+    semi step, nothing else. Returns the launch counts and the paths of
+    the two sets (phase 16's)."""
     from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
     from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
     from cosmomc_tpu_torch.likelihoods.forecast import write_plik_lite_fiducial
@@ -2105,7 +2187,7 @@ def drive_extended(dev, tmp, label):
             for n in ("H0", "omeganuh2", "sigma8", "S8", "fsigma8z051")))
     require(float(mll_bf[0]) < 1.0, f"{label}: fiducial -logL near 0 at its point")
     launches, per_segment, _ = segment_with_matter_power(post, label, point)
-    return launches, per_segment
+    return launches, per_segment, dict(ds=ds, dr12=dr12)
 
 
 def sigma8_mnu_anchors(dev):
@@ -2519,7 +2601,7 @@ def abundance_by_hand(tab, ds, ombh2, dn):
 
 
 def lss_bbn_sets(dev, tmp):
-    """Phase 12's sets, written before phase 2 (phase 14's CPU gradient
+    """Phase 12's sets, written before phase 3 (phase 14's CPU gradient
     reads them from a process of its own while the card runs phases 2-13):
     a DES 1YR-shaped 3x2pt set, a Planck 2015-shaped SZ set, D/H and Yp
     abundances on a written BBN grid and the synthetic DR12 BAO set with
@@ -2777,21 +2859,28 @@ def smi_line():
                           text=True, check=True).stdout.strip().splitlines()[0]
 
 
+def start_clis(runs):
+    """`python -m <args>` of each (args, what, expect_rc) of `runs`, started
+    from the checkout (port_clis collects them)."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return [subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True) for args, _, _ in runs]
+
+
 def port_cli(args, what, expect_rc=0):
     """`python -m <args>` from the checkout, as a user runs it; its output
     goes to the log, its exit code must be `expect_rc`."""
     return port_clis([(args, what, expect_rc)])[0]
 
 
-def port_clis(runs):
+def port_clis(runs, procs=None):
     """Each (args, what, expect_rc) of `runs` as port_cli runs it, all
     started together (each new process builds its host tables anew, so
-    they overlap); returns their standard outputs in order."""
-    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    procs = [subprocess.Popen([sys.executable, "-m", *args], cwd=HERE, env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for args, _, _ in runs]
+    they overlap), or the processes `procs` of `start_clis` already running
+    them; returns their standard outputs in order."""
+    procs = procs or start_clis(runs)
     outs = []
     try:
         for proc, (_, what, expect_rc) in zip(procs, runs):
@@ -2816,23 +2905,14 @@ def mll_at(post, P):
             P, dtype=post.dtype, device=post.device))[0].double().cpu().numpy()
 
 
-def driver_flagship(dev, d, fid, times):
-    """Phase 13's steps 1, 2 and 3 (drive_driver) on the flagship ini
-    written under `d`; adds each step's wall time to `times`. Returns
-    step 2's launch counts and its launches a segment."""
-    from cosmomc_tpu_torch import driver, kernels
-    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+def flagship_cli_runs(dev, d, fid):
+    """Phase 13's step 1, started ahead of the phase (its two processes
+    spend ~60 s each on the host's first flagship pass): the flagship ini
+    written under `d`, -logL of the same posterior built by hand at the
+    centre, and the two CLI processes of action 4 running. Returns what
+    `driver_flagship` reads back."""
     from cosmomc_tpu_torch.likelihoods import synthetic as sd
-    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
-    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
-    from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
-    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
-    from cosmomc_tpu_torch.models.bbn import load_bbn_table
-    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
-    from cosmomc_tpu_torch.pipeline import CMBPosterior
-    from cosmomc_tpu_torch.sampling import importance, runner
-    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
-
+    os.makedirs(d, exist_ok=True)
     bbn = sd.write_bbn_table(os.path.join(d, "bbn_grid.dat"))
     hst = dict(H0=73.48, H0_err=1.66)
     flag = write_ini(os.path.join(d, "flagship.ini"), {
@@ -2841,31 +2921,58 @@ def driver_flagship(dev, d, fid, times):
         "prior[tau]": "0.0544 0.0073", "bbn_table": bbn,
         "Hubble_H0": hst["H0"], "Hubble_H0_err": hst["H0_err"],
         "device": dev.type})
-
-    def by_hand(with_hst):
-        """The flagship ini's posterior in float64, built without the
-        driver."""
-        par = ThetaParameterization()
-        space = par.default_space()
-        space.get("tau").prior_mean, space.get("tau").prior_std = 0.0544, 0.0073
-        likes = LikelihoodList()
-        likes.add(PlikLiteLikelihood(fid["ds"], device=dev, dtype=F64))
-        likes.add(BAOLikelihood(fid["dr12"], name="DR12", device=dev, dtype=F64))
-        if with_hst:
-            likes.add(HSTLikelihood(**hst))
-        return CMBPosterior(par, space, likes, bbn_table=load_bbn_table(bbn),
-                            device=dev, dtype=F64)
-
-    # 1. the CLI, action 4
-    t0 = time.time()
-    hand = by_hand(False)
+    hand = flagship_by_hand(dev, fid, bbn, None)
     centre = np.array([p.center for p in hand.space.varying])
     mll_hand = float(mll_at(hand, centre[None])[0])
     cli = ["cosmomc_tpu_torch", flag, "action=4", "use_float64=T"]
-    out, _ = port_clis([
-        (cli + [f"test_check_compare={mll_hand!r}"], "the CLI's action 4", 0),
-        (cli + [f"test_check_compare={mll_hand + 1.0!r}"],
-         "the CLI's action 4 one above the value", 1)])
+    runs = [(cli + [f"test_check_compare={mll_hand!r}"], "the CLI's action 4", 0),
+            (cli + [f"test_check_compare={mll_hand + 1.0!r}"],
+             "the CLI's action 4 one above the value", 1)]
+    return dict(bbn=bbn, hst=hst, flag=flag, hand=hand, mll_hand=mll_hand,
+                runs=runs, procs=start_clis(runs), t0=time.time())
+
+
+def flagship_by_hand(dev, fid, bbn, hst):
+    """The flagship ini's posterior in float64 (with HST where `hst` is
+    given), built without the driver."""
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.hst import HSTLikelihood
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    from cosmomc_tpu_torch.models.bbn import load_bbn_table
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+    from cosmomc_tpu_torch.pipeline import CMBPosterior
+    par = ThetaParameterization()
+    space = par.default_space()
+    space.get("tau").prior_mean, space.get("tau").prior_std = 0.0544, 0.0073
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(fid["ds"], device=dev, dtype=F64))
+    likes.add(BAOLikelihood(fid["dr12"], name="DR12", device=dev, dtype=F64))
+    if hst:
+        likes.add(HSTLikelihood(**hst))
+    return CMBPosterior(par, space, likes, bbn_table=load_bbn_table(bbn),
+                        device=dev, dtype=F64)
+
+
+def driver_flagship(dev, d, fid, times, cli):
+    """Phase 13's steps 1, 2 and 3 (drive_driver) on the flagship ini
+    written under `d` (step 1's processes started by `flagship_cli_runs`,
+    `cli`); adds each step's wall time to `times`, step 1's from its
+    start. Returns step 2's launch counts and its launches a segment."""
+    from cosmomc_tpu_torch import driver, kernels
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+    from cosmomc_tpu_torch.sampling import importance, runner
+    from cosmomc_tpu_torch.sampling.staged import StagedMetropolisSampler
+
+    bbn, hst, flag = cli["bbn"], cli["hst"], cli["flag"]
+    hand, mll_hand = cli["hand"], cli["mll_hand"]
+
+    def by_hand(with_hst):
+        return flagship_by_hand(dev, fid, bbn, hst if with_hst else None)
+
+    # 1. the CLI, action 4 (running since `flagship_cli_runs`)
+    t0 = cli["t0"]
+    out, _ = port_clis(cli["runs"], cli["procs"])
     mll_cli = float(out.split("Test -log(Like) =")[1].split()[0])
     log(f"phase 13: CLI action=4 -logL {mll_cli:.10f}, by hand "
         f"{mll_hand:.10f} (rel diff {abs(mll_cli - mll_hand) / abs(mll_hand):.2e})")
@@ -3038,14 +3145,15 @@ def driver_background(dev, d, bg, times):
     times["6 grid"] = time.time() - t0
 
 
-def drive_driver(dev, tmp, fid, bg):
+def drive_driver(dev, tmp, fid, bg, cli):
     """Phase 13: the ini driver, `python -m cosmomc_tpu_torch params.ini`,
     and the tools it dispatches to, on inis written from phase 3's plik_lite
     fiducial, phase 5's DR12-shaped BAO set and phase 6's background sets:
-      1. the CLI, action 4 on the flagship ini in float64, as a subprocess:
-         -logL equal to the same posterior built by hand
-         (DRIVER_MLL_RTOL), test_check_compare passing at that value and
-         failing (exit 1) one above it;
+      1. the CLI, action 4 on the flagship ini in float64, as a subprocess
+         (`cli`: started by `flagship_cli_runs` after phase 12): -logL
+         equal to the same posterior built by hand (DRIVER_MLL_RTOL),
+         test_check_compare passing at that value and failing (exit 1)
+         one above it;
       2. action 0 on the flagship ini (float32, NCHAINS chains,
          DRIVER_SEGMENTS segments of SEG_STEPS steps, MPI_R_Stop = 0):
          exactly K4, K1, K2a and K3 launched, the chain files and sidecars
@@ -3058,15 +3166,15 @@ def drive_driver(dev, tmp, fid, bg):
          -logL, a positive definite Hessian covmat; HMC accepting > 0.4
          with omegam and H0 within 3 pooled sigma of the truth;
       5. (since the flagship takes gradients, its action 2 and HMC are
-         phase 15's, and so are the raises of LCDM+r and base_mnu);
+         phase 15's, and so are the raises of LCDM+r);
       6. `python -m cosmomc_tpu_torch.grid make / run / status` on a
          one-job background grid with one importance rerun (HST added).
     Returns step 2's launch counts and its launches a segment."""
     t_phase = time.time()
     times = {}
     d = os.path.join(tmp, "driver")
-    os.makedirs(d)
-    launches, per_segment = driver_flagship(dev, d, fid, times)
+    os.makedirs(d, exist_ok=True)
+    launches, per_segment = driver_flagship(dev, d, fid, times, cli)
     driver_background(dev, d, bg, times)
     log(f"phase 13 took {time.time() - t_phase:.1f} s on {smi_line()}: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
@@ -3082,16 +3190,38 @@ def _job_env(threads):
                 PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
 
 
+#: the host-CPU jobs whose results only phases 14-16 read: they run at a
+#: lower scheduling priority (nice), so that the main process's host-bound
+#: phases and the card's plain versions take the cores first
+LATE_JOBS = ("--cpu-grad", "--cpu-grad-cmb", "--cpu-grad-ext")
+
+
 def start_job(mode, d):
     """This script in `mode` (a key of JOB_THREADS) on the directory `d`,
     in a process of its own beside the main one's phases: on the host's
-    CPU, or on the card (--plain-card); its output goes to d/<mode>.log."""
+    CPU, or on the card (--plain-card*); its output goes to d/<mode>.log."""
     log_f = open(os.path.join(d, mode.strip("-") + ".log"), "w")
     proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, d],
                             cwd=HERE, env=_job_env(JOB_THREADS[mode]),
-                            stdout=log_f, stderr=subprocess.STDOUT)
+                            stdout=log_f, stderr=subprocess.STDOUT,
+                            preexec_fn=(lambda: os.nice(10)) if mode in LATE_JOBS
+                            else None,
+                            # phase 2's process starts jobs of its own: one
+                            # process group, stopped as one (stop_job)
+                            start_new_session=mode == "--phase2")
     proc.log_f = log_f
+    proc.group = mode == "--phase2"
     return proc
+
+
+def stop_job(proc):
+    """Kill a job of start_job still running (with its own jobs)."""
+    if proc.poll() is None:
+        if getattr(proc, "group", False):
+            os.killpg(proc.pid, signal.SIGKILL)
+        else:
+            proc.kill()
+        proc.wait()
 
 
 def finish_job(proc, d, name, what):
@@ -3100,9 +3230,7 @@ def finish_job(proc, d, name, what):
     try:
         rc = proc.wait(timeout=JOB_TIMEOUT)
     finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        stop_job(proc)
         proc.log_f.close()
     with open(proc.log_f.name) as f:
         tail = f.read().strip().splitlines()[-6:]
@@ -3496,6 +3624,7 @@ def phase2_reverse_cmb(dev, results, cmb, d, job):
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); plain forward + backward on "
         f"the card {plain_s:.1f} s")
     del ref, got, ins
+    torch.cuda.empty_cache()
 
     # ---- K3 reverse
     st64, ls = cmb["st64"], cmb["ls"]
@@ -3546,6 +3675,7 @@ def phase2_reverse_cmb(dev, results, cmb, d, job):
         f"{b['bound_ms']:.4f} ms ({b['bound_by']}); plain forward + backward of "
         f"2 chains on the card {plain_s:.1f} s")
     del got, ref
+    torch.cuda.empty_cache()
 
     # ---- K1 reverse on the CMB grid
     inp = {k: v.to(dev) for k, v in torch.load(
@@ -3586,6 +3716,223 @@ def phase2_reverse_cmb(dev, results, cmb, d, job):
         f"ms (float64 {got[F64][1]:.2f} / {got[F64][2]:.2f} ms); bound "
         f"{b['bound_ms']:.4f} ms; plain on the host CPU ({n} chain(s)) "
         f"{refs['seconds']:.1f} s")
+
+
+def ext_reverse_inputs(dev, d):
+    """The inputs of phase 2's checks of K1's extended reverse kernels at
+    the reduced shape (EXT_REF_*), written to d/inputs_ext.pt for the plain
+    references' process (`plain_references_ext`): each instantiation's
+    stage table, k, r_nu and the isocurvature inputs rounded to float32,
+    and a seeded cotangent dense on all 7 planes."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    vi = VariantInputs(dev)
+    ch = list(EXT_REF_CHAINS)
+    r32 = lambda t: t.float().double().cpu().contiguous()
+    ext = dict(k=r32(vi.k[::EXT_REF_K_STRIDE]), rnu=r32(vi.rnu[ch]),
+               iso=r32(mpert.iso_inputs(vi.bg, vi.b)[ch]))
+    for name, (_, sw) in EXT_BWD.items():
+        ext[name] = r32(mpert._stage_tables(vi.bg, vi.tfs[K1_CMP_STEPS], *sw)[ch])
+    g = torch.Generator().manual_seed(17)
+    ext["g_out"] = torch.randn(len(mpert.PLANES), len(ch), ext[name].shape[1],
+                               ext["k"].shape[0], generator=g, dtype=F64)
+    torch.save(ext, os.path.join(d, "inputs_ext.pt"))
+    return vi
+
+
+def plain_references_ext(d, mode):
+    """--plain-ref-nu|de|nu-de DIR: autograd of the plain K1 version of the
+    extended instantiation PLAIN_REF_EXT_PARTS[mode] (float64, host CPU,
+    GRAD_CHUNKS chunks) at the reduced shape of DIR/inputs_ext.pt; writes
+    DIR/refs_<name>.pt."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    torch.set_num_threads(JOB_THREADS[mode])
+    inp = torch.load(os.path.join(d, "inputs_ext.pt"))
+    name = PLAIN_REF_EXT_PARTS[mode]
+    sw = EXT_BWD[name][1]
+    t0 = time.time()
+    q, rnu, iso = (inp[n].clone().requires_grad_(True) for n in (name, "rnu", "iso"))
+    o = mpert._evolve_plain(q, inp["k"], rnu, mpert.RSA_KTAU, *sw, iso=iso,
+                            remat_chunks=GRAD_CHUNKS)
+    g = torch.autograd.grad((o * inp["g_out"]).sum(), [q, rnu, iso])
+    out = dict(g=g, seconds=time.time() - t0)
+    print(f"{name}: plain forward + backward {out['seconds']:.1f} s", flush=True)
+    torch.save(out, os.path.join(d, f"refs_{name}.pt"))
+    return 0
+
+
+def ext_switch_counts(q, k, sw):
+    """(step, lane) pairs of K1's stage table q (C, S, 3, NQX) and the
+    lanes k at whose end row each switch holds, and the lanes released from
+    their ICs within the steps: the tight coupling, RSA (where the DE fluid
+    freezes), nu_rel_rsa by (am < 2) and by k dt_loc > 0.9 (massive nu)."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    qb = q.double().cpu().numpy()[:, :, 2]
+    k = k.double().cpu().numpy()[None, None, :]
+    f = lambda i: qb[..., i][..., None]
+    tau, opac, dtl = f(mpert.Q_TAU), f(mpert.Q_OPAC), f(mpert.Q_DTLOC)
+    rsa = k * tau >= mpert.RSA_KTAU
+    tc_off = (((k / np.maximum(opac, 1e-30) >= mpert.TC_KTAUC)
+               | (opac * tau <= mpert.TC_OPACTAU))
+              & (opac * (1.0 + f(mpert.Q_R)) * dtl <= 1.3))
+    held = ~((k * tau >= mpert.IC_RELEASE_KTAU) | (tau >= 3.0))
+    out = dict(held=held, tca=~tc_off & ~rsa & ~held,
+               free=tc_off & ~rsa & ~held, rsa=rsa)
+    if sw[0]:
+        am = f(mpert.Q_AMLT2) != 0
+        out.update(nu_rel_am=rsa & am, nu_rel_dt=rsa & ~am & (k * dtl > 0.9))
+    counts = {n: int(v.sum()) for n, v in out.items()}
+    counts["released_lanes"] = int((held.any(1) & (~held).any(1)).sum())
+    return counts
+
+
+def phase2_reverse_ext(dev, results, d, jobs, vi):
+    """The reverse kernels of K1's extended instantiations (EXT_BWD):
+      - timed (the forward with its checkpoints, the backward) at the main
+        paths' shape, VariantInputs' 8 chains x 248 k x 8191 steps in
+        GRAD_CHUNKS chunks (the cotangent on the four source planes,
+        `cmb_cotangent`), and boltzmann_nu_bwd also on the matter grid, 8
+        chains x 216 k x 6143 steps (the cotangent on dm, dmdot, weyl);
+        bounded by 3 x the forward's operations (`k1_ops`) and the bytes
+        read and written once;
+      - at the reduced shape (EXT_REF_*, the lanes and steps crossing every
+        switch), against autograd of their plain versions on the host CPU
+        (`--plain-ref-*`): float64 within 1e-9 of each output's largest
+        magnitude, float32 within GRAD_F32_TOL; two launches equal bit for
+        bit, and the gradient through `_evolve_cuda` under autograd equal
+        to the kernel's.
+    `jobs`: the `--plain-ref-*` processes, in PLAIN_REF_EXT_PARTS' order."""
+    from cosmomc_tpu_torch.models import matterpower as mpw
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    iso_full = mpert.iso_inputs(vi.bg, vi.b)
+    S_f, nk_f = vi.tfs[mpert.N_STEP].tau.shape[1] - 1, vi.k.shape[0]
+    chunk_f = -(-S_f // GRAD_CHUNKS)
+    g_cmb = cmb_cotangent(NCHAINS, S_f, nk_f).to(dev)
+    for name, (fwd, sw) in EXT_BWD.items():
+        qf = mpert._stage_tables(vi.bg, vi.tfs[mpert.N_STEP], *sw)
+        t = {}
+        for dt in (F32, F64):
+            qd, kd, rd, idt, go = (x.to(dt) for x in (qf, vi.k, vi.rnu, iso_full,
+                                                      g_cmb))
+            run = lambda: mpert._evolve_launch(qd, kd, rd, mpert.RSA_KTAU, *sw,
+                                               idt, chunk_f)
+            run()
+            fwd_ms, (_, ck) = timed(run, 2)
+            bwd = lambda: mpert._boltzmann_bwd(qd, kd, rd, idt, ck, go,
+                                               mpert.RSA_KTAU, chunk_f, *sw)
+            bwd_ms, gk = timed(bwd, 1)
+            require(all(bool(torch.isfinite(x).all()) for x in gk),
+                    f"{name} finite at the main paths' shape ({dt})")
+            t[dt] = (fwd_ms, bwd_ms, ck, gk)
+            del ck, gk
+        q32 = qf.float()
+        b = bound({"fp32": 3 * k1_ops(q32, nk_f, fwd)},
+                  nbytes(q32, g_cmb.float(), t[F32][2], *t[F32][3]))
+        results[name] = dict(
+            ms=t[F32][1], ms_f64=t[F64][1], fwd_with_checkpoints_ms=t[F32][0],
+            fwd_with_checkpoints_ms_f64=t[F64][0],
+            shape=f"{NCHAINS} chains x {nk_f} k x {S_f} steps, {GRAD_CHUNKS} chunks",
+            **b)
+        log(f"  {name} at {NCHAINS} x {nk_f} k x {S_f} steps: forward with "
+            f"checkpoints {t[F32][0]:.2f} ms, backward {t[F32][1]:.2f} ms (float64 "
+            f"{t[F64][0]:.2f} / {t[F64][1]:.2f} ms); bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
+        del t
+    del g_cmb
+    # boltzmann_nu_bwd on the matter grid (the second K1 launch of base_mnu)
+    sw = (True, False)
+    kg = torch.as_tensor(mpw.matter_k_grid(), dtype=F64, device=dev)
+    bgm, tfm = vi.inputs(vi.full, (MATTER_CMP_STEPS[-1],), float(kg[-1]))
+    qm = mpert._stage_tables(bgm, tfm[MATTER_CMP_STEPS[-1]], *sw)
+    S_m, nk_m = qm.shape[1], kg.shape[0]
+    chunk_m = -(-S_m // GRAD_CHUNKS)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    g_m = torch.zeros(len(mpert.PLANES), NCHAINS, S_m, nk_m, dtype=F64, device=dev)
+    for p in ("dm", "dmdot", "weyl"):
+        g_m[mpert.PLANES.index(p)] = torch.randn(NCHAINS, S_m, nk_m, generator=gen,
+                                                 device=dev, dtype=F64)
+    t = {}
+    for dt in (F32, F64):
+        qd, kd, rd, go = qm.to(dt), kg.to(dt), mpert._r_nu(bgm).to(dt), g_m.to(dt)
+        idt = torch.zeros(NCHAINS, 3, dtype=dt, device=dev)
+        run = lambda: mpert._evolve_launch(qd, kd, rd, mpert.RSA_KTAU, *sw, idt,
+                                           chunk_m)
+        run()
+        fwd_ms, (_, ck) = timed(run, 2)
+        bwd = lambda: mpert._boltzmann_bwd(qd, kd, rd, idt, ck, go, mpert.RSA_KTAU,
+                                           chunk_m, *sw)
+        bwd_ms, gk = timed(bwd, 1)
+        require(all(bool(torch.isfinite(x).all()) for x in gk),
+                f"boltzmann_nu_bwd finite on the matter grid ({dt})")
+        t[dt] = (fwd_ms, bwd_ms, ck, gk)
+        del ck, gk
+    b = bound({"fp32": 3 * k1_ops(qm.float(), nk_m, "boltzmann_nu")},
+              nbytes(qm.float(), g_m.float(), t[F32][2], *t[F32][3]))
+    results["boltzmann_nu_bwd"]["matter_grid"] = dict(
+        shape=f"{NCHAINS} chains x {nk_m} k x {S_m} steps, {GRAD_CHUNKS} chunks",
+        ms=t[F32][1], ms_f64=t[F64][1], fwd_with_checkpoints_ms=t[F32][0],
+        fwd_with_checkpoints_ms_f64=t[F64][0],
+        **{f: v for f, v in b.items() if f.startswith("bound")})
+    log(f"  boltzmann_nu_bwd on the matter grid ({NCHAINS} x {nk_m} k x {S_m} "
+        f"steps): forward with checkpoints {t[F32][0]:.2f} ms, backward "
+        f"{t[F32][1]:.2f} ms (float64 {t[F64][0]:.2f} / {t[F64][1]:.2f} ms); bound "
+        f"{b['bound_ms']:.4f} ms")
+    del t, g_m
+
+    # the reduced shape against the host CPU's plain gradients
+    inp = {k: v.to(dev) for k, v in torch.load(
+        os.path.join(d, "inputs_ext.pt")).items()}
+    refs = {name: finish_job(j, d, f"refs_{name}.pt",
+                             f"the plain gradient of {name}")
+            for j, name in zip(jobs, PLAIN_REF_EXT_PARTS.values())}
+    k, rnu, iso, g_out = inp["k"], inp["rnu"], inp["iso"], inp["g_out"]
+    C, S = g_out.shape[1], g_out.shape[2]
+    chunk = -(-S // GRAD_CHUNKS)
+    shape = f"{C} chains x {k.shape[0]} k x {S} steps"
+    names = ("grad_qtab", "grad_rnu", "grad_iso")
+    for name, (fwd, sw) in EXT_BWD.items():
+        q = inp[name]
+        cnt = ext_switch_counts(q, k, sw)
+        log(f"  {name} at {shape}: (step, lane) pairs a switch holds at "
+            + json.dumps(cnt))
+        for n, v in cnt.items():
+            require(v > 0, f"{name}: the reduced shape crosses {n}")
+        got = {}
+        for dt in (F64, F32):
+            qd, kd, rd, idt, go = (x.to(dt) for x in (q, k, rnu, iso, g_out))
+            _, ck = mpert._evolve_launch(qd, kd, rd, mpert.RSA_KTAU, *sw, idt,
+                                         chunk)
+            gk = mpert._boltzmann_bwd(qd, kd, rd, idt, ck, go, mpert.RSA_KTAU,
+                                      chunk, *sw)
+            again = mpert._boltzmann_bwd(qd, kd, rd, idt, ck, go,
+                                         mpert.RSA_KTAU, chunk, *sw)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(gk, again)),
+                    f"{name} repeatable bit for bit ({dt})")
+            xs = [x.clone().requires_grad_(True) for x in (qd, rd, idt)]
+            o = mpert._evolve_cuda(xs[0], kd, xs[1], mpert.RSA_KTAU, *sw,
+                                   iso=xs[2], remat_chunks=GRAD_CHUNKS)
+            ga = torch.autograd.grad((o * go).sum(), xs)
+            require(all(bool(torch.equal(a, b)) for a, b in zip(ga, gk)),
+                    f"{name} through autograd = the reverse kernel ({dt})")
+            got[dt] = gk
+        ref = [x.to(dev) for x in refs[name]["g"]]
+        e64, e32, a32 = [], [], []
+        for n, a, b, r in zip(names, got[F64], got[F32], ref):
+            require(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+                    f"{name} {n} finite")
+            e64.append(rel_err(a, r))
+            e32.append(rel_err(b, r))
+            a32.append(abs_err(b, r))
+            log(f"    {n}: float64 err {e64[-1]:.3e}, float32 err {e32[-1]:.3e} "
+                f"(of the largest |grad| {float(r.abs().max()):.4g})")
+        require(max(e64) <= 1e-9, f"{name} float64 within 1e-9 of its plain version")
+        require(max(e32) <= GRAD_F32_TOL[name],
+                f"{name} float32 within {GRAD_F32_TOL[name]} of the float64 plain")
+        results[name].update(
+            max_abs_err=max(a32), plain_ms=1e3 * refs[name]["seconds"],
+            f64_rel_err=max(e64), f32_rel_err=max(e32), compare_shape=shape,
+            plain_where=f"host CPU, float64, forward + backward at {shape}")
+        log(f"  {name}: plain forward + backward on the host CPU at {shape} "
+            f"{refs[name]['seconds']:.1f} s")
 
 
 def lss_paths(sets):
@@ -3994,9 +4341,9 @@ def drive_flagship_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_proc):
          phase 14): the .minimum at or below the best fit's -logL, a
          symmetric positive definite .hessian.covmat, only the path's
          kernels launched;
-      f. action 2 and HMC on LCDM+r and base_mnu inis raise before any
-         launch (K5, K6 and K1's massive-neutrino instantiation have no
-         reverse kernel).
+      f. action 2 and HMC on LCDM+r inis, also with mnu free, raise before
+         any launch (K5 and K6 have no reverse kernel; K1's massive-neutrino
+         instantiation has, phase 16).
     Returns the launches of (a)-(e) and of one gradient."""
     from cosmomc_tpu_torch import driver, kernels
     from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
@@ -4148,10 +4495,11 @@ def drive_flagship_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_proc):
         require((run2[k] > 0) == (k in PATH_KERNELS["flagship_grad"]),
                 f"action 2 launches {k} only if on the flagship gradient path")
 
-    # f. LCDM+r and base_mnu refuse before any launch
-    for label, extra in (("LCDM+r", {"compute_tensors": "T",
-                                     "param[r]": "0.1 0 2 0.04 0.04"}),
-                         ("base_mnu", {"param[mnu]": "0.06 0 5 0.1 0.03"})):
+    # f. LCDM+r, also with mnu free, refuses before any launch
+    lcdm_r = {"compute_tensors": "T", "param[r]": "0.1 0 2 0.04 0.04"}
+    for label, extra in (("LCDM+r", lcdm_r),
+                         ("LCDM+r with mnu", {**lcdm_r,
+                                              "param[mnu]": "0.06 0 5 0.1 0.03"})):
         for over in ({"action": "2"}, {"action": "0", "sampling_method": "hmc"}):
             ini, _ = flagship_ini(tmp, fid, {**extra, **over, "file_root": os.path.join(
                 d_root(tmp), "chains", "refused")})
@@ -4163,9 +4511,340 @@ def drive_flagship_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_proc):
                 raised = "queue 1 item 4" in str(e)
             require(raised and not any(kernels.launches.values()),
                     f"{over} on {label} raises before any kernel launch")
-    log(f"  action 2 and HMC on LCDM+r and base_mnu raise before any launch")
+    log(f"  action 2 and HMC on LCDM+r, also with mnu free, raise before any "
+        "launch")
     log(f"phase 15 took {time.time() - t_phase:.1f} s on {smi_line()}")
     return launches, one
+
+
+def ext_grad_posterior(dev, label, ds, dr12, nonlinear=True, cfg=None):
+    """Phase 16's posterior: phase 9's ("mnu") or phase 10's ("w0wa", with
+    alpha1 free) configuration in float64 on the plik_lite set `ds` and
+    the DR12 set with f_sigma8 rows `dr12`, the tau prior, matter power, K1
+    checkpointed in GRAD_CHUNKS chunks."""
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.pliklite import PlikLiteLikelihood
+    likes = LikelihoodList()
+    likes.add(PlikLiteLikelihood(ds, name="plik_lite", device=dev, dtype=F64))
+    if dr12:
+        likes.add(BAOLikelihood(dr12, name="DR12", device=dev, dtype=F64))
+    return ext_posterior(dev, label, likes, F64, alpha1=EXT_GRAD[label]["alpha1"],
+                         nonlinear_lens=nonlinear, remat_chunks=GRAD_CHUNKS,
+                         **(cfg or {}))
+
+
+def ext_grad_points(post, label):
+    """Phase 16's points: BESTFIT at EXT_POINT[label] (alpha1 0.05 where it
+    is free: the amplitude map sign(a) sqrt(|a| / (1 - |a|)) has no
+    derivative at 0), and it + 0.3 proposal widths along a seeded normal
+    draw."""
+    at = dict(EXT_POINT[label], **({"alpha1": 0.05} if EXT_GRAD[label]["alpha1"]
+                                   else {}))
+    c = bestfit_vector(post, at)
+    w = np.array([p.propose_width for p in post.space.varying])
+    return np.stack([c, c + 0.3 * w * np.random.default_rng(16).standard_normal(
+        len(c))])
+
+
+def ext_small_sets(dev, d, ds):
+    """Phase 16 (c)'s sets, written before the host CPU's jobs start: the
+    smooth plik_lite fiducial `ds` and, for each EXT_GRAD configuration, a
+    DR12 set with f_sigma8 rows written from the card's float64 theory at
+    its first point at FLAG_SMALL on the reduced matter grid; d/<label>/
+    ext.json names them. Returns those directories."""
+    from cosmomc_tpu_torch.likelihoods.bao import BAOLikelihood
+    from cosmomc_tpu_torch.likelihoods.base import LikelihoodList
+    from cosmomc_tpu_torch.likelihoods.synthetic import write_dr12_bao
+    dirs = {}
+    for label in EXT_GRAD:
+        p0 = ext_posterior(dev, label, LikelihoodList(), F64,
+                           alpha1=EXT_GRAD[label]["alpha1"], nonlinear_lens=False,
+                           **FLAG_SMALL)
+        full = p0.embed_full(torch.as_tensor(ext_grad_points(p0, label)[:1],
+                                             dtype=F64, device=dev))
+        with reduced_matter_grid(), torch.no_grad():
+            slow = p0.stage_slow(full)
+            theory = p0.assemble_theory(slow, p0.stage_semi(full, slow))
+        dirs[label] = dd = os.path.join(d, label)
+        bao0 = BAOLikelihood(write_dr12_bao(os.path.join(dd, "dr12"), fsigma8=True),
+                             device=dev, dtype=F64)
+        dr12 = write_dr12_bao(os.path.join(dd, "dr12"),
+                              bao0.theory_vector(theory)[0].cpu().numpy(),
+                              fsigma8=True)
+        with open(os.path.join(dd, "ext.json"), "w") as f:
+            json.dump(dict(label=label, ds=ds, dr12=dr12), f)
+    return dirs
+
+
+def cpu_gradient_ext(d):
+    """--cpu-grad-ext DIR: the float64 gradient of phase 16's -logL for the
+    EXT_GRAD configuration named in DIR/ext.json at its first point on the
+    host CPU (the plain versions under autograd) at FLAG_SMALL on the
+    reduced matter grid, on the sets named there; writes
+    DIR/cpu_grad_ext.pt."""
+    torch.set_num_threads(JOB_THREADS["--cpu-grad-ext"])
+    with open(os.path.join(d, "ext.json")) as f:
+        sets = json.load(f)
+    label = sets["label"]
+    post = ext_grad_posterior(torch.device("cpu"), label, sets["ds"], sets["dr12"],
+                              nonlinear=False, cfg=FLAG_SMALL)
+    t0 = time.time()
+    with reduced_matter_grid():
+        m, g = grad_at(post, ext_grad_points(post, label)[:1])
+    out = dict(mll=torch.as_tensor(m), g=torch.as_tensor(g), seconds=time.time() - t0)
+    print(f"{label} gradient on the CPU in {out['seconds']:.1f} s", flush=True)
+    torch.save(out, os.path.join(d, "cpu_grad_ext.pt"))
+    return 0
+
+
+def ext_ini(tmp, sets, label, extra):
+    """Phase 9's or 10's configuration as an ini (plik_lite and the DR12 set
+    with f_sigma8 rows of `sets`, the tau prior, matter power,
+    EXT_FREE[label]), float64, with `extra` keys."""
+    from cosmomc_tpu_torch.likelihoods import synthetic as sd
+    d = os.path.join(tmp, "ext_grad")
+    os.makedirs(d, exist_ok=True)
+    bbn = os.path.join(d, "bbn_grid.dat")
+    if not os.path.exists(bbn):
+        sd.write_bbn_table(bbn)
+    keys = {"pliklite_dataset": sets["ds"], "bao_dataset[DR12]": sets["dr12"],
+            "prior[tau]": "0.0544 0.0073", "bbn_table": bbn,
+            "use_matter_power": "T", "use_float64": "T", "feedback": "0",
+            **{f"param[{n}]": v for n, v in EXT_FREE[label].items()}, **extra}
+    return write_ini(os.path.join(d, f"{label}_{len(os.listdir(d))}.ini"),
+                     keys), d
+
+
+def start_ext_hmc(tmp, sets):
+    """Phase 16 (d), started before phase 13 (after phase 2's timings of
+    the extended reverse kernels, which it would share the card with) so
+    that it runs beside phases 13-15: `python -m cosmomc_tpu_torch` on the
+    base_mnu ini with sampling_method = hmc (EXT_HMC)."""
+    ini, d = ext_ini(tmp, sets, "mnu", {
+        "action": "0", "sampling_method": "hmc", "MPI_R_Stop": "0",
+        "file_root": os.path.join(tmp, "ext_grad", "chains", "hmc"),
+        **{k: str(v) for k, v in EXT_HMC.items()}})
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen([sys.executable, "-m", "cosmomc_tpu_torch", ini],
+                            cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    proc.t0 = time.time()
+    return proc
+
+
+def ext_min_job(d):
+    """--ext-min DIR: phase 16 (e) in a process of its own on the card,
+    beside phases 14 and 15: action = 2 of the driver on the base_w_wa ini that
+    DIR/min.json names, the minimizer cut as in phase 14; writes DIR/min.pt
+    (the exit code, the seconds and the kernel launches of the run)."""
+    from cosmomc_tpu_torch import driver, kernels
+    from cosmomc_tpu_torch.sampling import minimize
+    with open(os.path.join(d, "min.json")) as f:
+        ini = json.load(f)["ini"]
+    real = minimize.find_best_fit
+    minimize.find_best_fit = lambda *a, **k: real(
+        *a, **{**k, "refine_steps": GRAD_MIN_REFINE, "refine_chains": 8,
+               "maxiter": GRAD_MIN_ITER})
+    kernels.reset_launches()
+    t0 = time.time()
+    rc = driver.run_ini(ini)
+    torch.save(dict(rc=rc, seconds=time.time() - t0,
+                    launches=dict(kernels.launches)), os.path.join(d, "min.pt"))
+    return 0
+
+
+def start_ext_min(tmp, sets):
+    """Phase 16 (e), started after phase 13 so that it runs beside phases
+    14 and 15: `ext_min_job` on the base_w_wa ini (w and wa free). Returns
+    the process and its directory."""
+    ini, d = ext_ini(tmp, sets, "w0wa", {
+        "action": "2", "file_root": os.path.join(tmp, "ext_grad", "chains", "min")})
+    with open(os.path.join(d, "min.json"), "w") as f:
+        json.dump(dict(ini=ini), f)
+    return start_job("--ext-min", d), d
+
+
+def drive_ext_gradient(dev, tmp, ext_sets, cpu_jobs, hmc_proc, min_job):
+    """Phase 16: the gradients of base_mnu ("mnu", K1's massive-neutrino
+    instantiation) and of base_w_wa with alpha1 free ("w0wa", the DE fluid
+    with CDM isocurvature), full width, float64, on phases 9's and 10's
+    plik_lite fiducial and DR12 set with f_sigma8 rows, the tau prior,
+    matter power. For each:
+      a. torch.autograd.grad of -logL (nonlinear_lens=False: halofit's
+         k_sigma bisection carries no derivative, in either package) at its
+         two points (`ext_grad_points`): K4, K2a, K3 and their reverse
+         kernels once, the path's K1 instantiation and its reverse kernel
+         twice (the source and the matter grids), nothing else;
+      b. against central differences of -logL (one batch a step) at each
+         point within GRAD_FD_TOL of the largest component, at the closer
+         of EXT_FD_STEPS;
+      c. at FLAG_SMALL on the reduced matter grid, on the sets of
+         `ext_small_sets`, against the host CPU's plain gradient
+         (`--cpu-grad-ext`, one process a configuration: `cpu_jobs`, label
+         -> (process, directory)) within GRAD_CPU_TOL; the seconds and the
+         peak memory a chain of one HMC gradient at NCHAINS chains with
+         halofit lensing, as users run it.
+    Then:
+      d. `python -m cosmomc_tpu_torch` with sampling_method = hmc on the
+         base_mnu ini (EXT_HMC, started before phase 13): exit 0, its
+         acceptance, chains that MCSamples loads;
+      e. action = 2 on the base_w_wa ini (w and wa free; `min_job`: the
+         process and directory of `start_ext_min`, the minimizer cut as in
+         phase 14): the .minimum at or below -logL at the centre it starts
+         from, a symmetric positive definite .hessian.covmat, only the
+         w0wa path's kernels launched.
+    Returns the launches of (a)-(e) and of one gradient, by path."""
+    from cosmomc_tpu_torch import driver, kernels
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+    from cosmomc_tpu_torch.utils.ini import IniFile
+
+    t_phase = time.time()
+    launches = {p: {k: 0 for k in kernels.launches} for p in EXT_GRAD}
+    one_grad = {}
+
+    def add(label, counts):
+        for k, v in counts.items():
+            launches[label][k] += v
+    for label in EXT_GRAD:
+        path = f"{label}_grad"
+        k1, k1b = PATH_KERNELS[path][1], PATH_KERNELS[path][5]
+        # a. the gradient (no halofit: its k_sigma bisection carries no
+        # derivative, so (b) could not hold it)
+        lin = ext_grad_posterior(dev, label, ext_sets[label]["ds"],
+                                 ext_sets[label]["dr12"], nonlinear=False)
+        names = [p.name for p in lin.space.varying]
+        pts = ext_grad_points(lin, label)
+        n = pts.shape[1]
+        mll_at(lin, pts)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.time()
+        m, gl = grad_at(lin, pts)
+        torch.cuda.synchronize()
+        t_grad = time.time() - t0
+        one = dict(kernels.launches)
+        one_grad[path] = one
+        add(label, one)
+        for k in KERNELS:
+            want = (2 if k in (k1, k1b) else 1) if k in PATH_KERNELS[path] else 0
+            require(one[k] == want, f"{path}: one gradient launches {k} {want} time(s)")
+        require(bool(np.isfinite(gl).all()), f"{path}: the gradient is finite")
+        # b. central differences
+        w = np.array([p.propose_width for p in lin.space.varying])
+
+        def differences(p_, h):
+            out = mll_at(p_, np.concatenate([x + s * np.diag(h) for x in pts
+                                             for s in (1.0, -1.0)]))
+            return np.stack([(out[2 * i * n:(2 * i + 1) * n]
+                              - out[(2 * i + 1) * n:(2 * i + 2) * n]) / (2.0 * h)
+                             for i in range(len(pts))])
+        t0 = time.time()
+        fds = {f: differences(lin, f * w) for f in EXT_FD_STEPS}
+        t_fd = time.time() - t0
+        err = {f: np.abs(fd - gl).max(1) / np.abs(gl).max(1) for f, fd in fds.items()}
+        e_fd = float(np.min(np.stack(list(err.values())), 0).max())
+        log(f"phase 16 ({path}): -logL {m} at the point and off it; the gradient "
+            f"of both in {t_grad:.2f} s ({n} parameters, float64, no halofit); "
+            f"central differences ({2 * n * len(pts)} points a batch, "
+            f"{len(fds)} batches in {t_fd:.2f} s), max |fd - grad| / max |grad| "
+            f"at each point: " + ", ".join(
+                f"{f} widths {e}" for f, e in err.items())
+            + f"; the closer step's {e_fd:.3e} (tol {GRAD_FD_TOL})")
+        fd = fds[GRAD_FD_STEP]
+        for j in range(len(pts)):
+            for i in np.argsort(-np.abs(fd[j] - gl[j]))[:3]:
+                log(f"  [{j}] d(-logL)/d{names[i]:10s} {gl[j, i]: .9e} fd "
+                    + " ".join(f"{fds[f][j, i]: .9e}" for f in EXT_FD_STEPS))
+        require(e_fd <= GRAD_FD_TOL, f"{path}: the gradient agrees with finite "
+                "differences")
+        # c. the small config against the host CPU's plain gradient
+        job, jobdir = cpu_jobs[label]
+        with open(os.path.join(jobdir, "ext.json")) as f:
+            small_sets = json.load(f)
+        small = ext_grad_posterior(dev, label, small_sets["ds"], small_sets["dr12"],
+                                   nonlinear=False, cfg=FLAG_SMALL)
+        kernels.reset_launches()
+        with reduced_matter_grid():
+            m_s, g_s = grad_at(small, ext_grad_points(small, label)[:1])
+        add(label, kernels.launches)
+        ref = finish_job(job, jobdir, "cpu_grad_ext.pt",
+                         f"the CPU plain {path} gradient")
+        g_cpu, m_cpu = ref["g"].numpy(), ref["mll"].numpy()
+        e_cpu = float((np.abs(g_s - g_cpu).max(1) / np.abs(g_cpu).max(1)).max())
+        log(f"  at {FLAG_SMALL} (matter grid {CPU_GRAD_MATTER}, {CPU_GRAD_STEPS} "
+            f"steps): -logL {m_s} on the card, {m_cpu} on the host CPU's plain "
+            f"versions ({ref['seconds']:.1f} s there); gradients max rel "
+            f"{e_cpu:.3e} (tol {GRAD_CPU_TOL})")
+        require(e_cpu <= GRAD_CPU_TOL, f"{path}: the card's gradient equals the CPU's")
+        # the users' configuration (halofit lensing) at HMC's width
+        post = ext_grad_posterior(dev, label, ext_sets[label]["ds"],
+                                  ext_sets[label]["dr12"])
+        P8 = torch.as_tensor(post.start_positions(np.random.default_rng(0), NCHAINS),
+                             dtype=F64, device=dev)
+        if EXT_GRAD[label]["alpha1"]:
+            P8[:, names.index("alpha1")] = 0.05
+        P8.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launches()
+        t0 = time.time()
+        torch.autograd.grad(post.logpost()(P8)[0].sum(), P8)
+        torch.cuda.synchronize()
+        t8 = time.time() - t0
+        add(label, kernels.launches)
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"  one HMC gradient at {NCHAINS} chains: {t8:.2f} s, peak memory "
+            f"{peak / 2 ** 20:.1f} MiB ({peak / 2 ** 20 / NCHAINS:.1f} MiB a chain, "
+            f"float64, {GRAD_CHUNKS} K1 chunks)")
+
+    # d. HMC through the CLI on base_mnu
+    out, err_ = hmc_proc.communicate(timeout=JOB_TIMEOUT)
+    t_hmc = time.time() - hmc_proc.t0
+    for line in (out + err_).strip().splitlines()[-8:]:
+        log(f"  | {line}")
+    require(hmc_proc.returncode == 0, "the base_mnu HMC CLI exits 0")
+    acc = float(out.split("accept =")[1].split(",")[0])
+    hmc = MCSamples.load(os.path.join(tmp, "ext_grad", "chains", "hmc"),
+                         ignore_frac=0.0)
+    log(f"  HMC on base_mnu (CLI, {EXT_HMC}): acceptance {acc:.3f}, "
+        f"{hmc.samples.shape[0]} rows, {t_hmc:.1f} s from start (beside phases "
+        f"13-16)")
+    require(0.0 < acc <= 1.0, "the base_mnu HMC accepts")
+    require(hmc.samples.shape[0] > 0 and bool(np.isfinite(hmc.samples).all()),
+            "MCSamples loads finite base_mnu HMC chains")
+    require("mnu" in [i.name for i in hmc.names.names],
+            "the base_mnu HMC chains sample mnu")
+
+    # e. action 2 on base_w_wa, in a process of its own, the refine cut short
+    job, d = min_job
+    res = finish_job(job, d, "min.pt", "action 2 on the base_w_wa ini")
+    with open(os.path.join(d, "min.json")) as f:
+        ini = json.load(f)["ini"]
+    rc, t_min, run2 = res["rc"], res["seconds"], res["launches"]
+    add("w0wa", run2)
+    root2 = os.path.join(tmp, "ext_grad", "chains", "min")
+    with open(root2 + ".minimum") as f:
+        mll_min = float(f.read().split("-log(Like) =")[1].split()[0])
+    cov = np.loadtxt(root2 + ".hessian.covmat")
+    ev = np.linalg.eigvalsh(0.5 * (cov + cov.T))
+    p2 = driver.build_posterior(IniFile(ini))
+    require(p2.de_perturbations and not p2.massive_nu_hierarchy,
+            "the base_w_wa ini switches the DE fluid on")
+    mll_c = float(mll_at(p2, np.array([[p.center for p in p2.space.varying]]))[0])
+    log(f"  action 2 on base_w_wa: -logL {mll_c:.6f} at the centre -> {mll_min:.6f} "
+        f"in {t_min:.1f} s; Hessian covmat eigenvalues {ev.min():.3e} .. "
+        f"{ev.max():.3e}; launches " + json.dumps({k: v for k, v in run2.items() if v}))
+    require(rc == 0 and mll_min <= mll_c + 1e-9, ".minimum at or below the centre")
+    require(np.allclose(cov, cov.T, rtol=1e-10, atol=0.0) and bool((ev > 0).all()),
+            "the base_w_wa Hessian covmat is symmetric positive definite")
+    for k in KERNELS:
+        require((run2[k] > 0) == (k in PATH_KERNELS["w0wa_grad"]),
+                f"action 2 on base_w_wa launches {k} only if on its gradient path")
+    log(f"phase 16 took {time.time() - t_phase:.1f} s on {smi_line()}")
+    return ({f"{p}_grad": launches[p] for p in EXT_GRAD}, one_grad)
 
 
 def kernel_of(line):
@@ -4189,39 +4868,84 @@ def kernel_of(line):
             + "".join(f" {k}={f}" for k, f in zip(("NU", "DE"), flags)))
 
 
+def phase2_job(d):
+    """--phase2 DIR: phase 2's checks of the kernels and reverse kernels
+    of the slices before K1's extended instantiations (phase2,
+    phase2_matter, phase2_reverse, phase2_reverse_cmb), in a process of its
+    own on the card beside the main one's phases 3-16: their plain
+    versions are Python loops bound by their launches on the host. It
+    starts the host-CPU plain references they read (`--plain-ref`,
+    `--plain-ref-cmb`) and stops them if it fails; writes DIR/phase2.json
+    (each kernel's entry of the kernels line)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    results, jobs = {}, []
+    try:
+        reverse_inputs(dev, d)
+        jobs.append(start_job("--plain-ref", d))
+        jobs.append(start_job("--plain-ref-cmb", d))
+        t0 = time.time()
+        cmb = phase2(dev, results)
+        phase2_matter(dev, results)
+        torch.cuda.empty_cache()
+        phase2_reverse(dev, results, d, jobs[0])
+        torch.cuda.empty_cache()
+        phase2_reverse_cmb(dev, results, cmb, d, jobs[1])
+        log(f"phase 2 done in {time.time() - t0:.1f} s")
+    finally:
+        for proc in jobs:
+            stop_job(proc)
+    with open(os.path.join(d, "phase2.json"), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def phase2_alive(proc):
+    """Raise (with the process's log) if the `--phase2` process failed."""
+    rc = proc.poll()
+    if rc not in (None, 0):
+        with open(proc.log_f.name) as f:
+            for line in f.read().strip().splitlines()[-40:]:
+                log(f"  | {line}")
+    require(rc in (None, 0), "phase 2 (a process on the card) runs without failing")
+
+
 def run_phases(dev, tmp, results, launches, segment, jobs):
-    """Phases 2-15 in `tmp`; the host-CPU jobs and the HMC CLIs go to
-    `jobs` (main stops any still running)."""
+    """Phases 2-16 in `tmp`; the host-CPU jobs, phase 2's process and the
+    HMC CLIs go to `jobs` (main stops any still running)."""
     t0 = time.time()
-    refdir, graddir = os.path.join(tmp, "reverse"), os.path.join(tmp, "grad")
-    os.makedirs(refdir)
-    os.makedirs(graddir)
-    reverse_inputs(dev, refdir)
-    jobs.append(start_job("--plain-ref", refdir))
+    p2dir, refdir, graddir = (os.path.join(tmp, n) for n in ("phase2", "reverse",
+                                                             "grad"))
+    for n in (p2dir, refdir, graddir):
+        os.makedirs(n)
+    p2 = start_job("--phase2", p2dir)
+    jobs.append(p2)
     sets = lss_bbn_sets(dev, tmp)
     with open(os.path.join(graddir, "sets.json"), "w") as f:
         json.dump(lss_paths(sets), f)
-    jobs.append(start_job("--cpu-grad", graddir))
-    jobs.append(start_job("--plain-ref-cmb", refdir))
+    cpu_grad = start_job("--cpu-grad", graddir)
+    jobs.append(cpu_grad)
     flagdir = os.path.join(tmp, "grad_flagship")
     os.makedirs(flagdir)
+    ds = smooth_plik_fiducial(flagdir)
     with open(os.path.join(flagdir, "flag.json"), "w") as f:
-        json.dump(dict(ds=smooth_plik_fiducial(flagdir)), f)
-    jobs.append(start_job("--cpu-grad-cmb", flagdir))
-    log(f"the host-CPU jobs started in {time.time() - t0:.1f} s")
-    t0 = time.time()
-    cmb = phase2(dev, results)
-    phase2_matter(dev, results)
-    phase2_reverse(dev, results, refdir, jobs[0])
-    phase2_reverse_cmb(dev, results, cmb, refdir, jobs[2])
-    del cmb
-    log(f"phase 2 done in {time.time() - t0:.1f} s (K1's extended "
-        f"instantiations follow phase 12)")
+        json.dump(dict(ds=ds), f)
+    cpu_grad_cmb = start_job("--cpu-grad-cmb", flagdir)
+    jobs.append(cpu_grad_cmb)
+    ext_cpu_jobs = {}
+    for label, dd in ext_small_sets(dev, os.path.join(tmp, "grad_ext"), ds).items():
+        ext_cpu_jobs[label] = (start_job("--cpu-grad-ext", dd), dd)
+        jobs.append(ext_cpu_jobs[label][0])
+    vi_ext = ext_reverse_inputs(dev, refdir)
+    ext_ref_jobs = [start_job(m, refdir) for m in PLAIN_REF_EXT_PARTS]
+    jobs.extend(ext_ref_jobs)
     carddir = os.path.join(tmp, "plain_card")
     os.makedirs(carddir)
     torch.cuda.synchronize()
-    card_job = start_job("--plain-card", carddir)
-    jobs.append(card_job)
+    card_jobs = [start_job(m, carddir) for m in PLAIN_CARD_PARTS]
+    jobs.extend(card_jobs)
+    log(f"phase 2's process on the card and the host-CPU jobs started in "
+        f"{time.time() - t0:.1f} s (phase 2's log follows phase 16)")
     for phase, label, cfg in (
             (3, "flagship", {}),
             (4, "lcdm_r", dict(compute_tensors=True,
@@ -4242,6 +4966,7 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     launches["background"], bg_sets = drive_background(dev, tmp)
     segment["background"] = dict(launches["background"])
     log(f"phase 6 done in {time.time() - t0:.1f} s")
+    phase2_alive(p2)
     t0 = time.time()
     launches["flagship_mp"], segment["flagship_mp"] = drive_matter_power(
         dev, tmp, flagship_fid)
@@ -4251,46 +4976,96 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     log(f"phase 8 done in {time.time() - t0:.1f} s")
     t0 = time.time()
     sigma8_mnu_anchors(dev)
-    launches["mnu"], segment["mnu"] = drive_extended(dev, tmp, "mnu")
+    ext_sets = {}
+    launches["mnu"], segment["mnu"], ext_sets["mnu"] = drive_extended(
+        dev, tmp, "mnu")
     log(f"phase 9 done in {time.time() - t0:.1f} s")
     t0 = time.time()
-    launches["w0wa"], segment["w0wa"] = drive_extended(dev, tmp, "w0wa")
+    launches["w0wa"], segment["w0wa"], ext_sets["w0wa"] = drive_extended(
+        dev, tmp, "w0wa")
     iso_response(dev)
     log(f"phase 10 done in {time.time() - t0:.1f} s")
     t0 = time.time()
     launches["spt"], segment["spt"] = drive_spt(dev, tmp, flagship_fid)
     log(f"phase 11 done in {time.time() - t0:.1f} s")
+    phase2_alive(p2)
     t0 = time.time()
     launches["lss_bbn"], segment["lss_bbn"] = drive_lss_bbn(dev, tmp, sets)
     action4_table(flagship_fid["post"])
     log(f"phase 12 done in {time.time() - t0:.1f} s")
+    # from here on the CLI processes, phase 2's and this one share the
+    # card's memory: each phase hands back what it cached
+    torch.cuda.empty_cache()
+    cli = flagship_cli_runs(dev, os.path.join(tmp, "driver"), flagship_fid)
+    jobs.extend(cli["procs"])
     t0 = time.time()
-    phase2_variants(dev, results, finish_job(
-        card_job, carddir, "plain_card.pt",
-        "the plain K1 extended instantiations (on the card)"))
-    log(f"phase 2 (K1's extended instantiations) done in {time.time() - t0:.1f} s")
+    plain_card = {}
+    for m, job in zip(PLAIN_CARD_PARTS, card_jobs):
+        plain_card.update(finish_job(
+            job, carddir, m.strip("-").replace("-", "_") + ".pt",
+            f"the plain K1 extended instantiations {PLAIN_CARD_PARTS[m]} (on the card)"))
+    phase2_variants(dev, results, plain_card)
+    phase2_reverse_ext(dev, results, refdir, ext_ref_jobs, vi_ext)
+    del vi_ext
+    log(f"phase 2 (K1's extended instantiations and their reverse kernels) "
+        f"done in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
     hmc_proc = start_hmc(tmp, sets)
     jobs.append(hmc_proc)
+    ext_hmc = start_ext_hmc(tmp, ext_sets["mnu"])
+    jobs.append(ext_hmc)
     t0 = time.time()
     launches["driver"], segment["driver"] = drive_driver(
-        dev, tmp, flagship_fid, bg_sets)
+        dev, tmp, flagship_fid, bg_sets, cli)
     log(f"phase 13 done in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    phase2_alive(p2)
+    ext_min = start_ext_min(tmp, ext_sets["w0wa"])
+    jobs.append(ext_min[0])
     t0 = time.time()
     launches["gradient"], segment["gradient"] = drive_gradient(
-        dev, tmp, sets, jobs[1], graddir, hmc_proc)
+        dev, tmp, sets, cpu_grad, graddir, hmc_proc)
     log(f"phase 14 done in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
     t0 = time.time()
     launches["flagship_grad"], segment["flagship_grad"] = drive_flagship_gradient(
-        dev, tmp, flagship_fid, jobs[3], flagdir, flag_hmc)
+        dev, tmp, flagship_fid, cpu_grad_cmb, flagdir, flag_hmc)
     log(f"phase 15 done in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    by_path, one = drive_ext_gradient(dev, tmp, ext_sets, ext_cpu_jobs, ext_hmc,
+                                      ext_min)
+    launches.update(by_path)
+    segment.update(one)
+    log(f"phase 16 done in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    try:
+        rc = p2.wait(timeout=JOB_TIMEOUT)
+    finally:
+        stop_job(p2)
+        p2.log_f.close()
+    with open(p2.log_f.name) as f:
+        text = f.read()
+    log("phase 2 (its process on the card):")
+    for line in text.strip().splitlines():
+        log(f"  | {line}")
+    require(rc == 0, "phase 2 (a process on the card) exits 0")
+    with open(os.path.join(p2dir, "phase2.json")) as f:
+        results.update(json.load(f))
+    log(f"phase 2's process: waited {time.time() - t0:.1f} s for it")
 
 
 def main() -> int:
     jobs = {"--plain-ref": plain_references, "--cpu-grad": cpu_gradient,
             "--plain-ref-cmb": plain_references_cmb,
-            "--cpu-grad-cmb": cpu_gradient_cmb, "--plain-card": variant_plain_refs}
+            "--cpu-grad-cmb": cpu_gradient_cmb, "--plain-card": variant_plain_refs,
+            "--plain-card-de": lambda d: variant_plain_refs(d, "--plain-card-de"),
+            **{m: (lambda m: lambda d: plain_references_ext(d, m))(m)
+               for m in PLAIN_REF_EXT_PARTS},
+            "--cpu-grad-ext": cpu_gradient_ext, "--ext-min": ext_min_job,
+            "--phase2": phase2_job}
     if len(sys.argv) == 3 and sys.argv[1] in jobs:
-        # a process of its own on the host CPU (start_job)
+        # a process of its own on the host CPU or the card (start_job)
         sys.path.insert(0, HERE)
         return jobs[sys.argv[1]](sys.argv[2])
     if not torch.cuda.is_available():
@@ -4335,9 +5110,7 @@ def main() -> int:
             run_phases(dev, tmp, results, launches, segment, jobs)
         finally:
             for proc in jobs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+                stop_job(proc)
 
     rows = []
     for n, (src, rep) in KERNELS.items():

@@ -1,15 +1,23 @@
-// K1's reverse pass, one (chain, k) lane at a time: the base layout's RHS,
-// sources, ICs and RK4 step as serial code on one thread, and their
-// vector-Jacobian products written out by hand, operation for operation in
-// reverse. The forward functions repeat models/perturbations.py:_rhs,
-// _sources, adiabatic_ics and _evolve_plain's step for the base layout (37
-// variables; divides as divides), so a reverse pass that walks these gives
-// the gradient autograd gives of the plain version, and jax.grad of the JAX
-// scan.
+// K1's reverse pass, one (chain, k) lane at a time: the RHS, sources, ICs
+// and RK4 step as serial code on one thread, and their vector-Jacobian
+// products written out by hand, operation for operation in reverse. The
+// forward functions repeat models/perturbations.py:_rhs, _sources,
+// adiabatic_ics and _evolve_plain's step (divides as divides), so a reverse
+// pass that walks these gives the gradient autograd gives of the plain
+// version, and jax.grad of the JAX scan.
+//
+// Templated on the two state extensions, as the forward kernel is: NU, the
+// massive-neutrino momentum hierarchy Psi_l(q_i) (NQNU nodes x l = 0..LMAXNU,
+// appended after the 37 base variables at NV + NL1 i + l), and DE, the
+// c_s^2 = 1 dark-energy fluid (delta_de, V = (1 + w) theta_de, after those).
+// A stage-table row carries 16 base fields, then with NU eps/q and q/eps at
+// each node and the (am < 2) flag, then with DE w, grho_de and dw/dtau
+// times the regularized 1/(1 + w) (Layout below): 16 / 25 / 19 / 28 fields.
 //
 // Everything here is host and device code: csrc/perturbations.cu includes it
-// for the reverse kernel, and a host compiler can build it to test the
-// adjoint against autograd away from the card.
+// for the reverse kernel, and csrc/boltzmann_adjoint_host.cpp builds it with
+// a host compiler so that the adjoint is tested against autograd away from
+// the card. It includes <math.h> alone.
 #pragma once
 #include <math.h>
 
@@ -30,27 +38,54 @@ constexpr int I_DN = I_GP + NGP, I_TN = I_DN + 1;
 constexpr int I_FN = I_TN + 1, NFN = LMAXNR - 1;  // F_nu 2..10
 constexpr int NV = I_FN + NFN;
 static_assert(NV == 37, "the base layout");
-// fields of a stage-table row (models/perturbations.py Q_*)
+// the massive-neutrino hierarchy: NQNU nodes x l = 0..LMAXNU
+constexpr int NQNU = 4, LMAXNU = 6, NL1 = LMAXNU + 1, NVNU = NQNU * NL1;
+// base fields of a stage-table row (models/perturbations.py Q_*)
 enum { Q_TAU, Q_OPAC, Q_CSQB, Q_DTLOC, Q_GG, Q_GN, Q_GML, Q_GC, Q_GB, Q_ADOTOA,
        Q_GRHO, Q_GPRES, Q_R, Q_VIS, Q_EXPMK, Q_GNISW, NQ };
 constexpr int NPL = 7;  // source planes
 constexpr double TC_KTAUC = 0.015, TC_OPACTAU = 200.0, IC_RELEASE_KTAU = 0.08;
 
+// the state and row of an instantiation (models/perturbations.py
+// extra_state, q_fields)
+template <bool NU, bool DE>
+struct Layout {
+  static constexpr int I_NU = NV;                        // Psi_l(q_i) at I_NU + NL1 i + l
+  static constexpr int I_DE = NV + (NU ? NVNU : 0);      // delta_de, V
+  static constexpr int NVX = I_DE + (DE ? 2 : 0);
+  static constexpr int Q_EQ = NQ, Q_QE = NQ + NQNU, Q_AMLT2 = NQ + 2 * NQNU;
+  static constexpr int Q_WDE = NQ + (NU ? 2 * NQNU + 1 : 0);
+  static constexpr int Q_GDE = Q_WDE + 1, Q_WPR = Q_WDE + 2;
+  static constexpr int NQX = Q_WDE + (DE ? 3 : 0);
+};
+static_assert(Layout<false, false>::NQX == 16 && Layout<true, false>::NQX == 25 &&
+                  Layout<false, true>::NQX == 19 && Layout<true, true>::NQX == 28,
+              "the rows of models/perturbations.py:q_fields");
+static_assert(Layout<true, true>::NVX == 67, "37 + 28 + 2 state variables");
+
 template <typename T>
 ADJ_HD T amax(T a, T b) { return a > b ? a : b; }
 
-// what the sources read of an RHS evaluation
+// what the sources read of an RHS evaluation (dgpi_extra: NU's d/dtau of
+// the massive stress sum, 0 otherwise)
 template <typename T>
 struct Aux {
-  T hdot, etadot, dgpi, sigma_g, sigma_n, sigg_dot, sign_dot, pol_term;
-};
-
-// the switches of a lane at a row: they depend on (k, row) only
-struct Switch {
-  bool rsa, tc_on, frozen;
+  T hdot, etadot, dgpi, sigma_g, sigma_n, sigg_dot, sign_dot, pol_term, dgpi_extra;
 };
 
 template <typename T>
+ADJ_HD Aux<T> aux_zero() {
+  return {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+}
+
+// the switches of a lane at a row: they depend on (k, row) only. nu_rel
+// (NU): the momentum hierarchy slaved to the massless one, rsa and (am < 2
+// or k dt_loc > 0.9); the DE fluid is frozen under rsa
+struct Switch {
+  bool rsa, tc_on, frozen, nu_rel;
+};
+
+template <typename T, bool NU>
 ADJ_HD Switch switches(const T* q, T k, T rsa_ktau) {
   const T tau = q[Q_TAU], opac = q[Q_OPAC];
   const T tauc = T(1) / amax(opac, T(1e-30));
@@ -61,13 +96,20 @@ ADJ_HD Switch switches(const T* q, T k, T rsa_ktau) {
                       (lam * q[Q_DTLOC] <= T(1.3));
   s.tc_on = !tc_off && !s.rsa;
   s.frozen = s.tc_on || s.rsa;
+  s.nu_rel = false;
+  if constexpr (NU) s.nu_rel = s.rsa && (q[Layout<true, false>::Q_AMLT2] != T(0) || k * q[Q_DTLOC] > T(0.9));
   return s;
 }
 
-// _rhs (base layout): dy and the sources' auxiliaries
-template <typename T>
-ADJ_HD void rhs(const T* y, const T* q, T k, T rsa_ktau, T* dy, Aux<T>* aux) {
-  const Switch sw = switches(q, k, rsa_ktau);
+// the node constants of the massive hierarchy: nuc[0..NQNU) the normalized
+// weights, nuc[NQNU..2 NQNU) d ln f0 / d ln q (models/perturbations.py
+// _nu_constants); unread without NU
+
+// _rhs: dy and the sources' auxiliaries
+template <typename T, bool NU, bool DE>
+ADJ_HD void rhs(const T* y, const T* q, T k, T rsa_ktau, const T* nuc, T* dy, Aux<T>* aux) {
+  using L = Layout<NU, DE>;
+  const Switch sw = switches<T, NU>(q, k, rsa_ktau);
   const bool rsa = sw.rsa, tc_on = sw.tc_on;
   const T tau = q[Q_TAU], opac = q[Q_OPAC], csqb = q[Q_CSQB];
   const T gg = q[Q_GG], gn = q[Q_GN], gml = q[Q_GML], gc = q[Q_GC], gb = q[Q_GB];
@@ -86,9 +128,32 @@ ADJ_HD void rhs(const T* y, const T* q, T k, T rsa_ktau, T* dy, Aux<T>* aux) {
   const T dn = rsa ? dn_rsa : y[I_DN], tn = rsa ? tn_rsa : y[I_TN];
   const T sigma_n = rsa ? T(0) : y[I_FN] / T(2);
   const T wnu_m = (T(4) / T(3)) * gml;
-  const T dgrho = gc * dc + gb * db + gg * dg + gn * dn + gml * dn;
-  const T dgq = (T(4) / T(3)) * (gg * tg + gn * tn) + gb * tb + wnu_m * tn;
-  const T dgpi_m = wnu_m * sigma_n;
+  // the massive species' share of the perturbed stress-energy
+  T dgrho_nu, dgq_nu, dgpi_m;
+  if constexpr (NU) {
+    // MB95 eq 55 on the Gauss nodes, or slaved to the massless species
+    const T* psi = y + L::I_NU;
+    T s0 = T(0), s1 = T(0), s2 = T(0);
+    for (int i = 0; i < NQNU; ++i) {
+      s0 = s0 + nuc[i] * q[L::Q_EQ + i] * psi[NL1 * i];
+      s1 = s1 + nuc[i] * psi[NL1 * i + 1];
+      s2 = s2 + nuc[i] * q[L::Q_QE + i] * psi[NL1 * i + 2];
+    }
+    dgrho_nu = sw.nu_rel ? gml * dn_rsa : gml * s0;
+    dgq_nu = sw.nu_rel ? (T(4) / T(3)) * gml * tn_rsa : gml * k * s1;
+    dgpi_m = sw.nu_rel ? T(0) : (T(2) / T(3)) * gml * s2;
+  } else {
+    dgrho_nu = gml * dn;
+    dgq_nu = wnu_m * tn;
+    dgpi_m = wnu_m * sigma_n;
+  }
+  T dgrho = gc * dc + gb * db + gg * dg + gn * dn + dgrho_nu;
+  T dgq = (T(4) / T(3)) * (gg * tg + gn * tn) + gb * tb + dgq_nu;
+  if constexpr (DE) {
+    const T gde = q[L::Q_GDE];
+    dgrho = dgrho + (rsa ? T(0) : gde * y[L::I_DE]);
+    dgq = dgq + (rsa ? T(0) : gde * y[L::I_DE + 1]);
+  }
   const T hdot = (T(2) * k2 * eta + dgrho) / adotoa;
   const T etadot = T(0.5) * dgq / k2;
   const T fg0 = y[I_FG], gp0 = y[I_GP], gp2 = y[I_GP + 2];
@@ -160,6 +225,44 @@ ADJ_HD void rhs(const T* y, const T* q, T k, T rsa_ktau, T* dy, Aux<T>* aux) {
     const T v = k * y[I_FN + NFN - 2] - T(LMAXNR + 1) / tau_safe * y[I_FN + NFN - 1];
     dy[I_FN + NFN - 1] = rsa ? T(0) : v;
   }
+  T dgpi_extra = T(0);
+  if constexpr (NU) {
+    // MB95 eq 57 per node, closed by eq 58; frozen under nu_rel
+    const T* psi = y + L::I_NU;
+    T* dpsi = dy + L::I_NU;
+    T e = T(0);
+    for (int i = 0; i < NQNU; ++i) {
+      const T qe = q[L::Q_QE + i], qke = qe * k, dl = nuc[NQNU + i];
+      const T* p = psi + NL1 * i;
+      T d2 = T(0);
+      for (int l = 0; l < LMAXNU; ++l) {
+        const T lf = T(l), prev = l == 0 ? T(0) : p[l - 1];
+        T v = (qke / (T(2) * lf + T(1))) * (lf * prev - (lf + T(1)) * p[l + 1]);
+        if (l == 0) v = v + (hdot / T(6)) * dl;
+        if (l == 2) {
+          v = v - (hdot / T(15) + T(2) * etadot / T(5)) * dl;
+          d2 = v;
+        }
+        dpsi[NL1 * i + l] = sw.nu_rel ? T(0) : v;
+      }
+      const T v = qke * p[LMAXNU - 1] - (T(LMAXNU) + T(1)) / tau_safe * p[LMAXNU];
+      dpsi[NL1 * i + LMAXNU] = sw.nu_rel ? T(0) : v;
+      // d/dtau of the massive stress sum: gml' = -2 aH gml, (q/eps)' =
+      // -(q/eps) (1 - (q/eps)^2) aH
+      e = e + nuc[i] * (qe * d2 - (qe * (T(3) - qe * qe) * adotoa) * p[2]);
+    }
+    dgpi_extra = sw.nu_rel ? T(0) : (T(2) / T(3)) * gml * e;
+  }
+  if constexpr (DE) {
+    // V = (1 + w) theta form, frozen under rsa
+    const T de = y[L::I_DE], dv = y[L::I_DE + 1];
+    const T w = q[L::Q_WDE], wpr = q[L::Q_WPR];
+    const T ddot = -dv - (T(1) + w) * T(0.5) * hdot - T(3) * adotoa * (T(1) - w) * de -
+                   (T(9) * adotoa * adotoa * (T(1) - w) + T(3) * adotoa * wpr) * dv / k2;
+    const T vdot = T(2) * adotoa * dv + k2 * de + wpr * dv;
+    dy[L::I_DE] = rsa ? T(0) : ddot;
+    dy[L::I_DE + 1] = rsa ? T(0) : vdot;
+  }
   if (aux != nullptr) {
     aux->hdot = hdot;
     aux->etadot = etadot;
@@ -169,16 +272,19 @@ ADJ_HD void rhs(const T* y, const T* q, T k, T rsa_ktau, T* dy, Aux<T>* aux) {
     aux->sigg_dot = (sw.frozen ? T(0) : fg2dot) / T(2);
     aux->sign_dot = (rsa ? T(0) : fn2dot) / T(2);
     aux->pol_term = pol_term;
+    aux->dgpi_extra = dgpi_extra;
   }
 }
 
 // The vjp of rhs: w the cotangent of dy, ab that of aux (zero where the
 // caller has none); adds the cotangents of y to yb and of the row to qb.
-template <typename T>
-ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* w, const Aux<T>& ab,
-                    T* yb, T* qb) {
-  const Switch sw = switches(q, k, rsa_ktau);
-  const bool rsa = sw.rsa, tc_on = sw.tc_on, frozen = sw.frozen;
+// The switches and the (am < 2) flag get none, as under autograd.
+template <typename T, bool NU, bool DE>
+ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* nuc, const T* w,
+                    const Aux<T>& ab, T* yb, T* qb) {
+  using L = Layout<NU, DE>;
+  const Switch sw = switches<T, NU>(q, k, rsa_ktau);
+  const bool rsa = sw.rsa, tc_on = sw.tc_on, frozen = sw.frozen, nu_rel = sw.nu_rel;
   const T tau = q[Q_TAU], opac = q[Q_OPAC], csqb = q[Q_CSQB];
   const T gg = q[Q_GG], gn = q[Q_GN], gml = q[Q_GML], gc = q[Q_GC], gb = q[Q_GB];
   const T adotoa = q[Q_ADOTOA], R = q[Q_R];
@@ -197,9 +303,28 @@ ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* w, const A
   const T dn = rsa ? dn_rsa : y[I_DN], tn = rsa ? tn_rsa : y[I_TN];
   const T sigma_n = rsa ? T(0) : y[I_FN] / T(2);
   const T wnu_m = (T(4) / T(3)) * gml;
-  const T dgrho = gc * dc + gb * db + gg * dg + gn * dn + gml * dn;
+  T s0 = T(0), s1 = T(0), s2 = T(0), dgrho_nu, dgq_nu;
+  if constexpr (NU) {
+    const T* psi = y + L::I_NU;
+    for (int i = 0; i < NQNU; ++i) {
+      s0 = s0 + nuc[i] * q[L::Q_EQ + i] * psi[NL1 * i];
+      s1 = s1 + nuc[i] * psi[NL1 * i + 1];
+      s2 = s2 + nuc[i] * q[L::Q_QE + i] * psi[NL1 * i + 2];
+    }
+    dgrho_nu = nu_rel ? gml * dn_rsa : gml * s0;
+    dgq_nu = nu_rel ? (T(4) / T(3)) * gml * tn_rsa : gml * k * s1;
+  } else {
+    dgrho_nu = gml * dn;
+    dgq_nu = wnu_m * tn;
+  }
+  T dgrho = gc * dc + gb * db + gg * dg + gn * dn + dgrho_nu;
+  T dgq = (T(4) / T(3)) * (gg * tg + gn * tn) + gb * tb + dgq_nu;
+  if constexpr (DE) {
+    const T gde = q[L::Q_GDE];
+    dgrho = dgrho + (rsa ? T(0) : gde * y[L::I_DE]);
+    dgq = dgq + (rsa ? T(0) : gde * y[L::I_DE + 1]);
+  }
   const T hdot = (T(2) * k2 * eta + dgrho) / adotoa;
-  const T dgq = (T(4) / T(3)) * (gg * tg + gn * tn) + gb * tb + wnu_m * tn;
   const T etadot = T(0.5) * dgq / k2;
   const T fg0 = y[I_FG], gp0 = y[I_GP], gp2 = y[I_GP + 2];
   const T B = (T(8) / T(15)) * tg + (T(4) / T(15)) * hdot + (T(8) / T(5)) * etadot;
@@ -217,6 +342,93 @@ ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* w, const A
   T tau_safe_b = T(0), opac_b = T(0), adotoa_b = T(0), R_b = T(0), csqb_b = T(0);
   T gg_b = T(0), gn_b = T(0), gml_b = T(0), gc_b = T(0), gb_b = T(0);
   T eta_b = T(0), dc_b = T(0), db_b = T(0), tb_b = T(0);
+
+  // the DE fluid's derivatives
+  if constexpr (DE) {
+    if (!rsa) {
+      const T de = y[L::I_DE], dv = y[L::I_DE + 1];
+      const T wde = q[L::Q_WDE], wpr = q[L::Q_WPR];
+      const T wd = w[L::I_DE], wv = w[L::I_DE + 1];
+      const T omw = T(1) - wde;
+      T wde_b = T(0), wpr_b = T(0), de_b = T(0), dv_b = T(0);
+      // ddot = -dv - (1 + w) hdot / 2 - 3 aH (1 - w) de - (9 aH^2 (1 - w) + 3 aH w') dv / k2
+      dv_b -= wd;
+      wde_b -= T(0.5) * hdot * wd;
+      hdot_b -= (T(1) + wde) * T(0.5) * wd;
+      adotoa_b -= T(3) * omw * de * wd;
+      wde_b += T(3) * adotoa * de * wd;
+      de_b -= T(3) * adotoa * omw * wd;
+      const T c2 = T(9) * adotoa * adotoa * omw + T(3) * adotoa * wpr;
+      const T c2_b = -(dv / k2) * wd;
+      dv_b -= c2 / k2 * wd;
+      adotoa_b += (T(18) * adotoa * omw + T(3) * wpr) * c2_b;
+      wde_b -= T(9) * adotoa * adotoa * c2_b;
+      wpr_b += T(3) * adotoa * c2_b;
+      // vdot = 2 aH dv + k2 de + w' dv
+      adotoa_b += T(2) * dv * wv;
+      dv_b += (T(2) * adotoa + wpr) * wv;
+      de_b += k2 * wv;
+      wpr_b += dv * wv;
+      yb[L::I_DE] += de_b;
+      yb[L::I_DE + 1] += dv_b;
+      qb[L::Q_WDE] += wde_b;
+      qb[L::Q_WPR] += wpr_b;
+    }
+  }
+  // the momentum hierarchy and the sources' d/dtau of its stress sum
+  if constexpr (NU) {
+    if (!nu_rel) {
+      const T* psi = y + L::I_NU;
+      T* psib = yb + L::I_NU;
+      const T* wp = w + L::I_NU;
+      T e = T(0), d2[NQNU];
+      for (int i = 0; i < NQNU; ++i) {
+        const T qe = q[L::Q_QE + i], qke = qe * k, dl = nuc[NQNU + i];
+        const T* p = psi + NL1 * i;
+        d2[i] = (qke / T(5)) * (T(2) * p[1] - T(3) * p[3]) -
+                (hdot / T(15) + T(2) * etadot / T(5)) * dl;
+        e = e + nuc[i] * (qe * d2[i] - (qe * (T(3) - qe * qe) * adotoa) * p[2]);
+      }
+      // dgpi_extra = 2/3 gml e
+      const T e_b = (T(2) / T(3)) * gml * ab.dgpi_extra;
+      gml_b += (T(2) / T(3)) * e * ab.dgpi_extra;
+      for (int i = 0; i < NQNU; ++i) {
+        const T qe = q[L::Q_QE + i], qke = qe * k, dl = nuc[NQNU + i];
+        const T* p = psi + NL1 * i;
+        T* pb = psib + NL1 * i;
+        const T wn = nuc[i];
+        const T cube = qe * (T(3) - qe * qe);
+        T qe_b = wn * (d2[i] - (T(3) - T(3) * qe * qe) * adotoa * p[2]) * e_b;
+        adotoa_b -= wn * cube * p[2] * e_b;
+        pb[2] -= wn * cube * adotoa * e_b;
+        T qke_b = T(0);
+        for (int l = 0; l < LMAXNU; ++l) {
+          const T lf = T(l), c = qke / (T(2) * lf + T(1));
+          const T prev = l == 0 ? T(0) : p[l - 1];
+          T W = wp[NL1 * i + l];
+          if (l == 2) W = W + wn * qe * e_b;
+          qke_b += (lf * prev - (lf + T(1)) * p[l + 1]) / (T(2) * lf + T(1)) * W;
+          if (l > 0) pb[l - 1] += c * lf * W;
+          pb[l + 1] -= c * (lf + T(1)) * W;
+          if (l == 0) hdot_b += dl / T(6) * W;
+          if (l == 2) {
+            hdot_b -= dl / T(15) * W;
+            etadot_b -= T(2) * dl / T(5) * W;
+          }
+        }
+        {
+          const T W = wp[NL1 * i + LMAXNU];
+          const T cl = (T(LMAXNU) + T(1)) / tau_safe;
+          qke_b += p[LMAXNU - 1] * W;
+          pb[LMAXNU - 1] += qke * W;
+          pb[LMAXNU] -= cl * W;
+          tau_safe_b += cl / tau_safe * p[LMAXNU] * W;
+        }
+        qe_b += k * qke_b;
+        qb[L::Q_QE + i] += qe_b;
+      }
+    }
+  }
 
   // massless neutrinos
   if (!rsa) {
@@ -350,17 +562,52 @@ ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* w, const A
   eta_b += T(2) * k2 * hdot_b / adotoa;
   const T dgrho_b = hdot_b / adotoa;
   adotoa_b -= hdot / adotoa * hdot_b;
-  // dgpi_m = wnu_m sigma_n, dgq, dgrho
-  T wnu_m_b = sigma_n * dgpi_m_b;
-  sigma_n_b += wnu_m * dgpi_m_b;
+  // the DE fluid's density and flux
+  if constexpr (DE) {
+    if (!rsa) {
+      const T gde = q[L::Q_GDE];
+      qb[L::Q_GDE] += y[L::I_DE] * dgrho_b + y[L::I_DE + 1] * dgq_b;
+      yb[L::I_DE] += gde * dgrho_b;
+      yb[L::I_DE + 1] += gde * dgq_b;
+    }
+  }
+  // the massive species' shares, dgq, dgrho
+  if constexpr (NU) {
+    if (nu_rel) {
+      // gml dn_rsa and 4/3 gml tn_rsa: dn, tn hold the slaved values here
+      gml_b += dn * dgrho_b + (T(4) / T(3)) * tn * dgq_b;
+      dn_b += gml * dgrho_b;
+      tn_b += (T(4) / T(3)) * gml * dgq_b;
+    } else {
+      const T* psi = y + L::I_NU;
+      T* psib = yb + L::I_NU;
+      gml_b += s0 * dgrho_b + k * s1 * dgq_b + (T(2) / T(3)) * s2 * dgpi_m_b;
+      const T r_b = gml * dgrho_b, q_b = gml * k * dgq_b, p_b = (T(2) / T(3)) * gml * dgpi_m_b;
+      for (int i = 0; i < NQNU; ++i) {
+        const T wn = nuc[i];
+        psib[NL1 * i] += wn * q[L::Q_EQ + i] * r_b;
+        qb[L::Q_EQ + i] += wn * psi[NL1 * i] * r_b;
+        psib[NL1 * i + 1] += wn * q_b;
+        psib[NL1 * i + 2] += wn * q[L::Q_QE + i] * p_b;
+        qb[L::Q_QE + i] += wn * psi[NL1 * i + 2] * p_b;
+      }
+    }
+  } else {
+    // dgpi_m = wnu_m sigma_n, dgq_m = wnu_m tn, dgrho_m = gml dn
+    T wnu_m_b = sigma_n * dgpi_m_b;
+    sigma_n_b += wnu_m * dgpi_m_b;
+    wnu_m_b += tn * dgq_b;
+    tn_b += wnu_m * dgq_b;
+    gml_b += dn * dgrho_b;
+    dn_b += gml * dgrho_b;
+    gml_b += (T(4) / T(3)) * wnu_m_b;
+  }
   gg_b += (T(4) / T(3)) * tg * dgq_b;
   tg_b += (T(4) / T(3)) * gg * dgq_b;
   gn_b += (T(4) / T(3)) * tn * dgq_b;
   tn_b += (T(4) / T(3)) * gn * dgq_b;
   gb_b += tb * dgq_b;
   tb_b += gb * dgq_b;
-  wnu_m_b += tn * dgq_b;
-  tn_b += wnu_m * dgq_b;
   gc_b += dc * dgrho_b;
   dc_b += gc * dgrho_b;
   gb_b += db * dgrho_b;
@@ -369,9 +616,6 @@ ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* w, const A
   dg_b += gg * dgrho_b;
   gn_b += dn * dgrho_b;
   dn_b += gn * dgrho_b;
-  gml_b += dn * dgrho_b;
-  dn_b += gml * dgrho_b;
-  gml_b += (T(4) / T(3)) * wnu_m_b;
   if (!rsa) yb[I_FN] += sigma_n_b / T(2);
   // the RSA substitutions
   if (rsa) {
@@ -416,7 +660,7 @@ ADJ_HD void rhs_vjp(const T* y, const T* q, T k, T rsa_ktau, const T* w, const A
 }
 
 // _sources: the 7 planes at a node from the state, its derivative and aux
-template <typename T>
+template <typename T, bool NU>
 ADJ_HD void sources(const T* y, const T* dy, const Aux<T>& a, const T* q, T k, T* s) {
   const T adotoa = q[Q_ADOTOA], gg = q[Q_GG], gni = q[Q_GNISW];
   const T vis = q[Q_VIS], expmk = q[Q_EXPMK];
@@ -429,8 +673,9 @@ ADJ_HD void sources(const T* y, const T* dy, const Aux<T>& a, const T* q, T k, T
   const T dadotoa = -(q[Q_GRHO] + T(3) * q[Q_GPRES]) / T(6);
   const T alphadot = eta - X - T(2) * adotoa * alpha;
   const T phidot = a.etadot - dadotoa * alpha - adotoa * alphadot;
-  const T dgpidot = (T(4) / T(3)) * (-T(2) * adotoa * (gg * a.sigma_g + gni * a.sigma_n) +
-                                     gg * a.sigg_dot + gni * a.sign_dot);
+  T dgpidot = (T(4) / T(3)) * (-T(2) * adotoa * (gg * a.sigma_g + gni * a.sigma_n) +
+                               gg * a.sigg_dot + gni * a.sign_dot);
+  if (NU) dgpidot = dgpidot + a.dgpi_extra;
   const T psidot = phidot - T(1.5) * dgpidot / k2;
   const T theta0_N = y[I_DG] / T(4) - adotoa * alpha;
   const T vb_N = (y[I_TB] + k2 * alpha) / k;
@@ -447,7 +692,7 @@ ADJ_HD void sources(const T* y, const T* dy, const Aux<T>& a, const T* q, T k, T
 
 // The vjp of sources for the cotangents g of the planes: adds to yb, to the
 // row's qb, to the cotangent of dy (its DC and DB entries, dyb) and of aux
-template <typename T>
+template <typename T, bool NU>
 ADJ_HD void sources_vjp(const T* y, const T* dy, const Aux<T>& a, const T* q, T k,
                         const T* g, T* yb, T* dyb, Aux<T>* ab, T* qb) {
   const T adotoa = q[Q_ADOTOA], gg = q[Q_GG], gni = q[Q_GNISW];
@@ -461,8 +706,9 @@ ADJ_HD void sources_vjp(const T* y, const T* dy, const Aux<T>& a, const T* q, T 
   const T dadotoa = -(q[Q_GRHO] + T(3) * q[Q_GPRES]) / T(6);
   const T alphadot = eta - X - T(2) * adotoa * alpha;
   const T phidot = a.etadot - dadotoa * alpha - adotoa * alphadot;
-  const T dgpidot = (T(4) / T(3)) * (-T(2) * adotoa * (gg * a.sigma_g + gni * a.sigma_n) +
-                                     gg * a.sigg_dot + gni * a.sign_dot);
+  T dgpidot = (T(4) / T(3)) * (-T(2) * adotoa * (gg * a.sigma_g + gni * a.sigma_n) +
+                               gg * a.sigg_dot + gni * a.sign_dot);
+  if (NU) dgpidot = dgpidot + a.dgpi_extra;
   const T psidot = phidot - T(1.5) * dgpidot / k2;
   const T theta0_N = y[I_DG] / T(4) - adotoa * alpha;
   const T vb_N = (y[I_TB] + k2 * alpha) / k;
@@ -496,7 +742,9 @@ ADJ_HD void sources_vjp(const T* y, const T* dy, const Aux<T>& a, const T* q, T 
   T adotoa_b = -alpha * theta0_N_b;
   alpha_b -= adotoa * theta0_N_b;
   phidot_b += psidot_b;
-  const T D_b = (T(4) / T(3)) * (-T(1.5) * psidot_b / k2);
+  const T dgpidot_b = -T(1.5) * psidot_b / k2;
+  if (NU) ab->dgpi_extra += dgpidot_b;
+  const T D_b = (T(4) / T(3)) * dgpidot_b;
   adotoa_b += -T(2) * (gg * a.sigma_g + gni * a.sigma_n) * D_b;
   qb[Q_GG] += (-T(2) * adotoa * a.sigma_g + a.sigg_dot) * D_b;
   qb[Q_GNISW] += (-T(2) * adotoa * a.sigma_n + a.sign_dot) * D_b;
@@ -534,9 +782,12 @@ struct Iso {
 };
 
 // adiabatic_ics with the isocurvature admixture (taken also where b = 0, as
-// the plain version does when it is given one, so d/db is there)
-template <typename T>
-ADJ_HD void ics(T k, T tau, T rnu, const Iso<T>& iso, T* y) {
+// the plain version does when it is given one, so d/db is there); with NU,
+// Psi_0..2 of each node from the combined moments (MB95 eq 98); the DE
+// fluid starts at zero
+template <typename T, bool NU, bool DE>
+ADJ_HD void ics(T k, T tau, T rnu, const Iso<T>& iso, const T* nuc, T* y) {
+  using L = Layout<NU, DE>;
   const T kt = k * tau;
   T dg = -(T(2) / T(3)) * (kt * kt);
   T theta = -(T(1) / T(18)) * k * (kt * kt * kt);
@@ -556,7 +807,7 @@ ADJ_HD void ics(T k, T tau, T rnu, const Iso<T>& iso, T* y) {
   tn = tn + b * ti;
   fn2 = fn2 + b * (iso.rc * ot * (kt * kt) / (T(3) * (T(2) * rnu + T(15))));
   eta = eta + b * (iso.rc * ot * (T(1) / T(3) - ot / T(8)));
-  for (int i = 0; i < NV; ++i) y[i] = T(0);
+  for (int i = 0; i < L::NVX; ++i) y[i] = T(0);
   y[I_DG] = dg;
   y[I_DC] = dc;
   y[I_DB] = db;
@@ -566,12 +817,31 @@ ADJ_HD void ics(T k, T tau, T rnu, const Iso<T>& iso, T* y) {
   y[I_TN] = tn;
   y[I_FN] = fn2;
   y[I_ETA] = eta;
+  if constexpr (NU) {
+    for (int i = 0; i < NQNU; ++i) {
+      const T dl = nuc[NQNU + i];
+      y[L::I_NU + NL1 * i] = -(T(0.25) * dn) * dl;
+      y[L::I_NU + NL1 * i + 1] = -(tn / (T(3) * k)) * dl;
+      y[L::I_NU + NL1 * i + 2] = -(T(0.25) * fn2) * dl;
+    }
+  }
 }
 
 // the vjp of ics: adds to *tau_b, *rnu_b and isob (b, om, rc)
-template <typename T>
-ADJ_HD void ics_vjp(T k, T tau, T rnu, const Iso<T>& iso, const T* yb, T* tau_b, T* rnu_b,
-                    T* isob) {
+template <typename T, bool NU, bool DE>
+ADJ_HD void ics_vjp(T k, T tau, T rnu, const Iso<T>& iso, const T* nuc, const T* ybx,
+                    T* tau_b, T* rnu_b, T* isob) {
+  using L = Layout<NU, DE>;
+  // the cotangents of the fluid values (dn, tn, fn2 also through Psi_0..2)
+  T Ydn = ybx[I_DN], Ytn = ybx[I_TN], Yfn = ybx[I_FN];
+  if constexpr (NU) {
+    for (int i = 0; i < NQNU; ++i) {
+      const T dl = nuc[NQNU + i];
+      Ydn -= T(0.25) * dl * ybx[L::I_NU + NL1 * i];
+      Ytn -= dl * ybx[L::I_NU + NL1 * i + 1] / (T(3) * k);
+      Yfn -= T(0.25) * dl * ybx[L::I_NU + NL1 * i + 2];
+    }
+  }
   const T kt = k * tau, kt2 = kt * kt;
   const T d15 = T(15) + T(4) * rnu, d15b = T(2) * rnu + T(15);
   const T theta0 = -(T(1) / T(18)) * k * (kt2 * kt);
@@ -580,8 +850,8 @@ ADJ_HD void ics_vjp(T k, T tau, T rnu, const Iso<T>& iso, const T* yb, T* tau_b,
   const T ti = iso.rc * k * ot * kt / T(6);
   const T F = iso.rc * ot * kt2 / (T(3) * d15b);
   const T E = iso.rc * ot * (T(1) / T(3) - ot / T(8));
-  const T Ydg = yb[I_DG], Ydc = yb[I_DC], Ydb = yb[I_DB], Ydn = yb[I_DN];
-  const T Ytg = yb[I_TG], Ytb = yb[I_TB], Ytn = yb[I_TN], Yfn = yb[I_FN], Yeta = yb[I_ETA];
+  const T Ydg = ybx[I_DG], Ydc = ybx[I_DC], Ydb = ybx[I_DB];
+  const T Ytg = ybx[I_TG], Ytb = ybx[I_TB], Yeta = ybx[I_ETA];
   const T dg0_b = Ydg + T(0.75) * Ydc + T(0.75) * Ydb + Ydn;
   const T theta0_b = Ytg + Ytb + Ytn * (T(23) + T(4) * rnu) / d15;
   const T ti_b = b * (Ytg + Ytb + Ytn);
@@ -607,29 +877,30 @@ ADJ_HD void ics_vjp(T k, T tau, T rnu, const Iso<T>& iso, const T* yb, T* tau_b,
 
 // One step of _evolve_plain from y over the rows qa, qm, qb: the new state
 // (the held ICs at tau_b before the lane's release)
-template <typename T>
+template <typename T, bool NU, bool DE>
 ADJ_HD void step(const T* y, const T* qa, const T* qm, const T* qb, T k, T rsa_ktau, T rnu,
-                 const Iso<T>& iso, T* yn) {
+                 const Iso<T>& iso, const T* nuc, T* yn) {
+  constexpr int N = Layout<NU, DE>::NVX;
   const T tau_a = qa[Q_TAU], tau_b = qb[Q_TAU], dt = tau_b - tau_a;
   if (!(k * tau_b >= T(IC_RELEASE_KTAU) || tau_b >= T(3))) {
-    ics(k, tau_b, rnu, iso, yn);
+    ics<T, NU, DE>(k, tau_b, rnu, iso, nuc, yn);
     return;
   }
-  T k1[NV], k2[NV], yt[NV];
-  rhs(y, qa, k, rsa_ktau, k1, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) yt[i] = y[i] + T(0.5) * dt * k1[i];
-  rhs(yt, qm, k, rsa_ktau, k2, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) {
+  T k1[N], k2[N], yt[N];
+  rhs<T, NU, DE>(y, qa, k, rsa_ktau, nuc, k1, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) yt[i] = y[i] + T(0.5) * dt * k1[i];
+  rhs<T, NU, DE>(yt, qm, k, rsa_ktau, nuc, k2, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) {
     yt[i] = y[i] + T(0.5) * dt * k2[i];
     k1[i] = k1[i] + T(2) * k2[i];
   }
-  rhs(yt, qm, k, rsa_ktau, k2, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) {
+  rhs<T, NU, DE>(yt, qm, k, rsa_ktau, nuc, k2, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) {
     yt[i] = y[i] + dt * k2[i];
     k1[i] = k1[i] + T(2) * k2[i];
   }
-  rhs(yt, qb, k, rsa_ktau, k2, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) yn[i] = y[i] + (dt / T(6)) * (k1[i] + k2[i]);
+  rhs<T, NU, DE>(yt, qb, k, rsa_ktau, nuc, k2, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) yn[i] = y[i] + (dt / T(6)) * (k1[i] + k2[i]);
 }
 
 // The vjp of one step and of the sources it emits at tau_b. y: the state
@@ -637,69 +908,70 @@ ADJ_HD void step(const T* y, const T* qa, const T* qm, const T* qb, T k, T rsa_k
 // steps; g: the cotangents of the step's 7 planes. Writes the cotangent of
 // y to yb and adds the rows' cotangents to qab, qmb, qbb and the ICs' to
 // *rnu_b and isob.
-template <typename T>
+template <typename T, bool NU, bool DE>
 ADJ_HD void step_vjp(const T* y, const T* yn, const T* qa, const T* qm, const T* qb, T k,
-                     T rsa_ktau, T rnu, const Iso<T>& iso, const T* ynb, const T* g, T* yb,
-                     T* qab, T* qmb, T* qbb, T* rnu_b, T* isob) {
+                     T rsa_ktau, T rnu, const Iso<T>& iso, const T* nuc, const T* ynb,
+                     const T* g, T* yb, T* qab, T* qmb, T* qbb, T* rnu_b, T* isob) {
+  constexpr int N = Layout<NU, DE>::NVX;
   // the sources at (yn, tau_b) and the RHS evaluation they read
-  T dy[NV], w[NV], ybn[NV];
-  Aux<T> a, ab = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  rhs(yn, qb, k, rsa_ktau, dy, &a);
-  for (int i = 0; i < NV; ++i) {
+  T dy[N], w[N], ybn[N];
+  Aux<T> a, ab = aux_zero<T>();
+  rhs<T, NU, DE>(yn, qb, k, rsa_ktau, nuc, dy, &a);
+  for (int i = 0; i < N; ++i) {
     w[i] = T(0);
     ybn[i] = ynb[i];
   }
-  sources_vjp(yn, dy, a, qb, k, g, ybn, w, &ab, qbb);
-  rhs_vjp(yn, qb, k, rsa_ktau, w, ab, ybn, qbb);
+  sources_vjp<T, NU>(yn, dy, a, qb, k, g, ybn, w, &ab, qbb);
+  rhs_vjp<T, NU, DE>(yn, qb, k, rsa_ktau, nuc, w, ab, ybn, qbb);
   const T tau_a = qa[Q_TAU], tau_b = qb[Q_TAU], dt = tau_b - tau_a;
-  for (int i = 0; i < NV; ++i) yb[i] = T(0);
+  for (int i = 0; i < N; ++i) yb[i] = T(0);
   if (!(k * tau_b >= T(IC_RELEASE_KTAU) || tau_b >= T(3))) {
-    ics_vjp(k, tau_b, rnu, iso, ybn, &qbb[Q_TAU], rnu_b, isob);
+    ics_vjp<T, NU, DE>(k, tau_b, rnu, iso, nuc, ybn, &qbb[Q_TAU], rnu_b, isob);
     return;
   }
   // RK4: recompute the stages, then walk them back
-  T k1[NV], k2[NV], k3[NV], k4[NV], y2[NV], y3[NV], y4[NV];
-  const Aux<T> none = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-  rhs(y, qa, k, rsa_ktau, k1, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) y2[i] = y[i] + T(0.5) * dt * k1[i];
-  rhs(y2, qm, k, rsa_ktau, k2, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) y3[i] = y[i] + T(0.5) * dt * k2[i];
-  rhs(y3, qm, k, rsa_ktau, k3, (Aux<T>*)nullptr);
-  for (int i = 0; i < NV; ++i) y4[i] = y[i] + dt * k3[i];
-  rhs(y4, qb, k, rsa_ktau, k4, (Aux<T>*)nullptr);
+  T k1[N], k2[N], k3[N], k4[N], y2[N], y3[N], y4[N];
+  const Aux<T> none = aux_zero<T>();
+  rhs<T, NU, DE>(y, qa, k, rsa_ktau, nuc, k1, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) y2[i] = y[i] + T(0.5) * dt * k1[i];
+  rhs<T, NU, DE>(y2, qm, k, rsa_ktau, nuc, k2, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) y3[i] = y[i] + T(0.5) * dt * k2[i];
+  rhs<T, NU, DE>(y3, qm, k, rsa_ktau, nuc, k3, (Aux<T>*)nullptr);
+  for (int i = 0; i < N; ++i) y4[i] = y[i] + dt * k3[i];
+  rhs<T, NU, DE>(y4, qb, k, rsa_ktau, nuc, k4, (Aux<T>*)nullptr);
   // yn = y + dt/6 (k1 + 2 k2 + 2 k3 + k4)
-  T dt_b = T(0), kb[NV], sb[NV];
-  for (int i = 0; i < NV; ++i) {
+  T dt_b = T(0), kb[N], sb[N];
+  for (int i = 0; i < N; ++i) {
     yb[i] = ybn[i];
     dt_b += ybn[i] * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]) / T(6);
     kb[i] = (dt / T(6)) * ybn[i];  // k4's
   }
   // k4 = f(y4, qb), y4 = y + dt k3
-  for (int i = 0; i < NV; ++i) sb[i] = T(0);
-  rhs_vjp(y4, qb, k, rsa_ktau, kb, none, sb, qbb);
-  for (int i = 0; i < NV; ++i) {
+  for (int i = 0; i < N; ++i) sb[i] = T(0);
+  rhs_vjp<T, NU, DE>(y4, qb, k, rsa_ktau, nuc, kb, none, sb, qbb);
+  for (int i = 0; i < N; ++i) {
     yb[i] += sb[i];
     dt_b += sb[i] * k3[i];
     kb[i] = T(2) * (dt / T(6)) * ybn[i] + dt * sb[i];  // k3's
     sb[i] = T(0);
   }
   // k3 = f(y3, qm), y3 = y + dt/2 k2
-  rhs_vjp(y3, qm, k, rsa_ktau, kb, none, sb, qmb);
-  for (int i = 0; i < NV; ++i) {
+  rhs_vjp<T, NU, DE>(y3, qm, k, rsa_ktau, nuc, kb, none, sb, qmb);
+  for (int i = 0; i < N; ++i) {
     yb[i] += sb[i];
     dt_b += T(0.5) * sb[i] * k2[i];
     kb[i] = T(2) * (dt / T(6)) * ybn[i] + T(0.5) * dt * sb[i];  // k2's
     sb[i] = T(0);
   }
   // k2 = f(y2, qm), y2 = y + dt/2 k1
-  rhs_vjp(y2, qm, k, rsa_ktau, kb, none, sb, qmb);
-  for (int i = 0; i < NV; ++i) {
+  rhs_vjp<T, NU, DE>(y2, qm, k, rsa_ktau, nuc, kb, none, sb, qmb);
+  for (int i = 0; i < N; ++i) {
     yb[i] += sb[i];
     dt_b += T(0.5) * sb[i] * k1[i];
     kb[i] = (dt / T(6)) * ybn[i] + T(0.5) * dt * sb[i];  // k1's
   }
   // k1 = f(y, qa)
-  rhs_vjp(y, qa, k, rsa_ktau, kb, none, yb, qab);
+  rhs_vjp<T, NU, DE>(y, qa, k, rsa_ktau, nuc, kb, none, yb, qab);
   qbb[Q_TAU] += dt_b;
   qab[Q_TAU] -= dt_b;
 }

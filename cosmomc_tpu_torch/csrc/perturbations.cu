@@ -85,38 +85,11 @@
 //
 // The arithmetic mirrors models/perturbations.py:_rhs/_sources.
 //
-// With a checkpoint buffer `ck` (base instantiation), the kernel also
-// stores the 37-variable state before every `chunk`-th step and after the
-// last, (C, nk, ceil(S / chunk) + 1, 37), for the reverse kernel below.
-//
-// The reverse pass, boltzmann_bwd_kernel (base instantiation): the
-// gradient of the RK4 map with the TCA/RSA switches and the IC hold, as
-// jax.grad of the JAX scan (with remat_chunks) gives it. Given the
-// cotangents of the 7 planes at every step it returns those of the stage
-// table qtab (C, S, 3, 16), of rnu and of the isocurvature inputs.
-// - One thread owns one (chain, k) lane, one block the k lanes of a chain
-//   (up to 256; more lanes take more blocks and a partial table each). The
-//   adjoint is serial code on the thread (csrc/boltzmann_adjoint.cuh): the
-//   forward RHS, sources, ICs and step repeated as the plain version writes
-//   them, and their vector-Jacobian products written out by hand. The switches
-//   depend on (k, row) alone and compare single products, so the
-//   recomputed steps take the forward's branches.
-// - Checkpointed by chunks, as JAX's remat_chunks: the chunks are taken in
-//   reverse; each is recomputed from its checkpoint with the step function,
-//   its states kept in a global scratch (C, chunk, 37, nk: a chunk's 37 x
-//   chunk states a lane, consecutive lanes at consecutive addresses), then
-//   its steps are walked back. A lane's states do not fit shared memory at
-//   the matter path's chunk of 96 steps (28 KB a lane in float64), so they
-//   live in device memory and the L2 (the whole scratch is ~49 MB at 8
-//   chains x 216 k x 96 steps in float64).
-// - The table's cotangent is a sum over the k lanes of a chain: at every
-//   step the block reduces its lanes' 48 values by warp shuffles in a fixed
-//   order, then across its warps through shared memory, and one thread
-//   writes the row: no atomics, the same bits on every run.
-// Bound: the lane's dependency chain, now ~3x the forward's work a step
-// (a step recomputed in the chunk pass, then again with its four stages
-// and the sources' RHS, and five vector-Jacobian products), with one
-// thread a lane instead of a warp.
+// With a checkpoint buffer `ck` (the `*_ck` entry points), the kernel also
+// stores the state in the plain layout before every `chunk`-th step and
+// after the last, (C, nk, ceil(S / chunk) + 1, NVX) with NVX = 37, 65
+// (massive nu), 39 (DE) or 67 (both), for the reverse kernel of
+// csrc/boltzmann_bwd.cu.
 #include "common.cuh"
 #include "boltzmann_adjoint.cuh"
 
@@ -634,19 +607,25 @@ boltzmann_kernel(const T* __restrict__ qtab, const T* __restrict__ kvec,
   T yn = T(0), accn = T(0), ytn = T(0), kdn = T(0);
   Aux<T> aux;
   ics<T, NU, DE>(k, rows[0][Q_TAU], rnu, iso, lane, nl, y, ym, yn);
-  // the checkpoints: lane 0 the fluid variables, lane j < 29 its multipole
+  // the checkpoints in the plain layout (k1adj::Layout): lane 0 the fluid
+  // variables, lane j < 29 its multipole, with NU lane j < 28 its Psi_l(q_i)
+  using LX = k1adj::Layout<NU, DE>;
   const int nck = ck == nullptr ? 0 : (S + chunk - 1) / chunk;
   T* ckl = ck == nullptr || k0 + w >= nk ? nullptr
-                                         : ck + ((size_t)c * nk + k0 + w) * (nck + 1) * 37;
+                                         : ck + ((size_t)c * nk + k0 + w) * (nck + 1) * LX::NVX;
   const int mslot = lane < 20 ? 6 + lane : 8 + lane;
   auto store = [&](int m) {
     if (ckl == nullptr) return;
-    T* d = ckl + (size_t)m * 37;
+    T* d = ckl + (size_t)m * LX::NVX;
     if (lane == 0) {
       d[0] = y[F_ETA], d[1] = y[F_DC], d[2] = y[F_DB], d[3] = y[F_TB];
       d[4] = y[F_DG], d[5] = y[F_TG], d[26] = y[F_DN], d[27] = y[F_TN];
+      if constexpr (DE) d[LX::I_DE] = y[F_DE], d[LX::I_DE + 1] = y[F_DV];
     }
     if (lane < N_MULTIPOLES) d[mslot] = ym;
+    if constexpr (NU) {
+      if (lane < NQNU * NL1) d[LX::I_NU + lane] = yn;
+    }
   };
   for (int t = 0; t < ntiles; ++t) {
     const T* buf = rows[t & 1];
@@ -731,110 +710,6 @@ boltzmann_kernel(const T* __restrict__ qtab, const T* __restrict__ kvec,
   if (nck > 0) store(nck);
 }
 
-// ---- the reverse pass (base instantiation) ----------------------------------
-
-constexpr int BWD_THREADS = 256;
-constexpr int QB3 = 3 * k1adj::NQ;   // a step's three rows
-// a chain's blocks and their threads (at least QB3, for the reduction):
-// models/perturbations.py:_bwd_lanes repeats this
-inline int bwd_blocks(int nk) { return (nk + BWD_THREADS - 1) / BWD_THREADS; }
-inline int bwd_threads(int nk) {
-  const int t = ((nk < BWD_THREADS ? nk : BWD_THREADS) + 31) / 32 * 32;
-  return t < 64 ? 64 : t;
-}
-
-// a fixed-order sum over the block of n values a thread (n <= QB3), the
-// result in red[0..n) after the call; every thread of the block calls it
-template <typename T>
-__device__ __forceinline__ void block_sum(T* v, int n, T (*red)[QB3]) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  for (int i = 0; i < n; ++i) {
-    T x = v[i];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL_WARP, x, o);
-    if (lane == 0) red[w][i] = x;
-  }
-  __syncthreads();
-  if (threadIdx.x < n) {
-    T x = red[0][threadIdx.x];
-    for (int j = 1; j < nw; ++j) x += red[j][threadIdx.x];
-    red[0][threadIdx.x] = x;   // column threadIdx.x is read by this thread only
-  }
-  __syncthreads();
-}
-
-template <typename T>
-__global__ void __launch_bounds__(BWD_THREADS)
-boltzmann_bwd_kernel(const T* __restrict__ qtab, const T* __restrict__ kvec,
-                     const T* __restrict__ rnu_in, const T* __restrict__ iso_in,
-                     const T* __restrict__ ck, const T* __restrict__ gout,
-                     T* __restrict__ scratch, T* __restrict__ gq, T* __restrict__ grnu,
-                     T* __restrict__ giso, int C, int S, int nk, T rsa_ktau, int chunk) {
-  namespace A = k1adj;
-  constexpr int NV = A::NV, NQB = A::NQ;
-  __shared__ T red[BWD_THREADS / 32][QB3];
-  const int c = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int kidx = blk * blockDim.x + threadIdx.x;
-  const bool active = kidx < nk;
-  const int kk = min(kidx, nk - 1);
-  const T k = kvec[kk], rnu = rnu_in[c];
-  const A::Iso<T> iso = {iso_in[3 * c], iso_in[3 * c + 1], iso_in[3 * c + 2]};
-  const T* Qc = qtab + (size_t)c * S * QB3;
-  const int nck = (S + chunk - 1) / chunk;
-  const T* ckl = ck + ((size_t)c * nk + kk) * (nck + 1) * NV;
-  // (j, v) of this lane at sc[(j NV + v) nkp], nkp the chain's padded lanes
-  const int nkp = gridDim.x * blockDim.x;
-  T* sc = scratch + (size_t)c * chunk * NV * nkp + kidx;
-  T* gqb = gq + ((size_t)c * nblk + blk) * S * QB3;
-
-  T y[NV], yn[NV], ynb[NV], yb[NV], qbar[QB3];
-  T rnu_b = T(0), isob[3] = {T(0), T(0), T(0)};
-  for (int i = 0; i < NV; ++i) ynb[i] = T(0);
-  for (int m = nck - 1; m >= 0; --m) {
-    const int lo = m * chunk, hi = min(lo + chunk, S);
-    // the chunk's states, recomputed from its checkpoint
-    for (int i = 0; i < NV; ++i) y[i] = ckl[(size_t)m * NV + i];
-    for (int s = lo; s < hi; ++s) {
-      const T* q = Qc + (size_t)s * QB3;
-      for (int i = 0; i < NV; ++i) sc[((size_t)(s - lo) * NV + i) * nkp] = y[i];
-      A::step(y, q, q + NQB, q + 2 * NQB, k, rsa_ktau, rnu, iso, yn);
-      for (int i = 0; i < NV; ++i) y[i] = yn[i];
-    }
-    // ... walked back
-    for (int s = hi - 1; s >= lo; --s) {
-      const T* q = Qc + (size_t)s * QB3;
-      for (int i = 0; i < NV; ++i) y[i] = sc[((size_t)(s - lo) * NV + i) * nkp];
-      T g[A::NPL];
-      for (int p = 0; p < A::NPL; ++p)
-        g[p] = active ? gout[(((size_t)p * C + c) * S + s) * nk + kidx] : T(0);
-      for (int i = 0; i < QB3; ++i) qbar[i] = T(0);
-      A::step_vjp(y, yn, q, q + NQB, q + 2 * NQB, k, rsa_ktau, rnu, iso, ynb, g, yb, qbar,
-                  qbar + NQB, qbar + 2 * NQB, &rnu_b, isob);
-      if (!active) {
-        for (int i = 0; i < QB3; ++i) qbar[i] = T(0);
-        for (int i = 0; i < NV; ++i) yb[i] = T(0);
-      }
-      block_sum(qbar, QB3, red);
-      if (threadIdx.x < QB3) gqb[(size_t)s * QB3 + threadIdx.x] = red[0][threadIdx.x];
-      __syncthreads();
-      for (int i = 0; i < NV; ++i) {
-        ynb[i] = yb[i];
-        yn[i] = y[i];
-      }
-    }
-  }
-  // the initial state: the ICs at tau_a of step 0
-  T tail[5] = {T(0), rnu_b, isob[0], isob[1], isob[2]};
-  if (active) A::ics_vjp(k, Qc[A::Q_TAU], rnu, iso, ynb, &tail[0], &tail[1], &tail[2]);
-  else tail[1] = tail[2] = tail[3] = tail[4] = T(0);
-  block_sum(tail, 5, red);
-  if (threadIdx.x == 0) {
-    gqb[A::Q_TAU] += red[0][0];
-    grnu[(size_t)c * nblk + blk] = red[0][1];
-    for (int j = 0; j < 3; ++j) giso[((size_t)c * nblk + blk) * 3 + j] = red[0][2 + j];
-  }
-}
-
 template <typename T, bool NU, bool DE>
 int launch(const void* qtab, const void* kvec, const void* rnu, const void* iso,
            const void* nuc, void* out, int C, int S, int nk, double rsa_ktau,
@@ -843,19 +718,6 @@ int launch(const void* qtab, const void* kvec, const void* rnu, const void* iso,
   boltzmann_kernel<T, NU, DE><<<grid, WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const T*)qtab, (const T*)kvec, (const T*)rnu, (const T*)iso, (const T*)nuc,
       (T*)out, C, S, nk, (T)rsa_ktau, (T*)ck, chunk);
-  return (int)cudaGetLastError();
-}
-
-// blocks of up to BWD_THREADS lanes of one chain: ceil(nk / BWD_THREADS) a chain
-template <typename T>
-int launch_bwd(const void* qtab, const void* kvec, const void* rnu, const void* iso,
-               const void* ck, const void* gout, void* scratch, void* gq, void* grnu,
-               void* giso, int C, int S, int nk, double rsa_ktau, int chunk, void* stream) {
-  const int nblk = bwd_blocks(nk), threads = bwd_threads(nk);
-  dim3 grid(nblk, C);
-  boltzmann_bwd_kernel<T><<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const T*)qtab, (const T*)kvec, (const T*)rnu, (const T*)iso, (const T*)ck,
-      (const T*)gout, (T*)scratch, (T*)gq, (T*)grnu, (T*)giso, C, S, nk, (T)rsa_ktau, chunk);
   return (int)cudaGetLastError();
 }
 
@@ -880,27 +742,21 @@ BOLTZMANN_ENTRY(boltzmann_de_f64, double, false, true)
 BOLTZMANN_ENTRY(boltzmann_nu_de_f32, float, true, true)
 BOLTZMANN_ENTRY(boltzmann_nu_de_f64, double, true, true)
 
-// the base forward kernel with checkpoints: ck (C, nk, ceil(S / chunk) + 1, 37)
-#define BOLTZMANN_CK_ENTRY(NAME, T)                                                      \
+// the forward kernel with checkpoints, one entry point per (extension,
+// dtype): ck (C, nk, ceil(S / chunk) + 1, NVX), the state in the plain layout
+// (37, 65, 39 or 67 variables)
+#define BOLTZMANN_CK_ENTRY(NAME, T, NU, DE)                                              \
   extern "C" int NAME(const void* qtab, const void* kvec, const void* rnu,             \
                       const void* iso, const void* nuc, void* out, void* ck, int C,    \
                       int S, int nk, double rsa_ktau, int chunk, void* stream) {       \
-    return launch<T, false, false>(qtab, kvec, rnu, iso, nuc, out, C, S, nk, rsa_ktau, \
-                                   ck, chunk, stream);                                  \
+    return launch<T, NU, DE>(qtab, kvec, rnu, iso, nuc, out, C, S, nk, rsa_ktau, ck,   \
+                             chunk, stream);                                            \
   }
-BOLTZMANN_CK_ENTRY(boltzmann_ck_f32, float)
-BOLTZMANN_CK_ENTRY(boltzmann_ck_f64, double)
-
-// the reverse kernel: gout (7, C, S, nk) the planes' cotangents; scratch
-// (C, chunk, 37, nblk x threads); gq (C, nblk, S, 3, 16), grnu (C, nblk), giso (C, nblk,
-// 3) a partial of each block of k lanes (nblk = ceil(nk / 256))
-#define BOLTZMANN_BWD_ENTRY(NAME, T)                                                     \
-  extern "C" int NAME(const void* qtab, const void* kvec, const void* rnu,             \
-                      const void* iso, const void* ck, const void* gout, void* scratch, \
-                      void* gq, void* grnu, void* giso, int C, int S, int nk,          \
-                      double rsa_ktau, int chunk, void* stream) {                      \
-    return launch_bwd<T>(qtab, kvec, rnu, iso, ck, gout, scratch, gq, grnu, giso, C, S, \
-                         nk, rsa_ktau, chunk, stream);                                  \
-  }
-BOLTZMANN_BWD_ENTRY(boltzmann_bwd_f32, float)
-BOLTZMANN_BWD_ENTRY(boltzmann_bwd_f64, double)
+BOLTZMANN_CK_ENTRY(boltzmann_ck_f32, float, false, false)
+BOLTZMANN_CK_ENTRY(boltzmann_ck_f64, double, false, false)
+BOLTZMANN_CK_ENTRY(boltzmann_nu_ck_f32, float, true, false)
+BOLTZMANN_CK_ENTRY(boltzmann_nu_ck_f64, double, true, false)
+BOLTZMANN_CK_ENTRY(boltzmann_de_ck_f32, float, false, true)
+BOLTZMANN_CK_ENTRY(boltzmann_de_ck_f64, double, false, true)
+BOLTZMANN_CK_ENTRY(boltzmann_nu_de_ck_f32, float, true, true)
+BOLTZMANN_CK_ENTRY(boltzmann_nu_de_ck_f64, double, true, true)

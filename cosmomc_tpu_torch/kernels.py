@@ -10,7 +10,7 @@ loaded with ctypes. Nothing here runs at import time.
 `launches[name]` counts the launches each wrapper makes: it is raised by
 one where the kernel is launched, and nowhere else. A source may hold
 several instantiations (`VARIANTS`: K1's massive-neutrino and dark-energy
-extensions, and the reverse kernels of K4, K1, K2a and K3), each with
+extensions, and the reverse kernels of K4, K2a and K3), each with
 entry points `<variant>_f32|f64` and a count of its own. A forward kernel
 that also stores what its reverse kernel reads is launched through another
 entry point of the same kernel (`launch(..., entry=...)`) and counts as
@@ -32,8 +32,9 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 
 #: kernel name -> source file; the sources include the headers csrc/*.cuh
-#: (common.cuh; boltzmann_adjoint.cuh in perturbations.cu), which key the
-#: build too
+#: (common.cuh; boltzmann_adjoint.cuh in perturbations.cu and
+#: boltzmann_bwd.cu), which key the build too. K1's reverse kernel builds
+#: once an instantiation (EXTRA_FLAGS), the four in parallel
 SOURCES = {
     "recfast": "recfast.cu",          # K4
     "boltzmann": "perturbations.cu",  # K1
@@ -42,12 +43,15 @@ SOURCES = {
     "los_rec": "los_recurrence.cu",   # K2b
     "tensors": "tensors.cu",          # K5
     "tensor_los": "tensor_los.cu",    # K6
+    "boltzmann_bwd": "boltzmann_bwd.cu",        # K1's reverse kernels
+    "boltzmann_nu_bwd": "boltzmann_bwd.cu",
+    "boltzmann_de_bwd": "boltzmann_bwd.cu",
+    "boltzmann_nu_de_bwd": "boltzmann_bwd.cu",
 }
 #: instantiation -> the kernel (source) that holds it
 VARIANTS = {"boltzmann_nu": "boltzmann", "boltzmann_de": "boltzmann",
             "boltzmann_nu_de": "boltzmann", "recfast_bwd": "recfast",
-            "boltzmann_bwd": "boltzmann", "los_bwd": "los",
-            "lensing_bwd": "lensing"}
+            "los_bwd": "los", "lensing_bwd": "lensing"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: flags of one source beyond NVCC_FLAGS. K3 rounds every product and sum
@@ -56,7 +60,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: recurrences, 7.9e-10 of its maximum from autograd of the plain version
 #: with contraction on an H100, 7.3e-11 without
 #: (scripts/k3_bwd_rounding.py)
-EXTRA_FLAGS = {"lensing": ["-fmad=false"]}
+EXTRA_FLAGS = {"lensing": ["-fmad=false"],
+               "boltzmann_bwd": ["-DK1_NU=0", "-DK1_DE=0"],
+               "boltzmann_nu_bwd": ["-DK1_NU=1", "-DK1_DE=0"],
+               "boltzmann_de_bwd": ["-DK1_NU=0", "-DK1_DE=1"],
+               "boltzmann_nu_de_bwd": ["-DK1_NU=1", "-DK1_DE=1"]}
 
 launches = {name: 0 for name in (*SOURCES, *VARIANTS)}
 #: ptxas report (registers, spills) and build seconds of each built kernel

@@ -68,16 +68,22 @@ def _tab_lookup(am: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
 
 
 def nu_rho(am: torch.Tensor) -> torch.Tensor:
-    """Massive-nu energy density / massless density; am any-shaped tensor."""
+    """Massive-nu energy density / massless density; am any-shaped tensor.
+    The large-am series reads am clamped to its range, so that at am = 0
+    (mnu = 0) its 1/am does not turn the gradient into NaN through the
+    unselected branch; the JAX package's gradient is NaN there."""
     small = 1.0 + _const2 * am ** 2
-    big = 3.0 / (2.0 * nu_const) * (zeta3 * am + 15.0 * zeta5 / (2.0 * am))
+    amb = am.clamp(min=AM_HI)
+    big = 3.0 / (2.0 * nu_const) * (zeta3 * amb + 15.0 * zeta5 / (2.0 * amb))
     mid = _tab_lookup(am, table("rho", am.device, am.dtype))
     return torch.where(am <= AM_LO, small, torch.where(am >= AM_HI, big, mid))
 
 
 def nu_pres(am: torch.Tensor) -> torch.Tensor:
-    """Massive-nu pressure / massless density (p of one massless = rho/3)."""
+    """Massive-nu pressure / massless density (p of one massless = rho/3);
+    the large-am series as in `nu_rho`."""
     small = (2.0 - (1.0 + _const2 * am ** 2)) / 3.0
-    big = (900.0 / 120.0 / nu_const) * (zeta5 - 63.0 / 4.0 * zeta7 / am ** 2) / am
+    amb = am.clamp(min=AM_HI)
+    big = (900.0 / 120.0 / nu_const) * (zeta5 - 63.0 / 4.0 * zeta7 / amb ** 2) / amb
     mid = _tab_lookup(am, table("p", am.device, am.dtype))
     return torch.where(am <= AM_LO, small, torch.where(am >= AM_HI, big, mid))

@@ -651,6 +651,27 @@ def _sources(y, dy, aux, q, k):
     return s0, s1, s2, slens, dm, dmdot, weyl
 
 
+def _step(y, qa, qm, qb, k, rnu, iso, rsa_ktau, massive_nu=False,
+          de_perts=False):
+    """One RK4 step of `_evolve_plain` from y (C, nk, NVAR + extra) over the
+    stage rows qa, qm, qb (C, q_fields): the new state (the held ICs at
+    tau_b before a lane's release) and the 7 planes at tau_b, (7, C, nk).
+    csrc/boltzmann_adjoint.cuh's `step` and `step_vjp` repeat it."""
+    sw = dict(massive_nu=massive_nu, de_perts=de_perts)
+    tau_a, tau_b = qa[:, Q_TAU:Q_TAU + 1], qb[:, Q_TAU:Q_TAU + 1]
+    dt = (tau_b - tau_a)[..., None]
+    k1, _ = _rhs(y, qa, k, rsa_ktau, **sw)
+    k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau, **sw)
+    k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau, **sw)
+    k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau, **sw)
+    y_new = y + (dt / 6.0) * (k1 + 2 * k2_ + 2 * k3_ + k4_)
+    released = (k * tau_b >= IC_RELEASE_KTAU) | (tau_b >= 3.0)
+    y = torch.where(released[..., None], y_new,
+                    adiabatic_ics(k, tau_b, rnu, iso=iso, **sw))
+    dy, aux = _rhs(y, qb, k, rsa_ktau, **sw)
+    return y, torch.stack(_sources(y, dy, aux, qb, k))
+
+
 def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
                   rsa_ktau: float, massive_nu: bool = False,
                   de_perts: bool = False,
@@ -676,18 +697,8 @@ def _evolve_plain(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
         return adiabatic_ics(k, tau, rn, iso=iso, **sw)
 
     def step(y, i, qtab, rn, iso):
-        qa, qm, qb = qtab[:, i, 0], qtab[:, i, 1], qtab[:, i, 2]
-        tau_a, tau_b = qa[:, Q_TAU:Q_TAU + 1], qb[:, Q_TAU:Q_TAU + 1]
-        dt = (tau_b - tau_a)[..., None]
-        k1, _ = _rhs(y, qa, k, rsa_ktau, **sw)
-        k2_, _ = _rhs(y + 0.5 * dt * k1, qm, k, rsa_ktau, **sw)
-        k3_, _ = _rhs(y + 0.5 * dt * k2_, qm, k, rsa_ktau, **sw)
-        k4_, _ = _rhs(y + dt * k3_, qb, k, rsa_ktau, **sw)
-        y_new = y + (dt / 6.0) * (k1 + 2 * k2_ + 2 * k3_ + k4_)
-        released = (k * tau_b >= IC_RELEASE_KTAU) | (tau_b >= 3.0)
-        y = torch.where(released[..., None], y_new, ics(tau_b, rn, iso))
-        dy, aux = _rhs(y, qb, k, rsa_ktau, **sw)
-        return y, torch.stack(_sources(y, dy, aux, qb, k))
+        return _step(y, qtab[:, i, 0], qtab[:, i, 1], qtab[:, i, 2], k, rn,
+                     iso, rsa_ktau, **sw)
 
     record = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (qtab, rnu, iso))
@@ -733,9 +744,10 @@ VARIANTS = {(False, False): "boltzmann", (True, False): "boltzmann_nu",
 
 def _evolve_launch(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso,
                    chunk: int = 0):
-    """The forward kernel: the planes (7, C, S, nk) and, with `chunk` > 0
-    (base instantiation), the checkpoints (C, nk, ceil(S / chunk) + 1, 37):
-    the state before every chunk-th step and after the last."""
+    """The forward kernel: the planes (7, C, S, nk) and, with `chunk` > 0,
+    the checkpoints (C, nk, ceil(S / chunk) + 1, NVAR + extra_state(
+    massive_nu, de_perts)): the state before every chunk-th step and after
+    the last, in the plain layout."""
     C, S = qtab.shape[0], qtab.shape[1]
     nk = k.shape[0]
     kernels.check(qtab, "qtab", (C, S, 3, q_fields(massive_nu, de_perts)))
@@ -752,54 +764,65 @@ def _evolve_launch(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso,
         kernels.launch(name, qtab.dtype, qtab, k, rnu, iso, nuc, out, C, S, nk,
                        float(rsa_ktau))
         return out, None
-    ck = torch.empty(C, nk, -(-S // chunk) + 1, NVAR, dtype=qtab.dtype,
-                     device=qtab.device)
+    ck = torch.empty(C, nk, -(-S // chunk) + 1,
+                     NVAR + extra_state(massive_nu, de_perts),
+                     dtype=qtab.dtype, device=qtab.device)
     kernels.launch(name, qtab.dtype, qtab, k, rnu, iso, nuc, out, ck, C, S, nk,
-                   float(rsa_ktau), chunk, entry="boltzmann_ck")
+                   float(rsa_ktau), chunk, entry=f"{name}_ck")
     return out, ck
 
 
 def _bwd_lanes(nk: int):
     """The reverse kernel's blocks a chain and threads a block (csrc/
-    perturbations.cu bwd_blocks, bwd_threads): up to 256 k lanes a block,
+    boltzmann_bwd.cu bwd_blocks, bwd_threads): up to 256 k lanes a block,
     at least 64 threads."""
     return -(-nk // 256), max(64, -(-min(nk, 256) // 32) * 32)
 
 
-def _boltzmann_bwd(qtab, k, rnu, iso, ck, g_out, rsa_ktau, chunk):
-    """csrc/perturbations.cu's reverse kernel (base instantiation): the
-    cotangents of qtab (C, S, 3, 16), rnu (C,) and iso (C, 3) from those of
-    the planes, as `_evolve_plain` under autograd gives them. One thread a
+#: the reverse kernel of each (massive_nu, de_perts)
+BWD_VARIANTS = {sw: f"{name}_bwd" for sw, name in VARIANTS.items()}
+
+
+def _boltzmann_bwd(qtab, k, rnu, iso, ck, g_out, rsa_ktau, chunk,
+                   massive_nu: bool = False, de_perts: bool = False):
+    """csrc/boltzmann_bwd.cu's reverse kernel of the instantiation
+    (massive_nu, de_perts): the cotangents of qtab (C, S, 3, q_fields(
+    massive_nu, de_perts)), rnu (C,) and iso (C, 3) from those of the
+    planes, as `_evolve_plain` under autograd gives them. One thread a
     (chain, k) lane, the chunks in reverse, each recomputed from its
     checkpoint; the table's rows summed over the lanes in a fixed order."""
     C, S = qtab.shape[0], qtab.shape[1]
     nk = k.shape[0]
     nblk, threads = _bwd_lanes(nk)
     dev, dt = qtab.device, qtab.dtype
-    scratch = torch.empty(C, chunk, NVAR, nblk * threads, dtype=dt, device=dev)
-    g_q = torch.empty(C, nblk, S, 3, NQ, dtype=dt, device=dev)
+    nvx = NVAR + extra_state(massive_nu, de_perts)
+    scratch = torch.empty(C, chunk, nvx, nblk * threads, dtype=dt, device=dev)
+    g_q = torch.empty(C, nblk, S, 3, q_fields(massive_nu, de_perts), dtype=dt,
+                      device=dev)
     g_rnu = torch.empty(C, nblk, dtype=dt, device=dev)
     g_iso = torch.empty(C, nblk, 3, dtype=dt, device=dev)
-    kernels.launch("boltzmann_bwd", dt, qtab, k, rnu, iso, ck,
-                   g_out.contiguous(), scratch, g_q, g_rnu, g_iso, C, S, nk,
-                   float(rsa_ktau), chunk)
+    kernels.launch(BWD_VARIANTS[massive_nu, de_perts], dt, qtab, k, rnu, iso,
+                   _nu_constants(dt, dev), ck, g_out.contiguous(), scratch,
+                   g_q, g_rnu, g_iso, C, S, nk, float(rsa_ktau), chunk)
     if nblk == 1:
         return g_q[:, 0], g_rnu[:, 0], g_iso[:, 0]
     return g_q.sum(1), g_rnu.sum(1), g_iso.sum(1)
 
 
 class _Boltzmann(torch.autograd.Function):
-    """K1 (base instantiation) on the card with its reverse kernel: the
+    """K1 on the card with its reverse kernel, for every instantiation: the
     forward kernel also writes the chunk checkpoints, the backward launches
-    `boltzmann_bwd`."""
+    `BWD_VARIANTS[massive_nu, de_perts]`."""
 
     @staticmethod
-    def forward(ctx, qtab, k, rnu, iso, rsa_ktau, chunks):
+    def forward(ctx, qtab, k, rnu, iso, rsa_ktau, chunks, massive_nu,
+                de_perts):
         chunk = -(-qtab.shape[1] // chunks)
-        out, ck = _evolve_launch(qtab, k, rnu, rsa_ktau, False, False, iso,
-                                 chunk)
+        out, ck = _evolve_launch(qtab, k, rnu, rsa_ktau, massive_nu, de_perts,
+                                 iso, chunk)
         ctx.save_for_backward(qtab, k, rnu, iso, ck)
         ctx.rsa_ktau, ctx.chunk = rsa_ktau, chunk
+        ctx.switches = (massive_nu, de_perts)
         return out
 
     @staticmethod
@@ -807,8 +830,9 @@ class _Boltzmann(torch.autograd.Function):
     def backward(ctx, g_out):
         qtab, k, rnu, iso, ck = ctx.saved_tensors
         g_q, g_rnu, g_iso = _boltzmann_bwd(qtab, k, rnu, iso, ck, g_out,
-                                           ctx.rsa_ktau, ctx.chunk)
-        return g_q, None, g_rnu, g_iso, None, None
+                                           ctx.rsa_ktau, ctx.chunk,
+                                           *ctx.switches)
+        return g_q, None, g_rnu, g_iso, None, None, None, None
 
 
 #: K1's checkpoint count on the card when a gradient is wanted and the
@@ -841,22 +865,20 @@ def _evolve_cuda(qtab: torch.Tensor, k: torch.Tensor, rnu: torch.Tensor,
     `iso` (C, 3, from `iso_inputs`) gives each chain its CDM-isocurvature
     admixture in the held ICs.
 
-    When qtab, rnu or iso wants a gradient (and grad is enabled), the base
+    When qtab, rnu or iso wants a gradient (and grad is enabled), every
     instantiation runs as `_Boltzmann`: the forward stores the state at
     `remat_chunks` chunk boundaries (DEFAULT_REMAT_CHUNKS when 0) and the
-    backward is `_boltzmann_bwd`. The extended instantiations have no
-    reverse kernel and raise."""
+    backward is `_boltzmann_bwd`. CPU tensors raise ValueError here as
+    anywhere in the kernel wrappers: their plain version is
+    `_evolve_plain`."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (qtab, rnu, iso)):
-        if massive_nu or de_perts:
-            raise NotImplementedError(
-                f"{VARIANTS[massive_nu, de_perts]} has no reverse kernel: "
-                "gradients run through the base Boltzmann instantiation only")
         if iso is None:
             iso = torch.zeros(qtab.shape[0], 3, dtype=qtab.dtype,
                               device=qtab.device)
         return _Boltzmann.apply(qtab, k, rnu, iso, float(rsa_ktau),
-                                remat_chunks or DEFAULT_REMAT_CHUNKS)
+                                remat_chunks or DEFAULT_REMAT_CHUNKS,
+                                massive_nu, de_perts)
     return _evolve_launch(qtab, k, rnu, rsa_ktau, massive_nu, de_perts, iso)[0]
 
 

@@ -399,32 +399,32 @@ class CMBPosterior:
     def gradient_unsupported(self) -> Optional[str]:
         """Why this configuration's slow stage has no gradient, or None when
         it has one: a kernel of its slow path without a reverse pass. K4,
-        K1's base instantiation, K2a (the table line of sight) and K3 (in
-        the semi stage) have theirs, so the flagship CMB path and the
-        LSS-only path take gradients; the tensor modes (K5, K6), the
-        recurrence line of sight (K2b) and K1's massive-neutrino and
-        dark-energy instantiations have none, and their plain versions run
-        under no_grad, so a gradient would come back partial. The action-2
-        and HMC dispatch of driver.py asks the same."""
+        K1 in all four instantiations (base, the massive-neutrino
+        hierarchy, the dark-energy fluid, both; with or without CDM
+        isocurvature), K2a (the table line of sight) and K3 (in the semi
+        stage) have theirs, so the flagship CMB path, base_mnu, base_w_wa
+        and the LSS-only path take gradients; the tensor modes (K5, K6) and
+        the recurrence line of sight (K2b) have none, and their plain
+        versions run under no_grad, so a gradient would come back partial.
+        The action-2 and HMC dispatch of driver.py asks the same."""
         why = [name for name, on in (
             ("compute_tensors (the tensor kernels K5, K6)",
              self.use_cmb and self.compute_tensors),
             ("los_method = recurrence (K2b)",
-             self.use_cmb and self.los_method == "recurrence"),
-            ("massive_nu_hierarchy", self.massive_nu_hierarchy),
-            ("de_perturbations", self.de_perturbations)) if on]
+             self.use_cmb and self.los_method == "recurrence")) if on]
         return None if not why else ", ".join(why)
 
     def stage_slow(self, full_P: torch.Tensor) -> dict:
         """Everything independent of the primordial power and nuisance.
 
         Differentiable where `gradient_unsupported()` is None (the flagship
-        CMB path and the LSS-only path with K1's base instantiation: K4,
-        K1 and K2a with their reverse kernels on the card, autograd of the
-        plain versions on the CPU; halofit's k_sigma bisection carries no
-        derivative, as in JAX); elsewhere raises NotImplementedError when
-        asked for a gradient, rather than return one that holds only part
-        of the slow path."""
+        CMB path, base_mnu, base_w_wa with or without alpha1, and the
+        LSS-only path: K4, K1 in each instantiation and K2a with their
+        reverse kernels on the card, autograd of the plain versions on the
+        CPU; halofit's k_sigma bisection carries no derivative, as in JAX);
+        elsewhere (LCDM+r, the recurrence line of sight) raises
+        NotImplementedError when asked for a gradient, rather than return
+        one that holds only part of the slow path."""
         if torch.is_grad_enabled() and full_P.requires_grad:
             why = self.gradient_unsupported()
             if why is not None:

@@ -17,9 +17,11 @@ between segments on the host. Randomness comes from the sampler's own
 `torch.Generator`, drawn a segment at a time (`draw_segment`); a caller
 may pass the draws in instead (`HMCDraws`).
 
-A posterior with a slow stage (CMBPosterior) refuses gradients where a
-kernel of its slow path has no reverse pass yet
-(`CMBPosterior.gradient_unsupported()`, ROADMAP.md queue 1 item 4).
+A posterior with a slow stage (CMBPosterior) takes its gradient through
+the reverse kernels on the card (the flagship, base_mnu, base_w_wa, the
+LSS-only configurations) and refuses where a kernel of its slow path has
+no reverse pass yet (LCDM+r's tensor modes, the recurrence line of sight:
+`CMBPosterior.gradient_unsupported()`, ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations

@@ -52,7 +52,8 @@ def main() -> int:
         cs.flagship_dr12(dev, tmp, fid)
         bg = cs.background_sets(dev, tmp)
         cs.log(f"phase 13's inputs in {time.time() - t0:.1f} s")
-        launches, per_segment = cs.drive_driver(dev, tmp, fid, bg)
+        cli = cs.flagship_cli_runs(dev, os.path.join(tmp, "driver"), fid)
+        launches, per_segment = cs.drive_driver(dev, tmp, fid, bg, cli)
     cs.log(json.dumps({"launches": launches, "per_segment": per_segment}))
     return 0
 

@@ -2,15 +2,15 @@
 (no theory is evaluated: the first step of the slow stage is stubbed).
 
 `CMBPosterior.gradient_unsupported()` is the one predicate: the tensor
-modes (K5, K6), the recurrence line of sight (K2b), the massive-neutrino
-hierarchy and the dark-energy fluid have kernels without a reverse pass,
-and there `stage_slow` and the driver's action 2 and sampling_method = hmc
-raise NotImplementedError before any work; the flagship CMB path (K4, K1,
-K2a, K3), with matter power or under the SPT configuration's high-l
-splice, and the LSS-only astro configuration, all on K1's base
-instantiation, let the gradient through. The wrappers of the reverse
-kernels take no plain fallback on CPU tensors, and K1's extended
-instantiations have no reverse kernel.
+modes (K5, K6) and the recurrence line of sight (K2b) have kernels without
+a reverse pass, and there `stage_slow` and the driver's action 2 and
+sampling_method = hmc raise NotImplementedError before any work; the
+flagship CMB path (K4, K1, K2a, K3), with matter power or under the SPT
+configuration's high-l splice, the massive-neutrino hierarchy and the
+dark-energy fluid (K1's extended instantiations), and the LSS-only astro
+configuration let the gradient through. The wrappers of the reverse
+kernels, K1's four instantiations among them, take no plain fallback on
+CPU tensors.
 """
 
 import numpy as np
@@ -49,7 +49,8 @@ CONFIGS = {
     "astro_de": (AstroParameterization, dict(use_cmb=False, matter_power=True,
                                              de_perturbations=True)),
 }
-SUPPORTED = {"astro", "theta", "theta_mp", "spt"}
+SUPPORTED = {"astro", "theta", "theta_mp", "spt", "theta_mnu", "astro_mnu",
+             "astro_de"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -120,9 +121,10 @@ def sets(tmp_path_factory):
 @pytest.mark.parametrize("extra", ["", "param[mnu] = 0.06 0 5 0.1 0.03",
                                    "param[w] = -1 -3 1 0.1 0.05"])
 def test_driver_dispatch(tmp_path, sets, monkeypatch, body, extra):
-    """The astro ini reaches the minimizer and HMC (stubbed here); with mnu
-    or w free (the massive-neutrino hierarchy, the DE fluid) both raise
-    before any theory or kernel."""
+    """The astro ini reaches the minimizer and HMC (stubbed here), also
+    with mnu or w free (the massive-neutrino hierarchy, the DE fluid, whose
+    K1 instantiations have reverse kernels), before any theory or
+    kernel."""
     from cosmomc_tpu_torch.sampling import hmc, minimize
 
     def stub(*a, **k):
@@ -134,13 +136,12 @@ def test_driver_dispatch(tmp_path, sets, monkeypatch, body, extra):
     ini.write_text(f"file_root = {tmp_path}/c/astro\n{sets}{body}\n{extra}\n")
     post = tdriver.build_posterior(tdriver.IniFile(str(ini)), device="cpu")
     assert post.remat_chunks == (64 if "hmc" in body else 0)
+    assert post.gradient_unsupported() is None
+    assert post.massive_nu_hierarchy == ("mnu" in extra)
+    assert post.de_perturbations == ("param[w]" in extra)
     kernels.reset_launches()
-    if extra:
-        with pytest.raises(NotImplementedError, match="no reverse pass"):
-            tdriver.run_ini(str(ini), device="cpu")
-    else:
-        with pytest.raises(_Reached):
-            tdriver.run_ini(str(ini), device="cpu")
+    with pytest.raises(_Reached):
+        tdriver.run_ini(str(ini), device="cpu")
     assert not any(kernels.launches.values())
 
 
@@ -175,20 +176,24 @@ def test_reverse_wrappers_take_no_plain_path():
 
 
 @pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True)])
-def test_extended_instantiations_have_no_reverse_kernel(sw):
+def test_extended_instantiations_refuse_cpu_tensors(sw):
+    """K1's extended instantiations take their reverse kernels when a
+    gradient is wanted, and on CPU tensors those refuse (ValueError, as
+    every kernel wrapper does) rather than run the plain version."""
     massive_nu, de_perts = sw
     q = torch.zeros(1, 4, 3, tpert.q_fields(massive_nu, de_perts), dtype=F64,
                     requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no reverse kernel"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         tpert._evolve_cuda(q, torch.ones(2, dtype=F64),
                            torch.ones(1, dtype=F64), tpert.RSA_KTAU,
                            massive_nu, de_perts)
+    assert tpert.BWD_VARIANTS[sw] in kernels.SOURCES
 
 
 def test_bwd_lanes_match_the_kernel_layout():
-    """csrc/perturbations.cu's blocks and threads of the reverse kernel, as
+    """csrc/boltzmann_bwd.cu's blocks and threads of the reverse kernel, as
     the wrapper sizes its scratch: up to 256 lanes a block, at least 64
-    threads (its 48-value reduction), a whole number of warps."""
+    threads, a whole number of warps."""
     for nk, want in ((8, (1, 64)), (216, (1, 224)), (248, (1, 256)),
                      (256, (1, 256)), (300, (2, 256))):
         assert tpert._bwd_lanes(nk) == want

@@ -1,5 +1,5 @@
 """The reverse kernels against autograd of their plain versions, on the
-card (K4, K1, K2a, K3). Every test here needs an NVIDIA GPU and nvcc and
+card (K4, K1 in its four instantiations, K2a, K3). Every test here needs an NVIDIA GPU and nvcc and
 skips without them; run on the card with
 
     python -m pytest tests/test_torch_grad_kernels.py -q --noconftest
@@ -133,6 +133,75 @@ def test_reverse_kernels_are_deterministic(dev, cosmo):
         o = tpert._evolve_cuda(qk, k, rnu, 40.0, remat_chunks=8)
         runs.append(torch.autograd.grad((o * gout).sum(), qk)[0])
     assert torch.equal(runs[0], runs[1])
+
+
+EXTENDED = {"nu": (True, False), "de": (False, True), "nu_de": (True, True)}
+
+
+def _extended_inputs(dev, sw, nk, n_step):
+    """Two chains with mnu 0.1 / 0.3 eV, w0 -0.9 / -1.1, wa -0.4 / 0.2, an
+    isocurvature amplitude on the first: the stage table of the
+    instantiation `sw` on a grid built for kmax 0.1, nk k to 0.02/Mpc."""
+    from cosmomc_tpu_torch.params.parameterizations import mnu_to_omnuh2
+    bg = BackgroundParams.make(
+        ombh2=np.array([0.0221, 0.0226]), omch2=np.array([0.118, 0.122]),
+        H0=np.array([67.0, 68.0]), omnuh2=mnu_to_omnuh2(np.array([0.1, 0.3])),
+        w=np.array([-0.9, -1.1]), wa=np.array([-0.4, 0.2]), nchains=2,
+        device=dev, dtype=F64)
+    yhe = torch.full((2,), 0.245, dtype=F64, device=dev)
+    with torch.no_grad():
+        th = trec.compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64, device=dev),
+                           yhe)
+        tf, _ = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=n_step,
+                                         kmax=0.1)
+        q = tpert._stage_tables(bg, tf, *sw).float().double().contiguous()
+    k = torch.as_tensor(np.geomspace(5e-4, 0.02, nk), dtype=F64, device=dev)
+    iso = tpert.iso_inputs(bg, torch.tensor([0.2, 0.0], dtype=F64, device=dev))
+    return q, k, tpert._r_nu(bg).float().double().contiguous(), iso
+
+
+@pytest.mark.parametrize("variant", list(EXTENDED))
+def test_extended_reverse_kernels(dev, variant):
+    """K1's extended instantiations' reverse kernels, as
+    test_boltzmann_reverse_kernel: 256 steps, 16 k, rsa_ktau 40, 4 chunks,
+    against autograd of the plain version on the card."""
+    sw = EXTENDED[variant]
+    q, k, rnu, iso = _extended_inputs(dev, sw, 16, 257)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    gout = torch.randn(7, 2, q.shape[1], 16, generator=g, dtype=F64).to(dev)
+    qq, rr, ii = (t.clone().requires_grad_(True) for t in (q, rnu, iso))
+    o = tpert._evolve_plain(qq, k, rr, 40.0, *sw, iso=ii, remat_chunks=4)
+    ref = torch.autograd.grad((o * gout).sum(), [qq, rr, ii])
+    name = tpert.VARIANTS[sw]
+    for dt, tol in ((F64, 1e-9), (F32, 1e-3)):
+        kernels.reset_launches()
+        qk, rk, ik = (t.to(dt).requires_grad_(True) for t in (q, rnu, iso))
+        ok = tpert._evolve_cuda(qk, k.to(dt), rk, 40.0, *sw, iso=ik,
+                                remat_chunks=4)
+        assert rel_err(ok, o) <= (1e-9 if dt == F64 else 1e-3)
+        got = torch.autograd.grad((ok * gout.to(dt)).sum(), [qk, rk, ik])
+        assert kernels.launches[name] == 1
+        assert kernels.launches[f"{name}_bwd"] == 1
+        for a, b in zip(got, ref):
+            assert bool(torch.isfinite(a).all())
+            assert rel_err(a, b) <= tol, (variant, dt, rel_err(a, b))
+
+
+@pytest.mark.parametrize("variant", list(EXTENDED))
+def test_extended_reverse_kernels_are_deterministic(dev, variant):
+    """Two gradients through an extended instantiation, 300 k lanes (two
+    blocks a chain), give the same bits."""
+    sw = EXTENDED[variant]
+    q, k, rnu, iso = _extended_inputs(dev, sw, 300, 129)
+    gout = torch.ones(7, 2, q.shape[1], 300, dtype=F64, device=dev)
+    runs = []
+    for _ in range(2):
+        xs = [t.clone().requires_grad_(True) for t in (q, rnu, iso)]
+        o = tpert._evolve_cuda(xs[0], k, xs[1], 40.0, *sw, iso=xs[2],
+                               remat_chunks=8)
+        runs.append(torch.autograd.grad((o * gout).sum(), xs))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_no_second_derivative(dev, cosmo):

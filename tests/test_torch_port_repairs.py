@@ -166,6 +166,28 @@ def test_lensing_kernel_refuses_gradients(monkeypatch):
     assert bool(torch.isfinite(g).all()) and bool((g[3] != 0).any())
 
 
+def test_neutrino_density_gradient_at_zero_mass():
+    """rho_nu(am) and p_nu(am) equal JAX's across the three branches
+    (1e-14), and so does their derivative for am > 0 (1e-12); at am = 0 (mnu = 0,
+    where a start position clipped to its bound sits) the port's derivative
+    is the small-am series' 0, where JAX's is NaN (the 1/am of the
+    unselected large-am series), which stalled HMC on base_mnu."""
+    from cosmomc_tpu.models import neutrino as jnu
+    from cosmomc_tpu_torch.models import neutrino as tnu
+    am = np.concatenate([[0.0, 1e-8], np.geomspace(1e-3, 2e3, 40)])
+    x = torch.tensor(am, dtype=F64, requires_grad=True)
+    for name in ("nu_rho", "nu_pres"):
+        t = getattr(tnu, name)(x)
+        (g,) = torch.autograd.grad(t.sum(), x)
+        j = getattr(jnu, name)
+        np.testing.assert_allclose(t.detach().numpy(),
+                                   np.asarray(j(jnp.asarray(am))), rtol=1e-14)
+        jg = np.asarray(jax.vmap(jax.grad(j))(jnp.asarray(am)))
+        np.testing.assert_allclose(g.numpy()[1:], jg[1:], rtol=1e-12,
+                                   atol=1e-12 * np.abs(jg[1:]).max())
+        assert np.isnan(jg[0]) and g[0] == 0.0
+
+
 def test_bisections_carry_no_graph_without_gradients():
     """Sampling calls (no input wants a gradient) get plain tensors."""
     bg = TTheta().to_background(torch.tensor(_centre()[None], dtype=F64))
