@@ -85,8 +85,7 @@ Phase 15 runs the flagship's gradient at full width in float64 through
 K4, K1, K2a, K3 and their reverse kernels: against central differences
 without halofit, against the host CPU's plain gradient at
 test_torch_slice.py's small config (`--cpu-grad-cmb`), HMC through the
-CLI on the flagship ini (started after phase 5), action 2 on it, and the
-refusals of LCDM+r (also with mnu free).
+CLI on the flagship ini (started after phase 5) and action 2 on it.
 Phase 2 also holds the reverse kernels of K1's extended instantiations
 (boltzmann_nu_bwd, boltzmann_de_bwd, boltzmann_nu_de_bwd) to autograd of
 their plain versions on the host CPU at a reduced shape that crosses every
@@ -101,6 +100,18 @@ through the CLI on the base_mnu ini (started before phase 13) and action
 2 on the base_w_wa ini (`--ext-min`, a process on the card beside phases
 14 and 15). Phase 13's two CLI processes of action 4 start after phase
 12, beside the main process's part of phase 2.
+Phase 2 also holds the reverse kernels of the tensor modes (tensors_bwd,
+K5; tensor_los_bwd, K6) in phase 2's process: K5's to autograd of its
+plain version on the host CPU at a reduced shape that crosses every switch
+(`--plain-ref-tensors`), K6's to autograd of its plain version on the card
+at the main path's shape; both timed at the main path's shapes.
+Phase 17 runs LCDM+r's gradient (r free, the table line of sight) at full
+width in float64 through K4, K1, K2a, K3, K5, K6 and their reverse
+kernels: against central differences without halofit, against the host
+CPU's plain gradient at test_torch_slice.py's small config
+(`--cpu-grad-lcdm-r`, started before phase 3), HMC through the CLI's
+entry on an LCDM+r ini (`--lcdm-r-hmc`, started after phase 13), and the
+refusal of the recurrence line of sight (K2b).
 
 It fails (non-zero exit, no result line) when there is no CUDA device,
 when the port is not importable, when a kernel does not build, launch or
@@ -211,18 +222,23 @@ DRIVER_GRID = dict(num_chains=64, segment_steps=64, samples=512)
 
 #: the reverse kernels (phase 2): K1's checkpoint chunks (JAX's HMC
 #: default, driver.py:205), float32 within this share of each output's
-#: largest magnitude of the float64 plain gradient; the host threads of the
+#: largest magnitude of the float64 plain gradient (tensors_bwd and
+#: tensor_los_bwd read 7.1e-7 and 4.9e-6 on an H100, 14x and 10x below
+#: their floors); the host threads of the
 #: plain references and of phase 14's CPU gradient, in processes of their
 #: own beside the card's phases (few: the card's phases are host-bound
 #: too), JOB_TIMEOUT seconds at most
 GRAD_CHUNKS = 64
 GRAD_F32_TOL = {"recfast_bwd": 1e-4, "boltzmann_bwd": 1e-3, "los_bwd": 1e-3,
                 "lensing_bwd": 1e-5, "boltzmann_nu_bwd": 1e-3,
-                "boltzmann_de_bwd": 1e-3, "boltzmann_nu_de_bwd": 1e-3}
+                "boltzmann_de_bwd": 1e-3, "boltzmann_nu_de_bwd": 1e-3,
+                "tensors_bwd": 1e-5, "tensor_los_bwd": 5e-5}
 JOB_THREADS = {"--plain-ref": 2, "--cpu-grad": 1, "--plain-ref-cmb": 1,
                "--cpu-grad-cmb": 1, "--plain-card": 1, "--plain-card-de": 1,
                "--plain-ref-nu": 1, "--plain-ref-de": 1, "--plain-ref-nu-de": 1,
-               "--cpu-grad-ext": 1, "--ext-min": 1, "--phase2": 1}
+               "--cpu-grad-ext": 1, "--ext-min": 1, "--phase2": 1,
+               "--plain-ref-tensors": 1, "--cpu-grad-lcdm-r": 1,
+               "--lcdm-r-hmc": 1}
 JOB_TIMEOUT = 900
 #: chains of the CMB-grid K1 reference on the host CPU (8191 plain steps
 #: under autograd there take minutes a chain)
@@ -289,6 +305,17 @@ EXT_HMC = dict(num_chains=8, hmc_warmup_segments=1, segment_steps=2,
 #: 7.8e-6 at 3e-7; scripts/ext_fd_steps.py)
 EXT_FD_STEPS = (3e-7, GRAD_FD_STEP)
 
+#: phase 17 (LCDM+r's gradient): the ini keys that free r (test.ini's
+#: range, as users set it); central differences at each point at the closer
+#: of LCDMR_FD_STEPS proposal widths to the gradient (mapped on the CPU at
+#: test_torch_slice.py's small config by scripts/lcdm_r_fd_steps.py); the
+#: HMC run through the CLI on the LCDM+r ini (`--lcdm-r-hmc`, started after
+#: phase 13)
+LCDMR_FREE = {"compute_tensors": "T", "param[r]": "0.1 0 2 0.04 0.04"}
+LCDMR_FD_STEPS = (3e-7, GRAD_FD_STEP)
+LCDMR_HMC = dict(num_chains=8, hmc_warmup_segments=1, segment_steps=2,
+                 samples=4, hmc_leapfrog_steps=2, hmc_step_size=0.01)
+
 KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "recfast": ("cosmomc_tpu_torch/csrc/recfast.cu",
                 "cosmomc_tpu/models/recfast.py:279"),
@@ -323,6 +350,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                          "cosmomc_tpu/models/perturbations.py:928"),
     "boltzmann_nu_de_bwd": ("cosmomc_tpu_torch/csrc/boltzmann_bwd.cu",
                             "cosmomc_tpu/models/perturbations.py:928"),
+    "tensors_bwd": ("cosmomc_tpu_torch/csrc/tensors.cu",
+                    "cosmomc_tpu/models/tensors.py:254"),
+    "tensor_los_bwd": ("cosmomc_tpu_torch/csrc/tensor_los.cu",
+                       "cosmomc_tpu/models/tensors.py:352"),
 }
 #: the kernels each main path must launch (phase 5 "runner" is the
 #: flagship under SamplingRun; phase 6 "background" launches none; phase 7
@@ -338,9 +369,10 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
 #: four forward kernels and their four reverse kernels; phase 16
 #: "mnu_grad" and "w0wa_grad" the gradients of base_mnu and of base_w_wa
 #: with alpha1, K1's instantiation and its reverse kernel twice a gradient
-#: (the source and the matter grids); K1's fourth instantiation,
-#: boltzmann_nu_de, and its reverse kernel are on no path: phase 2 holds
-#: them to their plain versions)
+#: (the source and the matter grids); phase 17 "lcdm_r_grad" LCDM+r's
+#: gradient (the flagship's kernels, K5 and K6, and their six reverse
+#: kernels); K1's fourth instantiation, boltzmann_nu_de, and its reverse
+#: kernel are on no path: phase 2 holds them to their plain versions)
 PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                 "lcdm_r": ("recfast", "boltzmann", "los_rec", "lensing",
                            "tensors", "tensor_los"),
@@ -363,7 +395,11 @@ PATH_KERNELS = {"flagship": ("recfast", "boltzmann", "los", "lensing"),
                              "lensing_bwd"),
                 "w0wa_grad": ("recfast", "boltzmann_de", "los", "lensing",
                               "recfast_bwd", "boltzmann_de_bwd", "los_bwd",
-                              "lensing_bwd")}
+                              "lensing_bwd"),
+                "lcdm_r_grad": ("recfast", "boltzmann", "los", "lensing",
+                                "tensors", "tensor_los", "recfast_bwd",
+                                "boltzmann_bwd", "los_bwd", "lensing_bwd",
+                                "tensors_bwd", "tensor_los_bwd")}
 
 #: NVIDIA H100 SXM data sheet: dense rates outside the tensor cores, the
 #: FP64 tensor cores' rate, and the memory rate
@@ -446,6 +482,9 @@ OPS = {
     # the six folded coefficients 10. A labelled second bound, `bound_ms_whole_lattice`,
     # counts the plain version's 40 on every point of the whole lattice
     "tensor_los": (18, 25),
+    # the reverse kernels tensors_bwd and tensor_los_bwd are bounded, as
+    # the other reverse rows, by 3 x their forward's count on the same work
+    # (phase2_reverse_tensors)
 }
 
 
@@ -3166,7 +3205,7 @@ def drive_driver(dev, tmp, fid, bg, cli):
          -logL, a positive definite Hessian covmat; HMC accepting > 0.4
          with omegam and H0 within 3 pooled sigma of the truth;
       5. (since the flagship takes gradients, its action 2 and HMC are
-         phase 15's, and so are the raises of LCDM+r);
+         phase 15's; LCDM+r's HMC is phase 17's);
       6. `python -m cosmomc_tpu_torch.grid make / run / status` on a
          one-job background grid with one importance rerun (HST added).
     Returns step 2's launch counts and its launches a segment."""
@@ -3193,7 +3232,7 @@ def _job_env(threads):
 #: the host-CPU jobs whose results only phases 14-16 read: they run at a
 #: lower scheduling priority (nice), so that the main process's host-bound
 #: phases and the card's plain versions take the cores first
-LATE_JOBS = ("--cpu-grad", "--cpu-grad-cmb", "--cpu-grad-ext")
+LATE_JOBS = ("--cpu-grad", "--cpu-grad-cmb", "--cpu-grad-ext", "--cpu-grad-lcdm-r")
 
 
 def start_job(mode, d):
@@ -3716,6 +3755,263 @@ def phase2_reverse_cmb(dev, results, cmb, d, job):
         f"ms (float64 {got[F64][1]:.2f} / {got[F64][2]:.2f} ms); bound "
         f"{b['bound_ms']:.4f} ms; plain on the host CPU ({n} chain(s)) "
         f"{refs['seconds']:.1f} s")
+
+
+#: K5's reverse kernel (phase 2): the reduced shape at which it is held to
+#: autograd of its plain version on the host CPU (`--plain-ref-tensors`,
+#: started by phase 2's process): the first and last of phase 2's chains x
+#: the tensor grid's k 7, 15, .., 95 (12 of 96, 5.3e-5 to 0.065/Mpc) x
+#: K1_CMP_STEPS - 1 steps, a seeded cotangent dense on the three planes;
+#: the lanes cross tight coupling, the release (k tau >= 0.05) and the
+#: freeze (k tau >= 240), which `tensor_switch_counts` requires
+TENSOR_REF_CHAINS, TENSOR_REF_K = (0, NCHAINS - 1), slice(7, None, 8)
+#: K6's reverse kernel (phase 2): the chains whose plain gradient autograd
+#: takes on the card, one a call, its k chunks of TENSOR_LOS_REF_K_CHUNK fine k
+#: (the same numbers as the default 64, a quarter of the graph)
+TENSOR_LOS_REF_CHAINS, TENSOR_LOS_REF_K_CHUNK = (0, 1), 16
+
+
+def tensor_reverse_inputs(dev, d):
+    """The inputs of phase 2's checks of the tensor reverse kernels: phase
+    2's cosmologies (as `reverse_inputs` draws them), the 8192-node grid's
+    stage table (8 chains x 8191 steps) and the tensor k grid, K5's float32
+    sources there (what K6 reads on the main path); and, written to
+    d/inputs_tensors.pt for `plain_references_tensors`, the reduced-shape
+    K5 problem (TENSOR_REF_*) rounded to float32, so that the float32
+    kernel reads the numbers the float64 reference reads, with its seeded
+    cotangent."""
+    from cosmomc_tpu_torch.models import perturbations as mpert
+    from cosmomc_tpu_torch.models import recfast as mrec
+    from cosmomc_tpu_torch.models import tensors as mten
+    from cosmomc_tpu_torch.models.background import BG_FIELDS
+    from cosmomc_tpu_torch.models.bbn import synthetic_bbn_table, yhe_bbn
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    from cosmomc_tpu_torch.params.parameterizations import ThetaParameterization
+
+    par = ThetaParameterization()
+    space = par.default_space()
+    rng = np.random.default_rng(1)
+    full = np.tile([p.center for p in space.params], (NCHAINS, 1))
+    for name in ("ombh2", "omch2", "theta", "tau"):
+        full[:, space.index(name)] = BESTFIT[name] * (
+            1 + 0.002 * rng.standard_normal(NCHAINS))
+    full = torch.as_tensor(full, dtype=F64, device=dev)
+    bg = par.to_background(full)
+    yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, synthetic_bbn_table().to(dev, F64))
+    th = mrec.compute_thermo(bg, yhe)
+    zre = zre_from_tau(bg, full[:, space.index("tau")], yhe)
+    tf, tau0 = mpert.build_thermo_funcs(bg, yhe, th, zre)
+    kt = torch.as_tensor(mten.tensor_k_grid(), dtype=F64, device=dev)
+    r32 = lambda t: t.float().double().contiguous()
+    tf32 = tf._replace(**{f: getattr(tf, f).float() for f in tf._fields})
+    bg32 = type(bg)(**{f: getattr(bg, f).float() for f in BG_FIELDS},
+                    num_massive_nu=bg.num_massive_nu)
+    to32 = mten.evolve_tensors(bg32, tf32, tau0.float(), kt.float())
+    tf1, _ = mpert.build_thermo_funcs(bg, yhe, th, zre, n_step=K1_CMP_STEPS)
+    q1 = mten._stage_table(bg, tf1, 1)[list(TENSOR_REF_CHAINS)]
+    k1 = kt[TENSOR_REF_K]
+    g = torch.Generator().manual_seed(18)
+    g_out = torch.randn(3, len(TENSOR_REF_CHAINS), q1.shape[1], k1.shape[0],
+                        generator=g, dtype=F64)
+    torch.save(dict(qtab=r32(q1).cpu(), k=r32(k1).cpu(), g_out=g_out),
+               os.path.join(d, "inputs_tensors.pt"))
+    log(f"phase 2 (tensor reverse): inputs written; K5 held at "
+        f"{len(TENSOR_REF_CHAINS)} chains x {k1.shape[0]} k x {q1.shape[1]} steps "
+        f"on the host CPU, timed at {NCHAINS} x {kt.shape[0]} k x "
+        f"{tf.tau.shape[1] - 1} steps; K6 at {NCHAINS} chains on K5's 8192-step "
+        f"float32 sources")
+    return dict(q=r32(mten._stage_table(bg, tf, 1)), kt=r32(kt), to32=to32)
+
+
+def plain_references_tensors(d):
+    """--plain-ref-tensors DIR: autograd of the plain K5 version (float64,
+    host CPU: its step loop is launch-bound on the card) on
+    DIR/inputs_tensors.pt, checkpointed in GRAD_CHUNKS chunks; writes
+    DIR/refs_tensors.pt with the cotangent of qtab and the seconds it took."""
+    from cosmomc_tpu_torch.models import tensors as mten
+    torch.set_num_threads(JOB_THREADS["--plain-ref-tensors"])
+    inp = torch.load(os.path.join(d, "inputs_tensors.pt"))
+    t0 = time.time()
+    q = inp["qtab"].clone().requires_grad_(True)
+    out = mten._evolve_t_plain(q, inp["k"], 1, True, remat_chunks=GRAD_CHUNKS)
+    (g,) = torch.autograd.grad((out * inp["g_out"]).sum(), [q])
+    res = dict(g=g, seconds=time.time() - t0)
+    print(f"K5 plain forward + backward {res['seconds']:.1f} s", flush=True)
+    torch.save(res, os.path.join(d, "refs_tensors.pt"))
+    return 0
+
+
+def tensor_switch_counts(q, k):
+    """(tight-coupling rows, held (k, step) lanes, released, frozen (k,
+    row) evaluations) of the stage table q (C, S, R, NQT) on k: what the
+    reduced K5 problem must cross."""
+    from cosmomc_tpu_torch.models import tensors as mten
+    tau = q[..., mten.QT_TAU]
+    ktb = k * tau[:, :, -1, None]
+    return dict(tc_rows=int((q[..., mten.QT_TC] > 0.5).sum()),
+                held=int((ktb < mten.RELEASE_KTAU_T).sum()),
+                released=int((ktb >= mten.RELEASE_KTAU_T).sum()),
+                frozen=int((k * tau[..., None] >= mten.RSA_KTAU_T).sum()))
+
+
+def phase2_reverse_tensors(dev, results, ten, d, job):
+    """The reverse kernels of LCDM+r's tensor path against autograd of
+    their plain versions, float64 within 1e-9 of each output's largest
+    magnitude, float32 within GRAD_F32_TOL; each timed (the forward with
+    its stores, the backward) and bounded by 3 x its forward's operations
+    on the same work and the bytes it reads and writes once:
+      - tensors_bwd (K5): timed at 8 chains x 96 k x 8191 steps in
+        GRAD_CHUNKS chunks, a seeded cotangent on the three planes; held at
+        the reduced shape (TENSOR_REF_*) to the host CPU's plain gradient
+        (`--plain-ref-tensors`), bit for bit twice;
+      - tensor_los_bwd (K6): 8 chains x 65 l x 610 fine k x 8192 tau on
+        K5's float32 sources (upcast for float64), a seeded cotangent on
+        Delta_T, Delta_E, Delta_B; the plain version under autograd on the
+        card for TENSOR_LOS_REF_CHAINS, a chain a call."""
+    from cosmomc_tpu_torch.models import tensors as mten
+
+    def compare(name, names, k64, k32, ref):
+        e64, e32, a32 = [], [], []
+        for n, a, b, r in zip(names, k64, k32, ref):
+            require(bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all()),
+                    f"{name} {n} finite")
+            e64.append(rel_err(a, r))
+            e32.append(rel_err(b, r))
+            a32.append(abs_err(b, r))
+            log(f"  {name} {n}: float64 err {e64[-1]:.3e}, float32 err "
+                f"{e32[-1]:.3e} (of the largest |grad| {float(r.abs().max()):.4g})")
+        require(max(e64) <= 1e-9, f"{name} float64 within 1e-9 of its plain version")
+        require(max(e32) <= GRAD_F32_TOL[name],
+                f"{name} float32 within {GRAD_F32_TOL[name]} of the float64 plain")
+        return max(a32), max(e64)
+
+    # ---- K5 reverse at the main path's shape
+    q64, kt = ten["q"], ten["kt"]
+    C, S = q64.shape[:2]
+    chunk = -(-S // GRAD_CHUNKS)
+    g_full = torch.randn(3, C, S, kt.shape[0], generator=torch.Generator().manual_seed(19),
+                         dtype=F64).to(dev)
+    got = {}
+    for dt in (F64, F32):
+        q, k, go = q64.to(dt), kt.to(dt), g_full.to(dt)
+        fwd = lambda: mten._evolve_t_launch(q, k, 1, True, chunk)
+        fwd()
+        fwd_ms, (_, ck) = timed(fwd, 2)
+        bwd = lambda: mten._tensors_bwd(q, k, ck, go, 1, True, chunk)
+        bwd()
+        bwd_ms, gk = timed(bwd, 2)
+        require(bool(torch.equal(gk, bwd())), f"tensors_bwd repeatable bit for bit ({dt})")
+        q_ = q.clone().requires_grad_(True)
+        (ga,) = torch.autograd.grad((mten._evolve_t_cuda(q_, k, 1, True, GRAD_CHUNKS)
+                                     * go).sum(), [q_])
+        require(bool(torch.equal(ga, gk)),
+                f"K5 reverse through autograd = the reverse kernel ({dt})")
+        require(bool(torch.isfinite(gk).all()), f"tensors_bwd finite ({dt})")
+        got[dt] = (fwd_ms, bwd_ms, ck, gk)
+    q32 = q64.float()
+    b = bound({"fp32": 3 * k5_ops(q32, kt.float())},
+              nbytes(q32, kt.float(), g_full.float(), got[F32][2], got[F32][3]))
+    log(f"  tensors_bwd ({C} x {kt.shape[0]} k x {S} steps, {GRAD_CHUNKS} chunks): "
+        f"forward with checkpoints {got[F32][0]:.3f} ms, backward {got[F32][1]:.3f} ms "
+        f"(float64 {got[F64][0]:.3f} / {got[F64][1]:.3f} ms); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    timing = got
+    # ... held at the reduced shape to the host CPU's plain gradient
+    inp = {n: v.to(dev) for n, v in torch.load(
+        os.path.join(d, "inputs_tensors.pt")).items()}
+    sw = tensor_switch_counts(inp["qtab"], inp["k"])
+    log(f"  tensors_bwd reduced shape {tuple(inp['g_out'].shape[1:])}: {json.dumps(sw)}")
+    require(all(v > 0 for v in sw.values()), "the reduced K5 problem crosses every switch")
+    Sr = inp["qtab"].shape[1]
+    cr = -(-Sr // GRAD_CHUNKS)
+    got = {}
+    for dt in (F64, F32):
+        q, k, go = (inp[n].to(dt) for n in ("qtab", "k", "g_out"))
+        _, ck = mten._evolve_t_launch(q, k, 1, True, cr)
+        got[dt] = mten._tensors_bwd(q, k, ck, go, 1, True, cr)
+        require(bool(torch.equal(got[dt], mten._tensors_bwd(q, k, ck, go, 1, True, cr))),
+                f"tensors_bwd repeatable bit for bit at the reduced shape ({dt})")
+    ref = finish_job(job, d, "refs_tensors.pt", "the plain K5 reference")
+    err32, err64 = compare("tensors_bwd", ("grad_qtab",), [got[F64]], [got[F32]],
+                           [ref["g"].to(dev)])
+    results["tensors_bwd"] = dict(
+        max_abs_err=err32, ms=timing[F32][1], plain_ms=1e3 * ref["seconds"],
+        fwd_with_checkpoints_ms=timing[F32][0], ms_f64=timing[F64][1],
+        fwd_with_checkpoints_ms_f64=timing[F64][0], f64_rel_err=err64,
+        plain_where=(f"host CPU, float64, forward + backward, "
+                     f"{tuple(inp['g_out'].shape[1:])} (chains, steps, k)"),
+        **b)
+    del timing, got, inp
+    torch.cuda.empty_cache()
+
+    # ---- K6 reverse at the main path's shape
+    kgrid_t = mten.tensor_k_grid()
+    to32 = ten["to32"]
+    fields = ("tau", "k", "sT", "sP", "tau0")
+    got = {}
+    g = None
+    for dt in (F64, F32):
+        to = to32._replace(**{f: getattr(to32, f).to(dt) for f in fields})
+        args, grid = mten._tlos_inputs(to, 700, 14700.0, 0.065, 4.0, kgrid_t)
+        if g is None:
+            C, nl, nkf = args[0].shape[0], args[7].shape[0], args[4].shape[0]
+            g = torch.randn(3, C, nl, nkf, generator=torch.Generator().manual_seed(20),
+                            dtype=F64).to(dev)
+        gd = g.to(dt)
+        fwd = lambda: mten._tlos_cuda(*args)
+        fwd()
+        fwd_ms, _ = timed(fwd, 3)
+        bwd = lambda: mten._tlos_bwd_cuda(*args, grid, gd)
+        bwd()
+        bwd_ms, gk = timed(bwd, 3)
+        require(all(bool(torch.equal(a, b_)) for a, b_ in zip(gk, bwd())),
+                f"tensor_los_bwd repeatable bit for bit ({dt})")
+        xs = [args[i].clone().requires_grad_(True) for i in (0, 5, 6)]
+        out = mten._TensorLos.apply(*xs, (*args[1:5], *args[7:]), grid)
+        ga = torch.autograd.grad((out * gd).sum(), xs)
+        require(all(bool(torch.equal(a, b_)) for a, b_ in zip(ga, gk)),
+                f"K6 reverse through autograd = the reverse kernel ({dt})")
+        got[dt] = (gk, fwd_ms, bwd_ms, args)
+    args = got[F64][3]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ref = [[], [], []]
+    for c in TENSOR_LOS_REF_CHAINS:
+        sl = slice(c, c + 1)
+        xs = [args[i][sl].clone().requires_grad_(True) for i in (0, 5, 6)]
+        out = mten._tlos_plain(xs[0], *args[1:5], xs[1], xs[2], *args[7:],
+                               k_chunk=TENSOR_LOS_REF_K_CHUNK)
+        for r, x in zip(ref, torch.autograd.grad((out * g[:, sl]).sum(), xs)):
+            r.append(x)
+        del out
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    ref = [torch.cat(r, 0) for r in ref]
+    sub = list(TENSOR_LOS_REF_CHAINS)
+    err32, err64 = compare("tensor_los_bwd", ("grad_src", "grad_chi", "grad_wt"),
+                           [t[sub] for t in got[F64][0]], [t[sub] for t in got[F32][0]],
+                           ref)
+    a32 = got[F32][3]
+    tabs = mten._TLOS_BY_TABLE[id(a32[7])]
+    C, N = a32[5].shape
+    nl, nkf = a32[7].shape[0], a32[4].shape[0]
+    lat = mten.tlos_lattice(a32[5], a32[4], tabs["n0"], nl, a32[7].shape[1], a32[10])
+    per_live, per_node = OPS["tensor_los"]
+    b = bound({"fp32": 3 * (per_live * lat["live"] + per_node * C * nkf * N)},
+              nbytes(a32[0], a32[5], a32[6], a32[7], a32[8], g.float(), *got[F32][0]))
+    results["tensor_los_bwd"] = dict(
+        max_abs_err=err32, ms=got[F32][2], plain_ms=1e3 * plain_s,
+        fwd_ms=got[F32][1], ms_f64=got[F64][2], fwd_ms_f64=got[F64][1],
+        f64_rel_err=err64,
+        plain_where=(f"card, float64, autograd of _tlos_plain, chains "
+                     f"{TENSOR_LOS_REF_CHAINS}, one a call"),
+        **b)
+    log(f"  tensor_los_bwd: forward {got[F32][1]:.3f} ms, backward {got[F32][2]:.3f} "
+        f"ms (float64 {got[F64][1]:.3f} / {got[F64][2]:.3f} ms); bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}); plain forward + backward of "
+        f"{len(sub)} chains on the card {plain_s:.1f} s")
+    del got, ref
+    torch.cuda.empty_cache()
 
 
 def ext_reverse_inputs(dev, d):
@@ -4340,10 +4636,7 @@ def drive_flagship_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_proc):
       e. action = 2 on the same ini (in-process, the minimizer cut as in
          phase 14): the .minimum at or below the best fit's -logL, a
          symmetric positive definite .hessian.covmat, only the path's
-         kernels launched;
-      f. action 2 and HMC on LCDM+r inis, also with mnu free, raise before
-         any launch (K5 and K6 have no reverse kernel; K1's massive-neutrino
-         instantiation has, phase 16).
+         kernels launched.
     Returns the launches of (a)-(e) and of one gradient."""
     from cosmomc_tpu_torch import driver, kernels
     from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
@@ -4495,24 +4788,6 @@ def drive_flagship_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_proc):
         require((run2[k] > 0) == (k in PATH_KERNELS["flagship_grad"]),
                 f"action 2 launches {k} only if on the flagship gradient path")
 
-    # f. LCDM+r, also with mnu free, refuses before any launch
-    lcdm_r = {"compute_tensors": "T", "param[r]": "0.1 0 2 0.04 0.04"}
-    for label, extra in (("LCDM+r", lcdm_r),
-                         ("LCDM+r with mnu", {**lcdm_r,
-                                              "param[mnu]": "0.06 0 5 0.1 0.03"})):
-        for over in ({"action": "2"}, {"action": "0", "sampling_method": "hmc"}):
-            ini, _ = flagship_ini(tmp, fid, {**extra, **over, "file_root": os.path.join(
-                d_root(tmp), "chains", "refused")})
-            kernels.reset_launches()
-            try:
-                driver.run_ini(ini)
-                raised = False
-            except NotImplementedError as e:
-                raised = "queue 1 item 4" in str(e)
-            require(raised and not any(kernels.launches.values()),
-                    f"{over} on {label} raises before any kernel launch")
-    log(f"  action 2 and HMC on LCDM+r, also with mnu free, raise before any "
-        "launch")
     log(f"phase 15 took {time.time() - t_phase:.1f} s on {smi_line()}")
     return launches, one
 
@@ -4847,10 +5122,237 @@ def drive_ext_gradient(dev, tmp, ext_sets, cpu_jobs, hmc_proc, min_job):
     return ({f"{p}_grad": launches[p] for p in EXT_GRAD}, one_grad)
 
 
+def lcdm_r_posterior(dev, ds, nonlinear=True, cfg=None):
+    """LCDM+r on the flagship's likelihoods (plik_lite + the tau prior):
+    `flagship_grad_posterior` with compute_tensors=True (r free, semi-slow,
+    nt = -r/8), float64, K1 and K5 checkpointed in GRAD_CHUNKS chunks."""
+    return flagship_grad_posterior(dev, ds, nonlinear=nonlinear,
+                                   cfg=dict(cfg or {}, compute_tensors=True))
+
+
+def lcdm_r_tau0(post, P):
+    """tau0 of `post`'s slow path at the points P (float64 numpy)."""
+    from cosmomc_tpu_torch.models.bbn import yhe_bbn
+    from cosmomc_tpu_torch.models.perturbations import build_thermo_funcs
+    from cosmomc_tpu_torch.models.recfast import compute_thermo
+    from cosmomc_tpu_torch.models.reionization import zre_from_tau
+    with torch.no_grad():
+        full = post.embed_full(torch.as_tensor(P, dtype=F64, device=post.device))
+        bg = post.parameterization.to_background(full)
+        yhe = yhe_bbn(bg.ombh2, bg.nnu - 3.046, post.bbn_table)
+        zre = zre_from_tau(bg, full[:, post._i_tau], yhe)
+        _, tau0 = build_thermo_funcs(bg, yhe, compute_thermo(bg, yhe), zre,
+                                     n_step=post.n_step_boltzmann, kmax=post.kmax)
+    return tau0.double().cpu().numpy()
+
+
+def cpu_gradient_lcdm_r(d):
+    """--cpu-grad-lcdm-r DIR: the float64 gradient of LCDM+r's -logL at
+    phase 17's two points on the host CPU (the plain versions under
+    autograd) at FLAG_SMALL without halofit, on the plik_lite set named in
+    DIR/flag.json, and tau0 there; writes DIR/cpu_grad_lcdm_r.pt."""
+    torch.set_num_threads(JOB_THREADS["--cpu-grad-lcdm-r"])
+    with open(os.path.join(d, "flag.json")) as f:
+        ds = json.load(f)["ds"]
+    post = lcdm_r_posterior(torch.device("cpu"), ds, nonlinear=False, cfg=FLAG_SMALL)
+    pts = flagship_grad_points(post)
+    t0 = time.time()
+    m, g = grad_at(post, pts)
+    out = dict(mll=torch.as_tensor(m), g=torch.as_tensor(g),
+               tau0=torch.as_tensor(lcdm_r_tau0(post, pts)),
+               seconds=time.time() - t0)
+    print(f"LCDM+r gradient on the CPU in {out['seconds']:.1f} s", flush=True)
+    torch.save(out, os.path.join(d, "cpu_grad_lcdm_r.pt"))
+    return 0
+
+
+def lcdm_r_hmc_job(d):
+    """--lcdm-r-hmc DIR: phase 17 (d) in a process of its own on the card:
+    the CLI's entry (`cosmomc_tpu_torch.driver.main`, what `python -m
+    cosmomc_tpu_torch` runs) on the LCDM+r ini that DIR/hmc.json names,
+    sampling_method = hmc; writes DIR/hmc.pt (the exit code, the seconds,
+    what it printed and the kernel launches of the run)."""
+    from cosmomc_tpu_torch import driver, kernels
+    with open(os.path.join(d, "hmc.json")) as f:
+        ini = json.load(f)["ini"]
+    kernels.reset_launches()
+    t0 = time.time()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = driver.main([ini])
+    print(buf.getvalue(), flush=True)
+    torch.save(dict(rc=rc, seconds=time.time() - t0, out=buf.getvalue(),
+                    launches=dict(kernels.launches)), os.path.join(d, "hmc.pt"))
+    return 0
+
+
+def start_lcdm_r_hmc(tmp, fid):
+    """Phase 17 (d), started after phase 13 so that it runs beside phases
+    14-16: `lcdm_r_hmc_job` on the flagship ini with LCDMR_FREE (LCDMR_HMC).
+    Returns the process and its directory."""
+    ini, d = flagship_ini(tmp, fid, {
+        **LCDMR_FREE, "action": "0",
+        "sampling_method": "hmc", "MPI_R_Stop": "0",
+        "file_root": os.path.join(d_root(tmp), "chains", "lcdm_r_hmc"),
+        **{k: str(v) for k, v in LCDMR_HMC.items()}})
+    with open(os.path.join(d, "hmc.json"), "w") as f:
+        json.dump(dict(ini=ini), f)
+    return start_job("--lcdm-r-hmc", d), d
+
+
+def drive_lcdm_r_gradient(dev, tmp, fid, cpu_job, jobdir, hmc_job):
+    """Phase 17: LCDM+r's gradient at full width in float64 (K4, K1, K2a,
+    K3, K5, K6 forward and their six reverse kernels) on phase 3's
+    plik_lite fiducial and the tau prior, r free:
+      a. torch.autograd.grad of -logL (halofit lensing) at the best fit with
+         r = 0.1 and off it: exactly one launch of each of the path's twelve
+         kernels; the seconds and the peak memory a chain of one HMC
+         gradient at NCHAINS chains;
+      b. with nonlinear_lens=False against central differences of -logL
+         (one batch a step) within GRAD_FD_TOL of the largest component, at
+         each point the closer of LCDMR_FD_STEPS;
+      c. at FLAG_SMALL on the smooth plik_lite fiducial against the host
+         CPU's plain gradient (`--cpu-grad-lcdm-r`, started before phase 3)
+         within GRAD_CPU_TOL, with both tau0 and their gap in ulps printed;
+      d. the CLI's HMC on the LCDM+r ini (`--lcdm-r-hmc`, started after
+         phase 13; `hmc_job`: its process and directory): exit 0, its
+         acceptance, tensors_bwd and tensor_los_bwd among its launches,
+         chains that MCSamples loads;
+      e. CMBPosterior with los_method="recurrence" (K2b, no reverse kernel)
+         raises NotImplementedError for a gradient before any launch.
+    Returns the launches of (a)-(c) and (e), and of one gradient."""
+    from cosmomc_tpu_torch import kernels
+    from cosmomc_tpu_torch.analysis.mcsamples import MCSamples
+
+    t_phase = time.time()
+    launches = {k: 0 for k in kernels.launches}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+    # a. the gradient, halofit lensing
+    post = lcdm_r_posterior(dev, fid["ds"])
+    names = [p.name for p in post.space.varying]
+    require("r" in names, "r is free on LCDM+r")
+    pts = flagship_grad_points(post)
+    n = pts.shape[1]
+    mll_at(post, pts)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.time()
+    m, g = grad_at(post, pts)
+    torch.cuda.synchronize()
+    t_grad = time.time() - t0
+    one = dict(kernels.launches)
+    add(one)
+    for k in KERNELS:
+        want = 1 if k in PATH_KERNELS["lcdm_r_grad"] else 0
+        require(one[k] == want, f"one LCDM+r gradient launches {k} {want} time(s)")
+    require(bool(np.isfinite(g).all()), "the LCDM+r gradient is finite")
+    require(bool((g[:, names.index("r")] != 0).all()), "d(-logL)/dr is not 0")
+    P8 = torch.as_tensor(post.start_positions(np.random.default_rng(0), NCHAINS),
+                         dtype=F64, device=dev).requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    t0 = time.time()
+    torch.autograd.grad(post.logpost()(P8)[0].sum(), P8)
+    torch.cuda.synchronize()
+    t8 = time.time() - t0
+    add(kernels.launches)
+    peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase 17: -logL {m} at the best fit (r = {BESTFIT['r']}) and off it; "
+        f"the gradient of both in {t_grad:.2f} s ({n} parameters, float64, "
+        f"halofit lensing); one HMC gradient at {NCHAINS} chains {t8:.2f} s, peak "
+        f"memory {peak / 2 ** 20:.1f} MiB ({peak / 2 ** 20 / NCHAINS:.1f} MiB a "
+        f"chain, {GRAD_CHUNKS} K1 and K5 chunks)")
+    del P8
+    # b. central differences, no halofit
+    lin = lcdm_r_posterior(dev, fid["ds"], nonlinear=False)
+    kernels.reset_launches()
+    _, gl = grad_at(lin, pts)
+    add(kernels.launches)
+    w = np.array([p.propose_width for p in lin.space.varying])
+    errs = {}
+    for f in LCDMR_FD_STEPS:
+        h = f * w
+        out = mll_at(lin, np.concatenate([x + s * np.diag(h) for x in pts
+                                          for s in (1.0, -1.0)]))
+        fd = np.stack([(out[2 * i * n:(2 * i + 1) * n]
+                        - out[(2 * i + 1) * n:(2 * i + 2) * n]) / (2.0 * h)
+                       for i in range(len(pts))])
+        errs[f] = np.abs(fd - gl).max(1) / np.abs(gl).max(1)
+        for j in range(len(pts)):
+            i = int(np.argmax(np.abs(fd[j] - gl[j])))
+            log(f"  [{j}] at {f} widths: max |fd - grad| / max |grad| "
+                f"{errs[f][j]:.3e}, along {names[i]}: grad {gl[j, i]: .9e} fd "
+                f"{fd[j, i]: .9e}")
+    e_fd = float(np.min(np.stack(list(errs.values())), 0).max())
+    log(f"  central differences without halofit, the closer of "
+        f"{LCDMR_FD_STEPS} widths at each point: {e_fd:.3e} (tol {GRAD_FD_TOL})")
+    require(e_fd <= GRAD_FD_TOL, "the LCDM+r gradient agrees with finite differences")
+    # c. the small config against the host CPU's plain gradient
+    with open(os.path.join(jobdir, "flag.json")) as f:
+        small_ds = json.load(f)["ds"]
+    small = lcdm_r_posterior(dev, small_ds, nonlinear=False, cfg=FLAG_SMALL)
+    spts = flagship_grad_points(small)
+    kernels.reset_launches()
+    m_s, g_s = grad_at(small, spts)
+    add(kernels.launches)
+    tau0_card = lcdm_r_tau0(small, spts)
+    ref = finish_job(cpu_job, jobdir, "cpu_grad_lcdm_r.pt",
+                     "the CPU plain LCDM+r gradient")
+    g_cpu, m_cpu, tau0_cpu = ref["g"].numpy(), ref["mll"].numpy(), ref["tau0"].numpy()
+    e_cpu = float((np.abs(g_s - g_cpu).max(1) / np.abs(g_cpu).max(1)).max())
+    ulps = (tau0_card - tau0_cpu) / np.spacing(tau0_cpu)
+    log(f"  at {FLAG_SMALL}: -logL {m_s} on the card, {m_cpu} on the host CPU's "
+        f"plain versions ({ref['seconds']:.1f} s there); tau0 {tau0_card.tolist()} "
+        f"on the card, {tau0_cpu.tolist()} on the host CPU ({ulps.tolist()} ulps); "
+        f"gradients max rel {e_cpu:.3e} (tol {GRAD_CPU_TOL})")
+    require(e_cpu <= GRAD_CPU_TOL, "the card's LCDM+r gradient equals the CPU's")
+    del small, lin
+    torch.cuda.empty_cache()
+    # d. HMC through the CLI
+    proc, hdir = hmc_job
+    res = finish_job(proc, hdir, "hmc.pt", "the LCDM+r HMC CLI")
+    require(res["rc"] == 0, "the LCDM+r HMC CLI exits 0")
+    acc = float(res["out"].split("accept =")[1].split(",")[0])
+    hmc = MCSamples.load(os.path.join(d_root(tmp), "chains", "lcdm_r_hmc"),
+                         ignore_frac=0.0)
+    log(f"  HMC (CLI, {LCDMR_HMC}): acceptance {acc:.3f}, {hmc.samples.shape[0]} "
+        f"rows, {res['seconds']:.1f} s; launches "
+        + json.dumps({k: v for k, v in res["launches"].items() if v}))
+    require(0.0 < acc <= 1.0, "the LCDM+r HMC accepts")
+    require(res["launches"]["tensors_bwd"] > 0 and res["launches"]["tensor_los_bwd"] > 0,
+            "the LCDM+r HMC launches tensors_bwd and tensor_los_bwd")
+    for k in KERNELS:
+        require((res["launches"][k] > 0) == (k in PATH_KERNELS["lcdm_r_grad"]),
+                f"the LCDM+r HMC launches {k} only if on the LCDM+r gradient path")
+    require(hmc.samples.shape[0] > 0 and bool(np.isfinite(hmc.samples).all()),
+            "MCSamples loads finite LCDM+r HMC chains")
+    # e. the recurrence line of sight refuses before any launch
+    rec = lcdm_r_posterior(dev, fid["ds"], cfg=dict(los_method="recurrence"))
+    require(rec.gradient_unsupported() == "los_method = recurrence (K2b)",
+            "the recurrence line of sight names K2b")
+    kernels.reset_launches()
+    try:
+        grad_at(rec, pts[:1])
+        raised = False
+    except NotImplementedError as e:
+        raised = "queue 1 item 4" in str(e)
+    require(raised and not any(kernels.launches.values()),
+            "a gradient with los_method=recurrence raises before any launch")
+    log("  los_method=recurrence raises for a gradient before any launch")
+    log(f"phase 17 took {time.time() - t_phase:.1f} s on {smi_line()}")
+    return launches, one
+
+
 def kernel_of(line):
     """The kernel and template arguments of a ptxas "Compiling entry
     function" line: _ZN<len><namespace><len><fn>I{f,d}[Li<NPT>E][Lb<0|1>E
-    ...]E...: f float, d double; K1's bool flags are NU, DE."""
+    ...]E...: f float, d double; K1's bool flags are NU, DE, K5's forward's
+    CK (the checkpoint stores)."""
     mangled = line.split("'")[1] if "'" in line else "?"
     m = re.search(r"_ZN(\d+)", line)
     n = m and re.match(r"\d+", line[m.end() + int(m.group(1)):])
@@ -4863,27 +5365,30 @@ def kernel_of(line):
     if not t:
         return name
     flags = re.findall(r"Lb([01])E", t.group(3))
+    names = ("CK",) if name == "tensor_kernel" else ("NU", "DE")
     return (f"{name} {'f64' if t.group(1) == 'd' else 'f32'}"
             + (f" NPT={t.group(2)}" if t.group(2) else "")
-            + "".join(f" {k}={f}" for k, f in zip(("NU", "DE"), flags)))
+            + "".join(f" {k}={f}" for k, f in zip(names, flags)))
 
 
 def phase2_job(d):
     """--phase2 DIR: phase 2's checks of the kernels and reverse kernels
-    of the slices before K1's extended instantiations (phase2,
-    phase2_matter, phase2_reverse, phase2_reverse_cmb), in a process of its
-    own on the card beside the main one's phases 3-16: their plain
-    versions are Python loops bound by their launches on the host. It
+    but K1's extended instantiations (phase2, phase2_matter,
+    phase2_reverse, phase2_reverse_cmb, phase2_reverse_tensors), in a
+    process of its own on the card beside the main one's phases 3-17: their
+    plain versions are Python loops bound by their launches on the host. It
     starts the host-CPU plain references they read (`--plain-ref`,
-    `--plain-ref-cmb`) and stops them if it fails; writes DIR/phase2.json
-    (each kernel's entry of the kernels line)."""
+    `--plain-ref-cmb`, `--plain-ref-tensors`) and stops them if it fails;
+    writes DIR/phase2.json (each kernel's entry of the kernels line)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     results, jobs = {}, []
     try:
         reverse_inputs(dev, d)
+        ten = tensor_reverse_inputs(dev, d)
         jobs.append(start_job("--plain-ref", d))
         jobs.append(start_job("--plain-ref-cmb", d))
+        jobs.append(start_job("--plain-ref-tensors", d))
         t0 = time.time()
         cmb = phase2(dev, results)
         phase2_matter(dev, results)
@@ -4891,6 +5396,9 @@ def phase2_job(d):
         phase2_reverse(dev, results, d, jobs[0])
         torch.cuda.empty_cache()
         phase2_reverse_cmb(dev, results, cmb, d, jobs[1])
+        del cmb
+        torch.cuda.empty_cache()
+        phase2_reverse_tensors(dev, results, ten, d, jobs[2])
         log(f"phase 2 done in {time.time() - t0:.1f} s")
     finally:
         for proc in jobs:
@@ -4911,7 +5419,7 @@ def phase2_alive(proc):
 
 
 def run_phases(dev, tmp, results, launches, segment, jobs):
-    """Phases 2-16 in `tmp`; the host-CPU jobs, phase 2's process and the
+    """Phases 2-17 in `tmp`; the host-CPU jobs, phase 2's process and the
     HMC CLIs go to `jobs` (main stops any still running)."""
     t0 = time.time()
     p2dir, refdir, graddir = (os.path.join(tmp, n) for n in ("phase2", "reverse",
@@ -4932,6 +5440,8 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
         json.dump(dict(ds=ds), f)
     cpu_grad_cmb = start_job("--cpu-grad-cmb", flagdir)
     jobs.append(cpu_grad_cmb)
+    cpu_grad_lcdm_r = start_job("--cpu-grad-lcdm-r", flagdir)
+    jobs.append(cpu_grad_lcdm_r)
     ext_cpu_jobs = {}
     for label, dd in ext_small_sets(dev, os.path.join(tmp, "grad_ext"), ds).items():
         ext_cpu_jobs[label] = (start_job("--cpu-grad-ext", dd), dd)
@@ -5022,6 +5532,8 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     phase2_alive(p2)
     ext_min = start_ext_min(tmp, ext_sets["w0wa"])
     jobs.append(ext_min[0])
+    lcdm_r_hmc = start_lcdm_r_hmc(tmp, flagship_fid)
+    jobs.append(lcdm_r_hmc[0])
     t0 = time.time()
     launches["gradient"], segment["gradient"] = drive_gradient(
         dev, tmp, sets, cpu_grad, graddir, hmc_proc)
@@ -5038,6 +5550,11 @@ def run_phases(dev, tmp, results, launches, segment, jobs):
     launches.update(by_path)
     segment.update(one)
     log(f"phase 16 done in {time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    launches["lcdm_r_grad"], segment["lcdm_r_grad"] = drive_lcdm_r_gradient(
+        dev, tmp, flagship_fid, cpu_grad_lcdm_r, flagdir, lcdm_r_hmc)
+    log(f"phase 17 done in {time.time() - t0:.1f} s")
     t0 = time.time()
     try:
         rc = p2.wait(timeout=JOB_TIMEOUT)
@@ -5063,7 +5580,8 @@ def main() -> int:
             **{m: (lambda m: lambda d: plain_references_ext(d, m))(m)
                for m in PLAIN_REF_EXT_PARTS},
             "--cpu-grad-ext": cpu_gradient_ext, "--ext-min": ext_min_job,
-            "--phase2": phase2_job}
+            "--phase2": phase2_job, "--plain-ref-tensors": plain_references_tensors,
+            "--cpu-grad-lcdm-r": cpu_gradient_lcdm_r, "--lcdm-r-hmc": lcdm_r_hmc_job}
     if len(sys.argv) == 3 and sys.argv[1] in jobs:
         # a process of its own on the host CPU or the card (start_job)
         sys.path.insert(0, HERE)

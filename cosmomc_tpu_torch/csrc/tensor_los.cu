@@ -58,6 +58,10 @@
 //   tile: no atomics, and the results repeat bit for bit.
 //
 // The arithmetic otherwise mirrors models/tensors.py:_tlos_plain.
+//
+// The same file holds the reverse pass (tensor_los_bwd, the reverse of
+// JAX's lax.map under jax.grad); its design is set out above
+// tlos_bwd_kernel.
 #include "common.cuh"
 
 namespace {
@@ -291,6 +295,287 @@ int launch(const void* src, const void* lo, const void* hi, const void* w,
   return (int)cudaGetLastError();
 }
 
+
+// ===========================================================================
+// The reverse pass (tensor_los_bwd): the cotangents of src (C, 2, nk, N), chi
+// and wt (C, N) from that of the output g (3, C, nl, nkf), as autograd of
+// models/tensors.py:_tlos_plain gives them (jax.vjp of JAX's lax.map). j_l
+// and j_l' are the table's linear interpolants in t = x inv_dx with the
+// index truncated (no gradient through it), so their derivative in x is the
+// interpolant's slope, (J[i+1] - J[i]) inv_dx; max(x, 1e-8) passes the
+// cotangent at and above 1e-8 and none below.
+//
+// With B = 1/x^2 (from max(x, 1e-8)), 1/x and the E window folded as the
+// forward folds it, wE = j ((l(l+1) + 2)/x^2 - 2) + 2 j'/x, wB = 2 j' + 4 j/x,
+// a (chain, fine k, tau) point needs twelve sums over the sampled l of the
+// cotangents times the table entries and their differences:
+//   A_* = sum_l G_* J_l[i], B_* = sum_l G_* (J_l[i+1] - J_l[i])
+// for G_T efac, G_E (l(l+1) + 2), G_E, G_B against j_l and G_E, G_B against
+// j_l'; the interpolated sums are A + f B, and each cotangent of the point
+// is a few products of those with the sources and 1/x. Where the four
+// table entries of an l are 0 (i + 1 < n0(l), the forward's dead points)
+// its terms are exact zeros, so a lane walks only the live prefix of the
+// sorted l's.
+//
+// Design: a block owns (chain, KT = 32 fine k, a tile of TT tau nodes), a
+// lane a k, the 8 warps the tile's nodes; the block's cotangents (3 x nl x
+// 32) sit in shared memory. Each lane walks the live l's of its (k, tau),
+// reading the packed (j_l, j_l', j_l+, j_l'+) lines of the forward's table.
+// The cotangents of chi and wt are sums over k: a warp butterfly over the
+// block's 32 k, then the k blocks in order (a second kernel). The source
+// cotangent goes back from the fine k to the coarse rows through the
+// transposed 2-point ln-k stencil: per coarse row its stencils touch and per
+// tau, the block adds its lanes' shares in lane order into a partial row of
+// its own (`blk_off`); a third kernel adds the k blocks that touch a row
+// (`row_kb`) in block order. The fine-k source cotangent (640 MB in float64
+// at the main path's shape) is never stored; no atomics.
+//
+// Bound (chip_smoke.py counts it): reverse mode at 3x the forward's
+// operations on the same live lattice; in practice the table gathers, a
+// lane a k, as in the forward's first version.
+// ===========================================================================
+
+constexpr int BWD_THREADS = 256;  // 8 warps
+
+template <typename T>
+struct BwdTile {
+  static constexpr int TT = sizeof(T) == 4 ? 32 : 16;   // tau nodes a block
+};
+
+template <typename T>
+size_t bwd_smem_bytes(int nl, int rspan) {
+  constexpr int TT = BwdTile<T>::TT;
+  return (size_t)3 * nl * KT * sizeof(T)     // G_T efac, G_E, G_B
+         + (size_t)nl * sizeof(T)            // l(l+1) + 2
+         + (size_t)2 * TT * KT * sizeof(T)   // cotangents of the interpolated sources
+         + (size_t)KT * 2 * sizeof(T)        // stencil weight, k
+         + (size_t)KT * 2 * sizeof(int)      // stencil rows, relative to the block's first
+         + (size_t)2 * rspan * sizeof(int);  // each local row's first and last lane
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_WARP, v, o);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_THREADS)
+tlos_bwd_kernel(const T* __restrict__ src, const int* __restrict__ lo,
+                const int* __restrict__ hi, const T* __restrict__ w,
+                const T* __restrict__ kf, const T* __restrict__ chi,
+                const T* __restrict__ wt, const float4* __restrict__ pairs,
+                const int* __restrict__ n0, const T* __restrict__ ls,
+                const T* __restrict__ g, const int* __restrict__ blk_off,
+                T* __restrict__ part_src, T* __restrict__ part_w, int C, int nk, int N,
+                int nl, int nslot, int nx, int nkf, T inv_dx, int rtot) {
+  constexpr int TT = BwdTile<T>::TT;
+  constexpr int NW = BWD_THREADS / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* G = reinterpret_cast<T*>(smem_raw);  // [3][nl][KT]
+  T* lp2 = G + 3 * nl * KT;               // [nl]
+  T* Bs = lp2 + nl;                       // [2][TT][KT]
+  T* kw_s = Bs + 2 * TT * KT;             // [KT]
+  T* kf_s = kw_s + KT;                    // [KT]
+  int* klo_s = reinterpret_cast<int*>(kf_s + KT);  // [KT] rows relative to r_lo
+  int* khi_s = klo_s + KT;                // [KT]
+  int* rfirst = khi_s + KT;               // [rspan]
+  int* rlast = rfirst + (blk_off[blockIdx.x + 1] - blk_off[blockIdx.x]);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kb = blockIdx.x, nkb = gridDim.x, k0 = kb * KT, t0 = blockIdx.y * TT;
+  const int c = blockIdx.z;
+  const int nkt = min(KT, nkf - k0);
+  const int r_lo = lo[k0];
+  const int nr = blk_off[kb + 1] - blk_off[kb];   // hi[k0 + nkt - 1] - r_lo + 1
+  const size_t plane = (size_t)nk * N, gplane = (size_t)C * nl * nkf;
+
+  for (int e = tid; e < nl * KT; e += BWD_THREADS) {
+    const int il = e / KT, kl = e % KT;
+    T gT = T(0), gE = T(0), gB = T(0);
+    if (kl < nkt) {
+      const size_t o = ((size_t)c * nl + il) * nkf + k0 + kl;
+      const T l = ls[il];
+      gT = g[o] * xsqrt(xmax((l + T(2)) * (l + T(1)) * l * (l - T(1)), T(0)));
+      gE = g[gplane + o];
+      gB = g[2 * gplane + o];
+    }
+    G[e] = gT;
+    G[nl * KT + e] = gE;
+    G[2 * nl * KT + e] = gB;
+  }
+  for (int il = tid; il < nl; il += BWD_THREADS) {
+    const T l = ls[il];
+    lp2[il] = l * (l + T(1)) + T(2);
+  }
+  for (int kl = tid; kl < KT; kl += BWD_THREADS) {
+    const int kk = k0 + (kl < nkt ? kl : nkt - 1);
+    kw_s[kl] = w[kk];
+    kf_s[kl] = kf[kk];
+    klo_s[kl] = lo[kk] - r_lo;
+    khi_s[kl] = hi[kk] - r_lo;
+  }
+  __syncthreads();
+  for (int rr = tid; rr < nr; rr += BWD_THREADS) {
+    int a = KT, b = -1;
+    for (int kl = 0; kl < nkt; ++kl)
+      if (klo_s[kl] == rr || khi_s[kl] == rr) {
+        a = min(a, kl);
+        b = kl;
+      }
+    rfirst[rr] = a;
+    rlast[rr] = b;
+  }
+
+  const T* chi_c = chi + (size_t)c * N;
+  const T* wt_c = wt + (size_t)c * N;
+  const T* sT = src + (size_t)c * 2 * plane;
+  const T* sP = sT + plane;
+  const T kfl = kf_s[lane], wk = kw_s[lane];
+  const int rl = r_lo + klo_s[lane], rh = r_lo + khi_s[lane];
+  for (int tl = warp; tl < TT; tl += NW) {
+    const int t = t0 + tl;
+    const bool on = lane < nkt && t < N;
+    const int tc = t < N ? t : N - 1;
+    const T x = kfl * chi_c[tc];
+    const T tt = x * inv_dx;
+    const int i = table_index(tt, nx);
+    const T f = tt - T(i);
+    T A1 = T(0), A2 = T(0), A3 = T(0), A4 = T(0), A5 = T(0), A6 = T(0);
+    T B1 = T(0), B2 = T(0), B3 = T(0), B4 = T(0), B5 = T(0), B6 = T(0);
+    const float4* row = pairs + (size_t)i * nslot;
+    for (int il = 0; il < nl && n0[il] <= i + 1; ++il) {
+      const float4 e = row[il];
+      const T J0 = e.x, P0 = e.y;
+      const T dJ = T(e.z) - J0, dP = T(e.w) - P0;
+      const T gT = G[il * KT + lane];
+      const T gE = G[(nl + il) * KT + lane];
+      const T gB = G[(2 * nl + il) * KT + lane];
+      const T gEL = gE * lp2[il];
+      A1 += gT * J0;
+      B1 += gT * dJ;
+      A2 += gEL * J0;
+      B2 += gEL * dJ;
+      A3 += gE * J0;
+      B3 += gE * dJ;
+      A4 += gB * J0;
+      B4 += gB * dJ;
+      A5 += gE * P0;
+      B5 += gE * dP;
+      A6 += gB * P0;
+      B6 += gB * dP;
+    }
+    const T a1 = A1 + f * B1, a2 = A2 + f * B2, a3 = A3 + f * B3;
+    const T a4 = A4 + f * B4, a5 = A5 + f * B5, a6 = A6 + f * B6;
+    const T inv = T(1) / xmax(x, T(1e-8));
+    const T inv2 = inv * inv;
+    const T dinv = x >= T(1e-8) ? -inv2 : T(0);
+    const T wtt = wt_c[tc];
+    const T sTl = sT[(size_t)rl * N + tc], sPl = sP[(size_t)rl * N + tc];
+    const T STi = sTl + wk * (sT[(size_t)rh * N + tc] - sTl);
+    const T SPi = sPl + wk * (sP[(size_t)rh * N + tc] - sPl);
+    const T STw = STi * wtt, SPw = SPi * wtt;
+    // the cotangents of the weighted sources and of x
+    const T gSTw = inv2 * a1;
+    const T gSPw = inv2 * a2 - T(2) * a3 + T(4) * inv * a4 + T(2) * inv * a5 + T(2) * a6;
+    const T gx = inv_dx * (STw * inv2 * B1 + SPw * (inv2 * B2 - T(2) * B3 + T(4) * inv * B4 +
+                                                     T(2) * inv * B5 + T(2) * B6)) +
+                 dinv * (STw * T(2) * inv * a1 + SPw * (T(2) * inv * a2 + T(2) * a5 + T(4) * a4));
+    const T v_chi = warp_sum(on ? kfl * gx : T(0));
+    const T v_wt = warp_sum(on ? gSTw * STi + gSPw * SPi : T(0));
+    if (lane == 0 && t < N) {
+      T* pw = part_w + ((size_t)c * nkb + kb) * 2 * N + t;
+      pw[0] = v_chi;
+      pw[N] = v_wt;
+    }
+    const int o = tl * KT + lane;
+    Bs[o] = on ? gSTw * wtt : T(0);
+    Bs[TT * KT + o] = on ? gSPw * wtt : T(0);
+  }
+  __syncthreads();
+  // the transposed stencil: this block's share of each coarse row it
+  // touches, g_lo = g - w g, g_hi = w g, its lanes in order
+  for (int e = tid; e < 2 * nr * TT; e += BWD_THREADS) {
+    const int tl = e % TT, rr = (e / TT) % nr, p = e / (TT * nr);
+    const int t = t0 + tl;
+    if (t >= N) continue;
+    T acc = T(0);
+    for (int kl = rfirst[rr]; kl <= rlast[rr]; ++kl) {
+      const T b = Bs[(p * TT + tl) * KT + kl];
+      if (klo_s[kl] == rr) acc += b - kw_s[kl] * b;
+      if (khi_s[kl] == rr) acc += kw_s[kl] * b;
+    }
+    part_src[(((size_t)c * 2 + p) * rtot + blk_off[kb] + rr) * N + t] = acc;
+  }
+}
+
+// g_src[c, p, r, t] = sum over the k blocks that touch row r, in order
+template <typename T>
+__global__ void tlos_bwd_rows_kernel(const T* __restrict__ part_src,
+                                     const int* __restrict__ blk_off,
+                                     const int* __restrict__ row_kb, const int* __restrict__ lo,
+                                     T* __restrict__ g_src, int C, int nk, int N, int rtot) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)C * 2 * nk * N) return;
+  const int t = (int)(i % N), r = (int)((i / N) % nk);
+  const size_t cp = i / ((size_t)nk * N);
+  T acc = T(0);
+  for (int kb = row_kb[2 * r]; kb <= row_kb[2 * r + 1]; ++kb)
+    acc += part_src[(cp * rtot + blk_off[kb] + r - lo[kb * KT]) * N + t];
+  g_src[i] = acc;
+}
+
+// g_chi, g_wt [c, t] = sum over the k blocks, in order
+template <typename T>
+__global__ void tlos_bwd_w_kernel(const T* __restrict__ part_w, T* __restrict__ g_chi,
+                                  T* __restrict__ g_wt, int C, int nkb, int N) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= C * N) return;
+  const int t = i % N, c = i / N;
+  T s0 = T(0), s1 = T(0);
+  for (int kb = 0; kb < nkb; ++kb) {
+    const T* pw = part_w + ((size_t)c * nkb + kb) * 2 * N + t;
+    s0 += pw[0];
+    s1 += pw[N];
+  }
+  g_chi[i] = s0;
+  g_wt[i] = s1;
+}
+
+template <typename T>
+int launch_bwd(const void* src, const void* lo, const void* hi, const void* w, const void* kf,
+               const void* chi, const void* wt, const void* pairs, const void* n0,
+               const void* ls, const void* g, const void* blk_off, const void* row_kb,
+               void* part_src, void* part_w, void* g_src, void* g_chi, void* g_wt, int C,
+               int nk, int N, int nl, int nslot, int nx, int nkf, double inv_dx, int rspan,
+               int rtot, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C <= 0 || nk <= 0 || N <= 0 || nl <= 0 || nkf <= 0 || nx < 2 || nslot % OCT ||
+      nl > nslot || rspan <= 0 || rspan > nk || rtot <= 0)
+    return (int)cudaErrorInvalidValue;
+  constexpr int TT = BwdTile<T>::TT;
+  const size_t smem = bwd_smem_bytes<T>(nl, rspan);
+  cudaError_t err = cudaFuncSetAttribute(tlos_bwd_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nkb = (nkf + KT - 1) / KT;
+  tlos_bwd_kernel<T><<<dim3(nkb, (N + TT - 1) / TT, C), BWD_THREADS, smem, st>>>(
+      (const T*)src, (const int*)lo, (const int*)hi, (const T*)w, (const T*)kf, (const T*)chi,
+      (const T*)wt, (const float4*)pairs, (const int*)n0, (const T*)ls, (const T*)g,
+      (const int*)blk_off, (T*)part_src, (T*)part_w, C, nk, N, nl, nslot, nx, nkf, (T)inv_dx,
+      rtot);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t nsrc = (size_t)C * 2 * nk * N;
+  tlos_bwd_rows_kernel<T><<<(unsigned)((nsrc + 255) / 256), 256, 0, st>>>(
+      (const T*)part_src, (const int*)blk_off, (const int*)row_kb, (const int*)lo, (T*)g_src,
+      C, nk, N, rtot);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  tlos_bwd_w_kernel<T><<<(C * N + 255) / 256, 256, 0, st>>>((const T*)part_w, (T*)g_chi,
+                                                          (T*)g_wt, C, nkb, N);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define TLOS_ENTRY(NAME, T)                                                          \
@@ -305,3 +590,18 @@ int launch(const void* src, const void* lo, const void* hi, const void* w,
 
 TLOS_ENTRY(tensor_los_f32, float)
 TLOS_ENTRY(tensor_los_f64, double)
+
+#define TLOS_BWD_ENTRY(NAME, T)                                                             \
+  extern "C" int NAME(const void* src, const void* lo, const void* hi, const void* w,      \
+                      const void* kf, const void* chi, const void* wt, const void* pairs,  \
+                      const void* n0, const void* ls, const void* g, const void* blk_off,  \
+                      const void* row_kb, void* part_src, void* part_w, void* g_src,       \
+                      void* g_chi, void* g_wt, int C, int nk, int N, int nl, int nslot,    \
+                      int nx, int nkf, double inv_dx, int rspan, int rtot, void* stream) { \
+    return launch_bwd<T>(src, lo, hi, w, kf, chi, wt, pairs, n0, ls, g, blk_off, row_kb,   \
+                         part_src, part_w, g_src, g_chi, g_wt, C, nk, N, nl, nslot, nx,    \
+                         nkf, inv_dx, rspan, rtot, stream);                                 \
+  }
+
+TLOS_BWD_ENTRY(tensor_los_bwd_f32, float)
+TLOS_BWD_ENTRY(tensor_los_bwd_f64, double)

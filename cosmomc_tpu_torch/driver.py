@@ -33,11 +33,11 @@ Action 2 and sampling_method = hmc take gradients through the posterior:
 on the background parameterization, and on a CMBPosterior whose slow path
 has reverse kernels (`CMBPosterior.gradient_unsupported()` is None: the
 flagship CMB configurations with the table line of sight, with or
-without matter power, base_mnu, base_w_wa with or without alpha1, and
-the LSS-only astro configuration). Elsewhere (the tensor modes of
-LCDM+r, the recurrence line of sight) they raise NotImplementedError
-before any work. `boltzmann_remat_chunks`
-(default 64 for HMC, as JAX's) sets K1's gradient checkpoints.
+without matter power, LCDM+r (compute_tensors = T with param[r]),
+base_mnu, base_w_wa with or without alpha1, and the LSS-only astro
+configuration). With the recurrence line of sight they raise
+NotImplementedError before any work. `boltzmann_remat_chunks`
+(default 64 for HMC, as JAX's) sets K1's and K5's gradient checkpoints.
 
 Every accessed key is dumped to `<file_root>.inputparams` (provenance,
 driver.F90:188-202).
@@ -71,8 +71,8 @@ HESSIAN_STEP = 0.1
 NO_GRADIENT = ("{what} needs gradients through the slow stage, and with "
                "{why} its kernels have no reverse pass yet (ROADMAP.md "
                "queue 1 item 4); the background parameterization, the "
-               "flagship CMB configurations, base_mnu, base_w_wa and the "
-               "LSS-only astro configuration have them")
+               "flagship CMB configurations, LCDM+r, base_mnu, base_w_wa "
+               "and the LSS-only astro configuration have them")
 
 
 def _require_gradient(post, what: str) -> None:

@@ -10,7 +10,7 @@ loaded with ctypes. Nothing here runs at import time.
 `launches[name]` counts the launches each wrapper makes: it is raised by
 one where the kernel is launched, and nowhere else. A source may hold
 several instantiations (`VARIANTS`: K1's massive-neutrino and dark-energy
-extensions, and the reverse kernels of K4, K2a and K3), each with
+extensions, and the reverse kernels of K4, K2a, K3, K5 and K6), each with
 entry points `<variant>_f32|f64` and a count of its own. A forward kernel
 that also stores what its reverse kernel reads is launched through another
 entry point of the same kernel (`launch(..., entry=...)`) and counts as
@@ -51,7 +51,8 @@ SOURCES = {
 #: instantiation -> the kernel (source) that holds it
 VARIANTS = {"boltzmann_nu": "boltzmann", "boltzmann_de": "boltzmann",
             "boltzmann_nu_de": "boltzmann", "recfast_bwd": "recfast",
-            "los_bwd": "los", "lensing_bwd": "lensing"}
+            "los_bwd": "los", "lensing_bwd": "lensing",
+            "tensors_bwd": "tensors", "tensor_los_bwd": "tensor_los"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 #: flags of one source beyond NVCC_FLAGS. K3 rounds every product and sum

@@ -24,6 +24,10 @@ Everything carries a leading chains axis. `evolve_tensors` runs either
 `_evolve_t_plain` (batched torch) or csrc/tensors.cu (K5);
 `compute_tensor_transfers` runs `_tlos_plain` or csrc/tensor_los.cu (K6).
 CPU tensors take the plain versions; CUDA tensors launch the kernels.
+Both are differentiable, as JAX's are under jax.grad: on the CPU by
+autograd of the plain versions (their graphs rematerialized in chunks,
+utils/remat.py), on the card by the reverse kernels `tensors_bwd` and
+`tensor_los_bwd` (`_Tensors`, `_TensorLos`).
 """
 
 from __future__ import annotations
@@ -33,15 +37,18 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from cosmomc_tpu_torch import kernels
 from cosmomc_tpu_torch.models.background import BackgroundParams
 from cosmomc_tpu_torch.models.bessel import build_bessel_table, default_l_samples
-from cosmomc_tpu_torch.models.cls import fine_k_grid
-from cosmomc_tpu_torch.models.perturbations import (TC_LAM_MAX, ThermoFuncs,
+from cosmomc_tpu_torch.models.cls import LOS_KT, fine_k_grid, transposed_stencil
+from cosmomc_tpu_torch.models.perturbations import (DEFAULT_REMAT_CHUNKS,
+                                                    TC_LAM_MAX, ThermoFuncs,
                                                     grho_terms)
 from cosmomc_tpu_torch.models.primordial import PrimordialParams, tensor_power
 from cosmomc_tpu_torch.utils.interp import interp, spline_eval, spline_fit
+from cosmomc_tpu_torch.utils.remat import remat
 
 # hierarchy truncations (photon temperature / polarization / neutrinos)
 LMAXT = 16
@@ -212,38 +219,136 @@ def _initial_state(C: int, nk: int, dtype, device) -> torch.Tensor:
     return y0
 
 
+def _t_step(y, y0, i, qtab, k, substeps: int, feedback: bool):
+    """Step i of `_evolve_t_plain` from y (C, nk, NVAR_T): the new state
+    (y0 where the lane is not yet released at tau_b) and the three planes
+    at tau_b, (3, C, nk). csrc/tensors.cu's `tensors_bwd` transposes it."""
+    for s in range(substeps):
+        qa, qm, qb = (qtab[:, i, 3 * s], qtab[:, i, 3 * s + 1],
+                      qtab[:, i, 3 * s + 2])
+        dt = (qb[:, QT_TAU] - qa[:, QT_TAU])[:, None, None]
+        k1, _ = _tensor_rhs(y, qa, k, feedback)
+        k2, _ = _tensor_rhs(y + 0.5 * dt * k1, qm, k, feedback)
+        k3, _ = _tensor_rhs(y + 0.5 * dt * k2, qm, k, feedback)
+        k4, _ = _tensor_rhs(y + dt * k3, qb, k, feedback)
+        y = y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+    qf = qtab[:, i, 3 * substeps]
+    released = k * qf[:, QT_TAU:QT_TAU + 1] >= RELEASE_KTAU_T
+    y = torch.where(released[..., None], y, y0)
+    _, psi = _tensor_rhs(y, qf, k, feedback)
+    vis, expmk = qf[:, QT_VIS:QT_VIS + 1], qf[:, QT_EXPMK:QT_EXPMK + 1]
+    return y, torch.stack([-y[..., _I_HTP] * expmk + vis * psi, vis * psi,
+                           y[..., _I_HT]])
+
+
 def _evolve_t_plain(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
-                    feedback: bool) -> torch.Tensor:
-    """RK4 over the grid as batched torch; returns (3, C, N-1, nk)."""
+                    feedback: bool, remat_chunks: int = 0) -> torch.Tensor:
+    """RK4 over the grid as batched torch; returns (3, C, N-1, nk).
+
+    Records a graph when grad is enabled and qtab wants one (jax.grad
+    differentiates JAX's scan); otherwise runs under no_grad. With
+    `remat_chunks` > 0 the graph is checkpointed as
+    perturbations._evolve_plain's: the steps fall into that many chunks of
+    ceil((N-1)/remat_chunks) steps, only each chunk's starting state is
+    kept and its interior is recomputed in the backward pass
+    (utils/remat.py); the numbers do not depend on the chunk count."""
     C, S = qtab.shape[0], qtab.shape[1]
     y0 = _initial_state(C, k.shape[0], qtab.dtype, qtab.device)
-    y = y0
-    out = torch.empty(len(T_PLANES), C, S, k.shape[0], dtype=qtab.dtype,
+
+    def run(y, lo, hi, qtab):
+        outs = []
+        for i in range(lo, hi):
+            y, o = _t_step(y, y0, i, qtab, k, substeps, feedback)
+            outs.append(o)
+        return y, torch.stack(outs, 2)
+
+    if not (torch.is_grad_enabled() and qtab.requires_grad):
+        with torch.no_grad():
+            return run(y0, 0, S, qtab)[1]
+    if remat_chunks <= 0:
+        return run(y0, 0, S, qtab)[1]
+    chunk = -(-S // remat_chunks)
+    y, outs = y0, []
+    for lo in range(0, S, chunk):
+        y, o = remat(run, y, lo, min(lo + chunk, S), qtab)
+        outs.append(o)
+    return torch.cat(outs, 2)
+
+
+def _evolve_t_launch(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
+                     feedback: bool, chunk: int = 0):
+    """The forward kernel: the planes (3, C, S, nk) and, with `chunk` > 0,
+    the checkpoints (C, nk, ceil(S / chunk) + 1, NVAR_T): the state before
+    every chunk-th step and after the last, in the plain layout."""
+    C, S, R = qtab.shape[0], qtab.shape[1], qtab.shape[2]
+    nk = k.shape[0]
+    if R != 3 * substeps + 1:
+        raise ValueError(f"stage table has {R} rows, not 3*{substeps}+1")
+    kernels.check(qtab, "qtab", (C, S, R, NQT))
+    kernels.check(k, "k", (nk,), qtab.dtype)
+    out = torch.empty(len(T_PLANES), C, S, nk, dtype=qtab.dtype,
                       device=qtab.device)
-    with torch.no_grad():
-        for i in range(S):
-            for s in range(substeps):
-                qa, qm, qb = (qtab[:, i, 3 * s], qtab[:, i, 3 * s + 1],
-                              qtab[:, i, 3 * s + 2])
-                dt = (qb[:, QT_TAU] - qa[:, QT_TAU])[:, None, None]
-                k1, _ = _tensor_rhs(y, qa, k, feedback)
-                k2, _ = _tensor_rhs(y + 0.5 * dt * k1, qm, k, feedback)
-                k3, _ = _tensor_rhs(y + 0.5 * dt * k2, qm, k, feedback)
-                k4, _ = _tensor_rhs(y + dt * k3, qb, k, feedback)
-                y = y + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
-            qf = qtab[:, i, 3 * substeps]
-            released = k * qf[:, QT_TAU:QT_TAU + 1] >= RELEASE_KTAU_T
-            y = torch.where(released[..., None], y, y0)
-            _, psi = _tensor_rhs(y, qf, k, feedback)
-            vis, expmk = qf[:, QT_VIS:QT_VIS + 1], qf[:, QT_EXPMK:QT_EXPMK + 1]
-            out[0, :, i] = -y[..., _I_HTP] * expmk + vis * psi
-            out[1, :, i] = vis * psi
-            out[2, :, i] = y[..., _I_HT]
-    return out
+    if chunk <= 0:
+        kernels.launch("tensors", qtab.dtype, qtab, k, out, C, S, nk, substeps,
+                       bool(feedback))
+        return out, None
+    ck = torch.empty(C, nk, -(-S // chunk) + 1, NVAR_T, dtype=qtab.dtype,
+                     device=qtab.device)
+    kernels.launch("tensors", qtab.dtype, qtab, k, out, ck, C, S, nk, substeps,
+                   bool(feedback), chunk, entry="tensors_ck")
+    return out, ck
+
+
+#: k lanes (warps) a block of the reverse kernel (csrc/tensors.cu WARPS)
+T_BWD_WARPS = 8
+
+
+def _tensors_bwd(qtab, k, ck, g_out, substeps: int, feedback: bool,
+                 chunk: int) -> torch.Tensor:
+    """csrc/tensors.cu's reverse kernel: the cotangent of qtab (C, S, 3
+    substeps + 1, NQT) from that of the planes (3, C, S, nk), as
+    `_evolve_t_plain` under autograd gives it. A warp a (chain, k) lane in
+    the forward's layout, the chunks in reverse, each recomputed from its
+    checkpoint into a per-lane scratch; each block adds its 8 lanes' row
+    cotangents in order and the blocks are added here in order."""
+    C, S, R = qtab.shape[0], qtab.shape[1], qtab.shape[2]
+    nk = k.shape[0]
+    dev, dt = qtab.device, qtab.dtype
+    g_out = g_out.contiguous()
+    kernels.check(g_out, "g_out", (len(T_PLANES), C, S, nk), dt)
+    kernels.check(ck, "checkpoints", (C, nk, -(-S // chunk) + 1, NVAR_T), dt)
+    nblk = -(-nk // T_BWD_WARPS)
+    scratch = torch.empty(C, nblk * T_BWD_WARPS, chunk * substeps + 1, NVAR_T,
+                          dtype=dt, device=dev)
+    g_q = torch.empty(C, nblk, S, R, NQT, dtype=dt, device=dev)
+    kernels.launch("tensors_bwd", dt, qtab, k, ck, g_out, scratch, g_q, C, S,
+                   nk, substeps, bool(feedback), chunk)
+    return g_q[:, 0] if nblk == 1 else g_q.sum(1)
+
+
+class _Tensors(torch.autograd.Function):
+    """K5 on the card with its reverse kernel: the forward kernel also
+    writes the chunk checkpoints (`tensors_ck`), the backward launches
+    `tensors_bwd`."""
+
+    @staticmethod
+    def forward(ctx, qtab, k, substeps, feedback, chunks):
+        chunk = -(-qtab.shape[1] // chunks)
+        out, ck = _evolve_t_launch(qtab, k, substeps, feedback, chunk)
+        ctx.save_for_backward(qtab, k, ck)
+        ctx.substeps, ctx.feedback, ctx.chunk = substeps, feedback, chunk
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g_out):
+        qtab, k, ck = ctx.saved_tensors
+        return (_tensors_bwd(qtab, k, ck, g_out, ctx.substeps, ctx.feedback,
+                             ctx.chunk), None, None, None, None)
 
 
 def _evolve_t_cuda(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
-                   feedback: bool) -> torch.Tensor:
+                   feedback: bool, remat_chunks: int = 0) -> torch.Tensor:
     """csrc/tensors.cu: one warp per (chain, k) lane, blocks of 8 lanes of
     one chain; h, h' on every thread, Dt_l and Dn_l on thread l, Dp_l on
     thread 17 + l, neighbours by warp shuffles; stage rows staged in shared
@@ -253,34 +358,35 @@ def _evolve_t_cuda(qtab: torch.Tensor, k: torch.Tensor, substeps: int,
     Replaces cosmomc_tpu/models/tensors.py:evolve_tensors (the lax.scan at
     tensors.py:254 over make_tensor_rhs and rk4_step). Bound: 4 RHS
     evaluations a step (~300 flops each) over ~8191 dependent steps: the
-    dependency chain of a lane. Outputs go to (plane, chain, step, k)."""
-    C, S, R = qtab.shape[0], qtab.shape[1], qtab.shape[2]
-    nk = k.shape[0]
-    if R != 3 * substeps + 1:
-        raise ValueError(f"stage table has {R} rows, not 3*{substeps}+1")
-    kernels.check(qtab, "qtab", (C, S, R, NQT))
-    kernels.check(k, "k", (nk,), qtab.dtype)
-    out = torch.empty(len(T_PLANES), C, S, nk, dtype=qtab.dtype,
-                      device=qtab.device)
-    kernels.launch("tensors", qtab.dtype, qtab, k, out, C, S, nk, substeps,
-                   bool(feedback))
-    return out
+    dependency chain of a lane. Outputs go to (plane, chain, step, k).
+
+    When qtab wants a gradient (and grad is enabled) it runs as `_Tensors`:
+    the forward stores the state at `remat_chunks` chunk boundaries
+    (DEFAULT_REMAT_CHUNKS when 0) and the backward is `_tensors_bwd`."""
+    if torch.is_grad_enabled() and qtab.requires_grad:
+        return _Tensors.apply(qtab, k, substeps, bool(feedback),
+                              remat_chunks or DEFAULT_REMAT_CHUNKS)
+    return _evolve_t_launch(qtab, k, substeps, feedback)[0]
 
 
 def evolve_tensors(bg: BackgroundParams, tf: ThermoFuncs, tau0: torch.Tensor,
                    k, anisotropic_feedback: bool = True,
-                   substeps: int = 1) -> TensorOutput:
+                   substeps: int = 1, remat_chunks: int = 0) -> TensorOutput:
     """Evolve every tensor k lane of every chain on the shared tau grid and
     emit the LOS sources. ICs: h = 1, h' = 0, the hierarchies zero; a lane
     is held there until k tau >= 0.05. `substeps` sub-cycles each grid step
     (RK4 stability needs k dt / substeps <~ 2.8; 1 suffices for the
-    production tensor grid, kmax 0.065)."""
+    production tensor grid, kmax 0.065). `remat_chunks`: the checkpoint
+    count of the evolution's gradient (0 keeps every step on the CPU and
+    takes DEFAULT_REMAT_CHUNKS on the card); it changes memory, not
+    numbers."""
     dtype, dev = tf.tau.dtype, tf.tau.device
     k = torch.as_tensor(np.asarray(k) if not torch.is_tensor(k) else k,
                         dtype=dtype, device=dev).contiguous()
     qtab = _stage_table(bg, tf, substeps)
     evolve = _evolve_t_plain if dev.type == "cpu" else _evolve_t_cuda
-    raw = evolve(qtab, k, substeps, anisotropic_feedback)   # (3, C, N-1, nk)
+    raw = evolve(qtab, k, substeps, anisotropic_feedback,
+                 remat_chunks)                              # (3, C, N-1, nk)
     C, nk = tf.tau.shape[0], k.shape[0]
     first = torch.zeros(3, C, 1, nk, dtype=dtype, device=dev)
     first[2] = 1.0
@@ -305,13 +411,16 @@ def _k_stencil(lnk: torch.Tensor, lnkf: torch.Tensor):
 
 def _tlos_plain(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
                 k_chunk: int = 64):
-    """Batched torch tensor LOS: src (C, 2, nk, N) -> (3, C, nl, nkf)."""
-    C, N = chi.shape
+    """Batched torch tensor LOS: src (C, 2, nk, N) -> (3, C, nl, nkf).
+    Under autograd (grad enabled and src, chi or wt wanting one) each k
+    chunk is rematerialized as cls._los_plain's (utils/remat.py: its per-l
+    intermediates are recomputed in the backward pass rather than kept);
+    the numbers do not change."""
     nl, nx = jl_tab.shape
     dtype = src.dtype
     jl_t, jlp_t = jl_tab.to(dtype), jlp_tab.to(dtype)
-    out = torch.empty(3, C, nl, kf.shape[0], dtype=dtype, device=src.device)
-    for k0 in range(0, kf.shape[0], k_chunk):
+
+    def chunk(k0, src, chi, wt):             # -> (3, C, nl, kc)
         sl = slice(k0, k0 + k_chunk)
         l_, h_, w_ = lo[sl].long(), hi[sl].long(), w[sl][:, None]
 
@@ -325,6 +434,7 @@ def _tlos_plain(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
         f = t - i.to(dtype)
         xs = torch.clamp(x, min=1e-8)
         xs2 = xs * xs
+        out_t, out_e, out_b = [], [], []
         for il in range(nl):
             l = ls[il]
             jl = jl_t[il][i] * (1 - f) + jl_t[il][i + 1] * f
@@ -332,15 +442,25 @@ def _tlos_plain(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
             jpp = -2.0 * jp / xs + (l * (l + 1) / xs2 - 1.0) * jl
             efac = torch.sqrt(torch.clamp((l + 2) * (l + 1) * l * (l - 1),
                                           min=0.0))
-            out[0, :, il, sl] = efac * torch.sum(STw * jl / xs2, -1)
+            out_t.append(efac * torch.sum(STw * jl / xs2, -1))
             wE = -jl + jpp + 2.0 * jl / xs2 + 4.0 * jp / xs
             wB = 2.0 * jp + 4.0 * jl / xs
-            out[1, :, il, sl] = torch.sum(SPw * wE, -1)
-            out[2, :, il, sl] = torch.sum(SPw * wB, -1)
+            out_e.append(torch.sum(SPw * wE, -1))
+            out_b.append(torch.sum(SPw * wB, -1))
+        return torch.stack([torch.stack(o, 1) for o in (out_t, out_e, out_b)])
+
+    starts = range(0, kf.shape[0], k_chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (src, chi, wt)):
+        return torch.cat([remat(lambda *a: (chunk(*a),), k0, src, chi, wt)[0]
+                          for k0 in starts], -1)
+    out = torch.empty(3, chi.shape[0], nl, kf.shape[0], dtype=dtype,
+                      device=src.device)
+    for k0 in starts:
+        out[..., k0:k0 + k_chunk] = chunk(k0, src, chi, wt)
     return out
 
 
-TLOS_KT = 32      # fine k a K6 work item (csrc/tensor_los.cu KT)
+TLOS_KT = LOS_KT  # fine k a K6 work item and reverse block (csrc/tensor_los.cu KT)
 TLOS_OCT = 8      # sampled l's an octet: one 128-byte table line (OCT)
 TLOS_GROUP = 3    # octets a K6 work item, all held by each lane (GROUP)
 TLOS_KW = 8       # fine k a warp (KQ x KLANE)
@@ -403,15 +523,23 @@ def _tlos_grid(lmax: int, tau0_hint: float, kmax_hint: float,
                points_per_osc: float, coarse_k: tuple, device: str,
                dtype: torch.dtype) -> dict:
     """The sampled l's, the fine k grid, its dlnk weights and the ln-k
-    stencil from the coarse grid `coarse_k`, on a device, once."""
+    stencil from the coarse grid `coarse_k`, on a device, once; and the
+    reverse kernel's scatter of the stencil (`transposed_stencil` of
+    models/cls.py on the 2-point bracket: `blk_off`, `row_kb`, `rtot`, and
+    `rspan`, the most coarse rows a block of TLOS_KT fine k touches)."""
     f = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     kf = f(fine_k_grid(tau0_hint, kmax_hint, points_per_osc))
     lnkf = torch.log(kf)
     lo, hi, w = _k_stencil(torch.log(f(np.asarray(coarse_k))), lnkf)
     dlnk = lnkf[1:] - lnkf[:-1]
     wk = torch.cat([dlnk[:1] / 2, (dlnk[1:] + dlnk[:-1]) / 2, dlnk[-1:] / 2])
+    lo_h, hi_h = lo.cpu().numpy(), hi.cpu().numpy()
+    blk_off, row_kb = transposed_stencil(np.stack([lo_h, lo_h, hi_h, hi_h], 1),
+                                         len(coarse_k))
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
     return dict(ls=f(default_l_samples(lmax)), kf=kf, wk=wk, lo=lo, hi=hi,
-                w=w.contiguous())
+                w=w.contiguous(), blk_off=i32(blk_off), row_kb=i32(row_kb),
+                rtot=int(blk_off[-1]), rspan=int(np.diff(blk_off).max()))
 
 
 def tlos_lattice(chi: torch.Tensor, kf: torch.Tensor, n0: torch.Tensor,
@@ -490,6 +618,70 @@ def _tlos_cuda(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
     return out
 
 
+def _tlos_bwd_cuda(src, lo, hi, w, kf, chi, wt, jl_tab, jlp_tab, ls, inv_dx,
+                   grid: dict, g):
+    """csrc/tensor_los.cu's reverse kernel: the cotangents of src (C, 2,
+    nk, N), chi and wt (C, N) from that of the output g (3, C, nl, nkf), as
+    autograd of `_tlos_plain` gives them: the derivative of j_l and j_l' in
+    x is the slope of the table's linear interpolant (the index is
+    truncated, as in JAX), max(x, 1e-8) passes nothing below 1e-8, and the
+    source cotangent goes back to the coarse k through the transposed
+    2-point stencil. A block owns (chain, 32 fine k, a tile of tau nodes),
+    its lanes walk the live sampled l's; the sums over k and the scatter to
+    the coarse rows go through partial buffers added in a fixed order (no
+    atomics). `grid` is the `_tlos_grid` of lo, hi, w."""
+    tabs = _TLOS_BY_TABLE.get(id(jl_tab))
+    if tabs is None or tabs["jl"] is not jl_tab or tabs["jlp"] is not jlp_tab:
+        raise ValueError("jl_tab and jlp_tab must be the tables of tlos_tables(): "
+                         "the kernel reads their packed form")
+    if grid["lo"] is not lo or grid["hi"] is not hi:
+        raise ValueError("grid must be the _tlos_grid of the stencil lo, hi")
+    C, _, nk, N = src.shape
+    nl, nx = jl_tab.shape
+    nkf = kf.shape[0]
+    nslot = tabs["pairs"].shape[1]
+    dtype = src.dtype
+    g = g.contiguous()
+    kernels.check(src, "sources", (C, 2, nk, N))
+    for name, t in (("chi", chi), ("wt", wt)):
+        kernels.check(t, name, (C, N), dtype)
+    kernels.check(g, "g", (3, C, nl, nkf), dtype)
+    nkb = -(-nkf // TLOS_KT)
+    kernels.check(grid["blk_off"], "blk_off", (nkb + 1,), torch.int32)
+    kernels.check(grid["row_kb"], "row_kb", (nk, 2), torch.int32)
+    rtot = grid["rtot"]
+    part_src = torch.empty(C, 2, rtot, N, dtype=dtype, device=src.device)
+    part_w = torch.empty(C, nkb, 2, N, dtype=dtype, device=src.device)
+    g_src = torch.empty_like(src)
+    g_chi, g_wt = torch.empty_like(chi), torch.empty_like(wt)
+    kernels.launch("tensor_los_bwd", dtype, src, lo, hi, w, kf, chi, wt,
+                   tabs["pairs"], tabs["n0"], ls, g, grid["blk_off"],
+                   grid["row_kb"], part_src, part_w, g_src, g_chi, g_wt, C, nk,
+                   N, nl, nslot, nx, nkf, float(inv_dx), grid["rspan"], rtot)
+    return g_src, g_chi, g_wt
+
+
+class _TensorLos(torch.autograd.Function):
+    """K6 on the card with its reverse kernel (`_tlos_bwd_cuda`); `rest` is
+    `_tlos_cuda`'s other arguments (lo, hi, w, kf, jl_tab, jlp_tab, ls,
+    inv_dx)."""
+
+    @staticmethod
+    def forward(ctx, src, chi, wt, rest, grid):
+        ctx.save_for_backward(src, chi, wt)
+        ctx.rest, ctx.grid = rest, grid
+        lo, hi, w, kf, jl, jlp, ls, inv_dx = rest
+        return _tlos_cuda(src, lo, hi, w, kf, chi, wt, jl, jlp, ls, inv_dx)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        src, chi, wt = ctx.saved_tensors
+        lo, hi, w, kf, jl, jlp, ls, inv_dx = ctx.rest
+        return (*_tlos_bwd_cuda(src, lo, hi, w, kf, chi, wt, jl, jlp, ls,
+                                inv_dx, ctx.grid, g), None, None)
+
+
 def _tlos_inputs(to: TensorOutput, lmax: int, tau0_hint: float,
                  kmax_hint: float, points_per_osc: float, coarse_k):
     """The arguments of `_tlos_plain` / `_tlos_cuda` for the sources `to`,
@@ -537,11 +729,19 @@ def compute_tensor_transfers(to: TensorOutput, lmax: int = 700,
                              coarse_k=None) -> TensorTransferCache:
     """SLOW stage: tensor sources x Bessel (ZS97 window functions).
     `coarse_k` is the host grid the sources were evolved on (to.k's
-    values); without it they are copied from to.k."""
+    values); without it they are copied from to.k. The plain version on
+    the CPU (autograd differentiates it), on the card the kernel, through
+    `_TensorLos` when the sources, tau or tau0 want a gradient."""
     args, grid = _tlos_inputs(to, lmax, tau0_hint, kmax_hint, points_per_osc,
                               coarse_k)
-    los = _tlos_plain if to.sT.device.type == "cpu" else _tlos_cuda
-    out = los(*args)
+    src, lo, hi, w, kf, chi, wt, jl, jlp, ls, inv_dx = args
+    if src.device.type == "cpu":
+        out = _tlos_plain(*args)
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in (src, chi, wt)):
+        out = _TensorLos.apply(src, chi, wt, (lo, hi, w, kf, jl, jlp, ls, inv_dx),
+                               grid)
+    else:
+        out = _tlos_cuda(*args)
     return TensorTransferCache(grid["ls"], grid["kf"], grid["wk"], out[0], out[1],
                                out[2])
 

@@ -401,30 +401,31 @@ class CMBPosterior:
         it has one: a kernel of its slow path without a reverse pass. K4,
         K1 in all four instantiations (base, the massive-neutrino
         hierarchy, the dark-energy fluid, both; with or without CDM
-        isocurvature), K2a (the table line of sight) and K3 (in the semi
-        stage) have theirs, so the flagship CMB path, base_mnu, base_w_wa
-        and the LSS-only path take gradients; the tensor modes (K5, K6) and
-        the recurrence line of sight (K2b) have none, and their plain
-        versions run under no_grad, so a gradient would come back partial.
-        The action-2 and HMC dispatch of driver.py asks the same."""
-        why = [name for name, on in (
-            ("compute_tensors (the tensor kernels K5, K6)",
-             self.use_cmb and self.compute_tensors),
-            ("los_method = recurrence (K2b)",
-             self.use_cmb and self.los_method == "recurrence")) if on]
-        return None if not why else ", ".join(why)
+        isocurvature), K2a (the table line of sight), K3 (in the semi
+        stage) and the tensor kernels K5 and K6 have theirs, so the
+        flagship CMB path, LCDM+r, base_mnu, base_w_wa and the LSS-only
+        path take gradients; the recurrence line of sight (K2b) has none,
+        and its plain version runs under no_grad, so a gradient would come
+        back partial. The action-2 and HMC dispatch of driver.py asks the
+        same."""
+        if self.use_cmb and self.los_method == "recurrence":
+            return "los_method = recurrence (K2b)"
+        return None
 
     def stage_slow(self, full_P: torch.Tensor) -> dict:
         """Everything independent of the primordial power and nuisance.
 
         Differentiable where `gradient_unsupported()` is None (the flagship
-        CMB path, base_mnu, base_w_wa with or without alpha1, and the
-        LSS-only path: K4, K1 in each instantiation and K2a with their
-        reverse kernels on the card, autograd of the plain versions on the
-        CPU; halofit's k_sigma bisection carries no derivative, as in JAX);
-        elsewhere (LCDM+r, the recurrence line of sight) raises
-        NotImplementedError when asked for a gradient, rather than return
-        one that holds only part of the slow path."""
+        CMB path, LCDM+r, base_mnu, base_w_wa with or without alpha1, and
+        the LSS-only path: K4, K1 in each instantiation, K2a, and with
+        compute_tensors K5 and K6, with their reverse kernels on the card,
+        autograd of the plain versions on the CPU; halofit's k_sigma
+        bisection carries no derivative, as in JAX); with the recurrence
+        line of sight raises NotImplementedError when asked for a
+        gradient, rather than return one that holds only part of the slow
+        path. K1's and K5's gradients are checkpointed in `remat_chunks`
+        chunks (the tensor evolution and the matter path in
+        DEFAULT_REMAT_CHUNKS when it is 0)."""
         if torch.is_grad_enabled() and full_P.requires_grad:
             why = self.gradient_unsupported()
             if why is not None:
@@ -458,7 +459,9 @@ class CMBPosterior:
                       tau_stride=self.los_tau_stride)
             if self.compute_tensors:
                 kt = tensor_k_grid()
-                to = evolve_tensors(bg, tf, po.tau0, kt)
+                to = evolve_tensors(
+                    bg, tf, po.tau0, kt,
+                    remat_chunks=self.remat_chunks or DEFAULT_REMAT_CHUNKS)
                 tt_cache = compute_tensor_transfers(
                     to, lmax=min(700, self.lmax), coarse_k=kt)
         if self.matter_power:
@@ -514,8 +517,8 @@ class CMBPosterior:
         """Primordial power on the cached transfers, then lensing, and the
         P(k, z) / sigma8 tables. Differentiable (on the card K3's reverse
         kernel carries the gradient through lens_cls); the tensor C_l's
-        transfers come from the slow stage, which refuses a gradient with
-        compute_tensors."""
+        transfers come from the slow stage (K6, with its reverse kernel),
+        the tensor power from r and nt here."""
         pp = self._primordial(full_P)
         A9 = torch.exp(full_P[:, self._i_logA]) / 10.0        # 10^9 A_s
         mp = (matter_power_from_transfers(slow["bg"], pp, slow["mt"])

@@ -18,9 +18,9 @@ between segments on the host. Randomness comes from the sampler's own
 may pass the draws in instead (`HMCDraws`).
 
 A posterior with a slow stage (CMBPosterior) takes its gradient through
-the reverse kernels on the card (the flagship, base_mnu, base_w_wa, the
-LSS-only configurations) and refuses where a kernel of its slow path has
-no reverse pass yet (LCDM+r's tensor modes, the recurrence line of sight:
+the reverse kernels on the card (the flagship, LCDM+r, base_mnu,
+base_w_wa, the LSS-only configurations) and refuses where a kernel of its
+slow path has no reverse pass yet (the recurrence line of sight:
 `CMBPosterior.gradient_unsupported()`, ROADMAP.md queue 1 item 4).
 """
 

@@ -16,7 +16,8 @@ BOBYQA in whitened coordinates + low-temperature MCMC refinement rounds,
 
 The posterior is batched: `logpost(P (C, n)) -> (-logL (C,), derived)`;
 a point is a batch of one chain. A CMBPosterior takes gradients where its
-slow path has reverse kernels (`CMBPosterior.gradient_unsupported()`).
+slow path has reverse kernels (`CMBPosterior.gradient_unsupported()`:
+every configuration but the recurrence line of sight).
 
 Writes the `.minimum` text layout of calclike.f90 WriteBestFitParams.
 """

@@ -326,32 +326,42 @@ def test_lcdm_r_builds(tmp_path, data, monkeypatch):
 # ---------------------------------------------------------------- raises
 
 
-#: configurations whose slow path still lacks reverse kernels: LCDM+r (the
-#: tensor kernels K5, K6), also with mnu free (K1's massive-neutrino
-#: hierarchy has its reverse kernel; the tensor kernels still have none)
-NO_GRADIENT_INIS = {
+#: LCDM+r, also with mnu free: their slow paths have reverse kernels (the
+#: tensor kernels K5, K6; K1's massive-neutrino hierarchy), so action 2 and
+#: HMC go on to the theory
+LCDM_R_INIS = {
     "lcdm_r": "compute_tensors = T\nparam[r] = 0.1 0 2 0.04 0.04\n",
     "lcdm_r_mnu": ("compute_tensors = T\nparam[r] = 0.1 0 2 0.04 0.04\n"
                    "param[mnu] = 0.06 0 5 0.1 0.03\n"),
 }
 
 
-@pytest.mark.parametrize("config", sorted(NO_GRADIENT_INIS))
+class _Theory(Exception):
+    """Raised by the stubbed slow stage: the driver reached the theory."""
+
+
+@pytest.mark.parametrize("config", sorted(LCDM_R_INIS))
 @pytest.mark.parametrize("body", ["action = 2", "sampling_method = hmc"])
 def test_slow_stage_without_gradients_raises(tmp_path, data, monkeypatch,
                                              body, config):
-    """Action 2 and HMC on a posterior whose slow stage has a kernel
-    without a reverse pass raise before any theory is evaluated."""
+    """Action 2 and HMC on LCDM+r inis (also with mnu free) pass the
+    gradient guard and reach the theory (stubbed here), with K5's
+    checkpoints taken from boltzmann_remat_chunks; no kernel is launched
+    on the CPU. Only the recurrence line of sight still refuses
+    (tests/test_torch_grad_guard.py)."""
     monkeypatch.setenv("COSMOMC_DATA", data["bbn_dir"])
 
-    def no_theory(*a, **k):
-        raise AssertionError("theory evaluated")
-    monkeypatch.setattr(tpipe.CMBPosterior, "stage_slow", no_theory)
+    def theory(*a, **k):
+        raise _Theory
+    monkeypatch.setattr(tpipe.CMBPosterior, "stage_slow", theory)
     ini = tmp_path / "flag.ini"
     ini.write_text(f"file_root = {tmp_path}/c/flag\npliklite_dataset = "
-                   f"{data['plik']}\n{NO_GRADIENT_INIS[config]}{body}\n")
+                   f"{data['plik']}\n{LCDM_R_INIS[config]}{body}\n")
+    post = tdriver.build_posterior(IniFile(str(ini)), device="cpu")
+    assert post.compute_tensors and post.gradient_unsupported() is None
+    assert post.remat_chunks == (64 if "hmc" in body else 0)
     kernels.reset_launches()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(_Theory):
         tdriver.run_ini(str(ini), device="cpu")
     assert not any(kernels.launches.values())
 

@@ -1,16 +1,16 @@
 """Which configurations take a gradient through the slow stage, on the CPU
 (no theory is evaluated: the first step of the slow stage is stubbed).
 
-`CMBPosterior.gradient_unsupported()` is the one predicate: the tensor
-modes (K5, K6) and the recurrence line of sight (K2b) have kernels without
-a reverse pass, and there `stage_slow` and the driver's action 2 and
-sampling_method = hmc raise NotImplementedError before any work; the
-flagship CMB path (K4, K1, K2a, K3), with matter power or under the SPT
-configuration's high-l splice, the massive-neutrino hierarchy and the
+`CMBPosterior.gradient_unsupported()` is the one predicate: the recurrence
+line of sight (K2b) has a kernel without a reverse pass, and there
+`stage_slow` and the driver's action 2 and sampling_method = hmc raise
+NotImplementedError before any work; the flagship CMB path (K4, K1, K2a,
+K3), with matter power or under the SPT configuration's high-l splice,
+LCDM+r (the tensor kernels K5, K6), the massive-neutrino hierarchy and the
 dark-energy fluid (K1's extended instantiations), and the LSS-only astro
 configuration let the gradient through. The wrappers of the reverse
-kernels, K1's four instantiations among them, take no plain fallback on
-CPU tensors.
+kernels, K1's four instantiations and the tensor kernels among them, take
+no plain fallback on CPU tensors.
 """
 
 import numpy as np
@@ -49,8 +49,8 @@ CONFIGS = {
     "astro_de": (AstroParameterization, dict(use_cmb=False, matter_power=True,
                                              de_perturbations=True)),
 }
-SUPPORTED = {"astro", "theta", "theta_mp", "spt", "theta_mnu", "astro_mnu",
-             "astro_de"}
+SUPPORTED = {"astro", "theta", "theta_mp", "spt", "lcdm_r", "theta_mnu",
+             "astro_mnu", "astro_de"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -173,6 +173,33 @@ def test_reverse_wrappers_take_no_plain_path():
     cl = torch.ones(1, 4, 79, dtype=F64, requires_grad=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tlens._passes_cuda(cl, 160, True, 59)
+
+
+def test_tensor_wrappers_refuse_cpu_tensors():
+    """K5 and K6 take their reverse kernels when a gradient is wanted
+    (`_Tensors`, `_TensorLos`), and on CPU tensors those refuse rather than
+    run the plain version; the reverse wrappers refuse them too."""
+    from cosmomc_tpu_torch.models import tensors as tten
+    q = torch.zeros(1, 4, 4, tten.NQT, dtype=F64, requires_grad=True)
+    k = torch.ones(2, dtype=F64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tten._evolve_t_cuda(q, k, 1, True)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tten._tensors_bwd(q.detach(), k, torch.zeros(1, 2, 2, tten.NVAR_T, dtype=F64),
+                          torch.zeros(3, 1, 4, 2, dtype=F64), 1, True, 4)
+    kt = tten.tensor_k_grid(kmax=0.01, nk=6)
+    grid = tten._tlos_grid(60, 14700.0, 0.01, 4.0, tuple(kt.tolist()), "cpu", F64)
+    tabs = tten.tlos_tables(tuple(grid["ls"].long().tolist()), 0.01 * 14700.0 * 1.02 + 10,
+                            "cpu")
+    src = torch.zeros(1, 2, 6, 8, dtype=F64, requires_grad=True)
+    w = torch.ones(1, 8, dtype=F64)
+    rest = (grid["lo"], grid["hi"], grid["w"], grid["kf"], tabs["jl"], tabs["jlp"],
+            grid["ls"], 5.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tten._TensorLos.apply(src, w, w, rest, grid)
+    assert {"tensors_bwd", "tensor_los_bwd"} <= set(kernels.launches)
+    assert kernels.VARIANTS["tensors_bwd"] == "tensors"
+    assert kernels.VARIANTS["tensor_los_bwd"] == "tensor_los"
 
 
 @pytest.mark.parametrize("sw", [(True, False), (False, True), (True, True)])

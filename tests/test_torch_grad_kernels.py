@@ -1,5 +1,5 @@
 """The reverse kernels against autograd of their plain versions, on the
-card (K4, K1 in its four instantiations, K2a, K3). Every test here needs an NVIDIA GPU and nvcc and
+card (K4, K1 in its four instantiations, K2a, K3, K5, K6). Every test here needs an NVIDIA GPU and nvcc and
 skips without them; run on the card with
 
     python -m pytest tests/test_torch_grad_kernels.py -q --noconftest
@@ -287,3 +287,92 @@ def test_lensing_reverse_kernel(dev):
         assert kernels.launches["lensing_bwd"] == 1
         for q in range(4):
             assert rel_err(got[:, q], ref[:, q]) <= tol, (dt, q)
+
+
+@pytest.mark.parametrize("substeps,chunks", [(1, 6), (2, 0)])
+def test_tensors_reverse_kernel(dev, cosmo, substeps, chunks):
+    """K5's reverse (tensors_bwd) through `_Tensors` against autograd of
+    `_evolve_t_plain`: 2 chains, 16 tensor k, the 1023 steps of a
+    1024-node grid (tight coupling, held lanes, the freeze of the top k),
+    1 and 2 substeps; 0 chunks takes the wrapper's default."""
+    from cosmomc_tpu_torch.models import tensors as tten
+    bg, yhe = cosmo
+    with torch.no_grad():
+        th = trec.compute_thermo(bg, yhe)
+        zre = zre_from_tau(bg, torch.full((2,), 0.055, dtype=F64, device=dev),
+                           yhe)
+        tf, _ = tpert.build_thermo_funcs(bg, yhe, th, zre, n_step=1024)
+        q = tten._stage_table(bg, tf, substeps).float().double().contiguous()
+    k = torch.as_tensor(tten.tensor_k_grid(nk=16), dtype=F64, device=dev)
+    gout = torch.randn(3, 2, q.shape[1], 16, generator=torch.Generator().manual_seed(7),
+                       dtype=F64).to(dev)
+    qq = q.clone().requires_grad_(True)
+    (ref,) = torch.autograd.grad((tten._evolve_t_plain(qq, k, substeps, True, 8)
+                                  * gout).sum(), [qq])
+    for dt, tol in ((F64, 1e-9), (F32, 1e-5)):
+        kernels.reset_launches()
+        qk = q.to(dt).requires_grad_(True)
+        (got,) = torch.autograd.grad((tten._evolve_t_cuda(qk, k.to(dt), substeps, True,
+                                                          chunks) * gout.to(dt)).sum(),
+                                     [qk])
+        assert kernels.launches["tensors"] == 1
+        assert kernels.launches["tensors_bwd"] == 1
+        assert bool(torch.isfinite(got).all())
+        assert rel_err(got, ref) <= tol, (dt, rel_err(got, ref))
+
+
+def test_tensor_los_reverse_kernel(dev):
+    """K6's reverse (tensor_los_bwd) through `_TensorLos` against autograd
+    of `_tlos_plain`: 2 chains of smooth sources on 24 coarse k to
+    0.03/Mpc, 256 tau nodes, lmax 300, the second chain's last node a few
+    ulps below its tau0 (x < 1e-8). Float64 within 1e-9; float32 no less
+    accurate than the plain version in float32 (the cotangent of chi at
+    that node cancels in float32: the plain version's is 0.86% off on the
+    CPU) or within 5e-5."""
+    from cosmomc_tpu_torch.models import tensors as tten
+    from cosmomc_tpu_torch.models.bessel import default_l_samples
+    kmax, tau0_hint, nt = 0.03, 14700.0, 256
+    coarse = tten.tensor_k_grid(kmax=kmax, nk=24)
+    tau0 = torch.tensor([14100.0, 13950.0], dtype=F64)
+    tau = torch.stack([torch.cat([torch.logspace(np.log10(200.0), np.log10(1200.0),
+                                                 nt // 2, dtype=F64),
+                                  torch.linspace(1300.0, float(t0) - 30.0, nt // 2,
+                                                 dtype=F64)]) for t0 in tau0])
+    tau[1, -1] = tau0[1] * (1 - 4e-16)
+    kk = torch.as_tensor(coarse)[:, None]
+    src = torch.stack([torch.stack([torch.exp(-((t - 280.0) / 60.0) ** 2)
+                                    * torch.cos(kk * t / (3.0 + i)) for i in range(2)])
+                       for t in tau]).float().double()
+    G = None
+    out = {}
+    for dt in (F64, F32):
+        grid = tten._tlos_grid(300, tau0_hint, kmax, 4.0, tuple(coarse.tolist()),
+                               str(dev), dt)
+        tabs = tten.tlos_tables(tuple(default_l_samples(300).tolist()),
+                                kmax * tau0_hint * 1.02 + 10, dev)
+        chi = (tau0[:, None] - tau).to(dev, dt)
+        dtau = tau[:, 1:] - tau[:, :-1]
+        wt = torch.cat([dtau[:, :1] / 2, (dtau[:, 1:] + dtau[:, :-1]) / 2,
+                        dtau[:, -1:] / 2], 1).to(dev, dt)
+        rest = (grid["lo"], grid["hi"], grid["w"], grid["kf"], tabs["jl"], tabs["jlp"],
+                grid["ls"], float(torch.tensor(1.0 / tabs["dx"], dtype=dt)))
+        if G is None:
+            G = torch.randn(3, 2, grid["ls"].shape[0], grid["kf"].shape[0],
+                            generator=torch.Generator().manual_seed(8),
+                            dtype=F64).to(dev)
+        xs = [t.clone().requires_grad_(True) for t in (src.to(dev, dt), chi, wt)]
+        o = tten._tlos_plain(xs[0], *rest[:4], xs[1], xs[2], *rest[4:])
+        out["plain", dt] = torch.autograd.grad((o * G.to(dt)).sum(), xs)
+        xs = [t.detach().clone().requires_grad_(True) for t in xs]
+        kernels.reset_launches()
+        o = tten._TensorLos.apply(*xs, rest, grid)
+        out[dt] = torch.autograd.grad((o * G.to(dt)).sum(), xs)
+        assert kernels.launches["tensor_los"] == 1
+        assert kernels.launches["tensor_los_bwd"] == 1
+    for a, b, p in zip(out[F64], out["plain", F64], out["plain", F32]):
+        assert bool(torch.isfinite(a).all())
+        assert rel_err(a, b) <= 1e-9, rel_err(a, b)
+    for a, b, p in zip(out[F32], out["plain", F64], out["plain", F32]):
+        assert bool(torch.isfinite(a).all())
+        assert rel_err(a, b) <= max(2.0 * rel_err(p, b), 5e-5), (rel_err(a, b),
+                                                                  rel_err(p, b))
